@@ -1,0 +1,89 @@
+"""A single environment: the batched engine at a batch of one.
+
+``SnakeEnv.step`` is the plain step without auto-reset, as in the JAX
+package: after the episode ends, the caller resets. The state keeps its
+batch axis of one; the obs and the step output are those of the one env.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from marlsnake_torch.core import engine
+from marlsnake_torch.core.spawn import spawn_candidates
+from marlsnake_torch.core.state import EnvState
+from marlsnake_torch.core.types import EnvConfig, check_port_scope
+from marlsnake_torch.device import resolve_device
+from marlsnake_torch.rng import reset_draws, step_draws
+
+
+class SnakeEnv:
+    """Usage::
+
+        env = make_env(EnvConfig(height=20, width=20, num_snakes=4))
+        state, obs = env.reset(seed=0)       # obs (N, H, W, 8) uint8
+        state, out = env.step(state, torch.zeros(4, dtype=torch.int32))
+    """
+
+    def __init__(self, cfg: EnvConfig, device='cuda', seed: int = 0):
+        check_port_scope(cfg)
+        if cfg.map_layout is not None:
+            from marlsnake_torch.core.maps import parse_layout
+            interior = int((~parse_layout(cfg.map_layout)).sum())
+        else:
+            interior = (cfg.height - 2) * (cfg.width - 2)
+        if cfg.num_snakes * cfg.snake_length > interior:
+            raise ValueError(
+                f'{cfg.num_snakes} snakes of length {cfg.snake_length} '
+                f'cannot fit on a {cfg.height}x{cfg.width} board '
+                f'({interior} interior cells)')
+        if spawn_candidates(cfg.height, cfg.width, cfg.snake_length,
+                            cfg.map_layout).shape[0] == 0:
+            raise ValueError('no valid spawn positions for this config')
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.spawn = engine.spawn_tables(cfg, self.device)
+
+    def reset(self, seed: Optional[int] = None
+              ) -> Tuple[EnvState, torch.Tensor]:
+        if seed is not None:
+            self.generator.manual_seed(seed)
+        state, obs = engine.reset(
+            self.cfg, self.spawn,
+            reset_draws(self.cfg, 1, self.generator, self.device))
+        return state, obs[0]
+
+    def step(self, state: EnvState, actions
+             ) -> Tuple[EnvState, engine.StepOutput]:
+        actions = torch.as_tensor(actions, device=self.device).view(1, -1)
+        draws = step_draws(self.cfg, 1, self.generator, self.device)
+        state, out = engine.step(self.cfg, state, actions, draws.fruit_u)
+        return state, engine.StepOutput(
+            **{name: t[0] for name, t in out.fields()})
+
+    @property
+    def num_snakes(self) -> int:
+        return self.cfg.num_snakes
+
+    @property
+    def obs_shape(self):
+        return self.cfg.obs_shape
+
+    @property
+    def num_actions(self) -> int:
+        return self.cfg.num_actions
+
+
+def make_env(cfg: Optional[EnvConfig] = None, device='cuda', seed: int = 0,
+             **kwargs) -> SnakeEnv:
+    """Build an env from a config or reference-style kwargs (``height,
+    width, num_snakes, snake_length, observer, reward_dict, num_fruits,
+    max_episode_steps``)."""
+    if cfg is None:
+        cfg = EnvConfig.from_reward_dict(kwargs.pop('reward_dict', None),
+                                         **kwargs)
+    return SnakeEnv(cfg, device=device, seed=seed)

@@ -1,0 +1,90 @@
+"""Vectorized environments: one batch of envs as tensors on one device.
+
+With ``autoreset=True`` (the default), an env whose episode ends is reset
+inside the same step: the returned state and obs are the fresh episode's,
+while reward, done and the stats describe the finished step. On CUDA that
+step is one launch of the hand-written kernel (``ops/step_kernel.py``);
+on the CPU it is the plain version, ``engine.step_autoreset``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from marlsnake_torch.core import engine
+from marlsnake_torch.core.state import EnvState
+from marlsnake_torch.core.types import EnvConfig, check_port_scope
+from marlsnake_torch.device import resolve_device
+from marlsnake_torch.ops import step_kernel
+from marlsnake_torch.rng import (ResetDraws, StepDraws, reset_draws,
+                                 step_draws)
+
+
+def build_vector_fns(cfg: EnvConfig, autoreset: bool = True,
+                     device='cuda'):
+    """Return (reset_fn, step_fn) over batched states on ``device``.
+
+    ``reset_fn(draws: ResetDraws) -> (states, obs)``;
+    ``step_fn(states, actions (B, N), draws: StepDraws) -> (states, out)``.
+    Without auto-reset the step uses only ``draws.fruit_u``.
+    """
+    check_port_scope(cfg)
+    tables = engine.spawn_tables(cfg, resolve_device(device))
+
+    def reset_fn(draws: ResetDraws):
+        return engine.reset(cfg, tables, draws)
+
+    if autoreset:
+        def step_fn(states, actions, draws: StepDraws):
+            return step_kernel.step_autoreset(cfg, tables, states, actions,
+                                              draws)
+    else:
+        def step_fn(states, actions, draws: StepDraws):
+            return engine.step(cfg, states, actions, draws.fruit_u)
+
+    return reset_fn, step_fn
+
+
+class VectorSnakeEnv:
+    """A batch of ``num_envs`` envs on one device, with its own seeded
+    ``torch.Generator`` for the spawn and fruit draws."""
+
+    def __init__(self, cfg: EnvConfig, num_envs: int,
+                 autoreset: bool = True, device='cuda', seed: int = 0):
+        self.cfg = cfg
+        self.num_envs = num_envs
+        self.autoreset = autoreset
+        self.device = resolve_device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self._reset, self._step = build_vector_fns(cfg, autoreset,
+                                                   self.device)
+
+    def reset(self, seed: Optional[int] = None
+              ) -> Tuple[EnvState, torch.Tensor]:
+        """Reset every env; reseeds the generator when ``seed`` is given."""
+        if seed is not None:
+            self.generator.manual_seed(seed)
+        return self._reset(reset_draws(self.cfg, self.num_envs,
+                                       self.generator, self.device))
+
+    def step(self, states: EnvState, actions,
+             draws: Optional[StepDraws] = None
+             ) -> Tuple[EnvState, engine.StepOutput]:
+        """Step every env with ``actions`` (B, N); the draws come from the
+        env's generator unless given."""
+        if draws is None:
+            draws = step_draws(self.cfg, self.num_envs, self.generator,
+                               self.device)
+        actions = torch.as_tensor(actions, device=self.device)
+        return self._step(states, actions, draws)
+
+    @property
+    def obs_shape(self):
+        return (self.num_envs,) + self.cfg.obs_shape
+
+    @property
+    def num_actions(self) -> int:
+        return self.cfg.num_actions

@@ -1,0 +1,119 @@
+"""The port's first slice as a whole: the acting rollout (auto-reset step,
+obs encode, greedy DQN) against the JAX package, its import boundary,
+its default device, and a CPU smoke of its bench."""
+
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from marlsnake_tpu.models.dqn import DQN as FlaxDQN
+from marlsnake_torch import bench
+from marlsnake_torch.algo.acting import select_actions
+from marlsnake_torch.core.types import EnvConfig
+from marlsnake_torch.envs.env import make_env
+from marlsnake_torch.envs.vector import VectorSnakeEnv, build_vector_fns
+from marlsnake_torch.models.dqn import DQN, make_dqn
+from marlsnake_torch.models.weights import dqn_from_flax
+from test_torch_engine import (assert_fields_equal, configs, jax_reset,
+                               jax_spawn, jax_step_autoreset,
+                               reset_draws_from_keys, step_draws_from_keys)
+
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_greedy_acting_rollout_matches_jax():
+    """10x10, 2 snakes, 4 envs, 8 steps: the flax DQN's greedy actions
+    drive both envs; every env field is compared each step, and the
+    port's greedy choice equals JAX's wherever the top-two Q gap is
+    above 1e-4."""
+    b, hw = 4, (10, 10)
+    jcfg, cfg = configs(height=10, width=10, num_snakes=2, snake_length=3)
+    params = FlaxDQN(num_actions=3).init(
+        jax.random.key(0), jnp.zeros((1,) + hw + (8,), jnp.float32))
+    fnet = FlaxDQN(num_actions=3, assume_binary_obs=True)
+    net = DQN(hw, 8, 3, assume_binary_obs=True, device='cpu')
+    net.load_state_dict(dqn_from_flax(params, hw))
+    reset_fn, step_fn = build_vector_fns(cfg, autoreset=True, device='cpu')
+
+    keys = jax.random.split(jax.random.key(11), b)
+    jstate, jobs = jax_reset(jcfg, jax_spawn(jcfg), keys)
+    state, obs = reset_fn(reset_draws_from_keys(cfg, keys))
+    jstep = jax_step_autoreset(jcfg)
+    jdone = np.zeros((b, 2), bool)
+    gen = torch.Generator().manual_seed(0)
+    checked = 0
+    for t in range(8):
+        np.testing.assert_array_equal(np.asarray(jobs), obs.numpy())
+        qj = np.asarray(fnet.apply(params, np.asarray(jobs).reshape(
+            (b * 2,) + hw + (8,)))).reshape(b, 2, 3)
+        jact = np.where(jdone, 0, qj.argmax(-1)).astype(np.int32)
+        tact = select_actions(net, obs, torch.as_tensor(jdone), 0.0, gen, 3)
+        top2 = np.sort(qj, -1)[..., -2:]
+        clear = (top2[..., 1] - top2[..., 0]) > 1e-4
+        np.testing.assert_array_equal(tact.numpy()[clear], jact[clear])
+        checked += int(clear.sum())
+
+        draws = step_draws_from_keys(cfg, jstate.key)
+        jstate, jout = jstep(jstate, jnp.asarray(jact))
+        state, out = step_fn(state, torch.as_tensor(jact), draws)
+        assert_fields_equal(jstate, state, f'state t={t}')
+        assert_fields_equal(jout, out, f'out t={t}')
+        jobs, obs = jout.obs, out.obs
+        jdone = np.array(jout.done)
+    assert checked > 0
+
+
+def test_port_imports_no_jax():
+    code = ('import marlsnake_torch, marlsnake_torch.envs.vector, '
+            'marlsnake_torch.envs.env, marlsnake_torch.models.dqn, '
+            'marlsnake_torch.models.weights, marlsnake_torch.algo.acting, '
+            'marlsnake_torch.ops.step_kernel, marlsnake_torch.bench; '
+            'import sys; bad = [m for m in sys.modules if m.split(".")[0] '
+            'in ("jax", "flax", "marlsnake_tpu")]; assert not bad, bad')
+    subprocess.run([sys.executable, '-c', code], cwd=REPO, check=True,
+                   timeout=120)
+
+
+def test_default_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default is valid here')
+    cfg = EnvConfig(height=10, width=10, num_snakes=2)
+    for build in (lambda: VectorSnakeEnv(cfg, 2), lambda: make_env(cfg),
+                  lambda: make_dqn(cfg), lambda: bench.run(4, 2, 1)):
+        with pytest.raises(RuntimeError, match='CUDA'):
+            build()
+
+
+def test_single_env_episode_on_cpu():
+    env = make_env(height=10, width=10, num_snakes=2, snake_length=3,
+                   device='cpu', seed=3)
+    state, obs = env.reset()
+    assert obs.shape == (2, 10, 10, 8) and obs.dtype == torch.uint8
+    gen = torch.Generator().manual_seed(3)
+    for _ in range(200):
+        state, out = env.step(state, torch.randint(0, 3, (2,),
+                                                   generator=gen))
+        assert out.reward.shape == (2,) and out.obs.shape == (2, 10, 10, 8)
+        if bool(out.done_all):
+            break
+    assert bool(out.done_all) and bool(out.done.all())
+    assert sorted(out.rank.tolist())[0] == 1
+
+
+def test_bench_cpu_smoke(capsys):
+    bench.main(['--device', 'cpu', '--num-envs', '4', '--num-steps', '3',
+                '--iters', '1'])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    rec = json.loads(line)
+    assert rec['device'] == 'cpu' and rec['unit'] == 'env-steps/s'
+    assert rec['value'] > 0 and rec['spawn_mode'] == 'pool'
