@@ -8,18 +8,31 @@ Phases, each of which fails loudly (non-zero exit, no result line):
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA step kernel with nvcc from this checkout's sources;
 3. the kernel against its plain PyTorch version (engine.step_autoreset)
-   on the card, at 10x10 with 2 snakes (B=64, done_mode 'all' and 'any')
-   and at 20x20 with 4 snakes (B=4096), 64 steps each, the same actions
-   and draws for both: every state and output field must be EQUAL,
-   floats included (tolerance 0: the library is built with -fmad=false
-   and both sides do the same IEEE operations in the same order);
+   on the card, at 10x10 with 2 snakes (B=64, done_mode 'all' and 'any'),
+   at 20x20 with 4 snakes (B=4096) and at 40x40 with 8 snakes (B=1024),
+   64 steps each, the same actions and draws for both: every state and
+   output field must be EQUAL, floats included (tolerance 0: the library
+   is built with -fmad=false and both sides do the same IEEE operations in
+   the same order), and each run must auto-reset some envs;
 4. the main path: VectorSnakeEnv with 4096 envs of 20x20 with 4 snakes
    and the reference-width DQN (random weights from a seed, float32, TF32
    off) acting epsilon-greedily for 16 steps; the launch counter is set
    to 0 before and read after, and the last step is held against the
    plain version;
-5. times with CUDA events after warm-up: kernel and plain version per
-   step, the acting forward, and marlsnake_torch.bench's env-steps/s;
+5. times at 4096 envs of 20x20x4, after warm-up:
+   - device_ms: the kernel's own device time, from torch.profiler over a
+     rolling loop (each launch steps the state the previous one returned,
+     as the main path does, so the 9 MB of input state is not replayed
+     from L2);
+   - host_us: the wrapper's host time per call on that rolling loop (host
+     clock, no sync, the median of 5 blocks of 100 calls; no output is
+     read there, and a caller pays for the view of each output it reads,
+     on its first read);
+   - call_ms: the wrapper's wall rate (CUDA events around 200 calls on
+     the same inputs): the slower of host and device sets it;
+   - the plain version, the acting forward, marlsnake_torch.bench's
+     env-steps/s, and a profiler window over 16 bench steps: device time
+     by kernel name and the device's idle share;
 6. one JSON line of kernels, then, as the last line,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -36,6 +49,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_OPS_PER_S = 67e12        # H100 SXM CUDA-core rate (used for int ops)
+KERNEL_NAME = 'step_autoreset'
 
 
 def log(*args):
@@ -54,6 +68,57 @@ def event_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def host_us(fn, blocks: int = 5, iters: int = 100) -> list:
+    """Host microseconds to call ``fn()``, one mean per block of
+    ``iters`` calls: a host clock around the block with no
+    synchronisation inside (fewer calls than the launch queue holds, so
+    the host never waits for the device). The host is shared, so the
+    median block is the figure and the others show the spread."""
+    fn()
+    per_block = []
+    for _ in range(blocks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        per_block.append((time.perf_counter() - t0) / iters * 1e6)
+        torch.cuda.synchronize()
+    return per_block
+
+
+def profile_device(fn, iters: int) -> dict:
+    """Run ``fn()`` ``iters`` times under torch.profiler (CPU and CUDA).
+    Returns {'kernels': {name: [device us, count]}, 'busy_us', 'span_us',
+    'idle_share', 'wall_us'} from the device-side events: busy is their
+    summed duration, span the time from the first start to the last end
+    (one stream, so they do not overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels, busy, first, last = {}, 0.0, None, None
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        kernels.setdefault(e.name, [0.0, 0])
+        kernels[e.name][0] += end - start
+        kernels[e.name][1] += 1
+        busy += end - start
+        first = start if first is None else min(first, start)
+        last = end if last is None else max(last, end)
+    span = (last - first) if kernels else 0.0
+    return {'kernels': kernels, 'busy_us': busy, 'span_us': span,
+            'idle_share': 1.0 - busy / span if span > 0 else None,
+            'wall_us': wall_us}
 
 
 def compare(kernel_pair, plain_pair, where: str) -> float:
@@ -168,9 +233,11 @@ def main() -> int:
     # --- 3. kernel against the plain version ---
     small = dict(height=10, width=10, num_snakes=2, snake_length=3)
     big = dict(height=20, width=20, num_snakes=4, snake_length=3)
+    wide = dict(height=40, width=40, num_snakes=8, snake_length=3)
     err = max(parity(EnvConfig(**small), 64, 64, seed=1),
               parity(EnvConfig(**small, done_mode='any'), 64, 64, seed=2),
-              parity(EnvConfig(**big), 4096, 64, seed=3))
+              parity(EnvConfig(**big), 4096, 64, seed=3),
+              parity(EnvConfig(**wide), 1024, 64, seed=4))
 
     # --- 4. the main path: acting rollout at full width ---
     torch.backends.cudnn.allow_tf32 = False
@@ -219,7 +286,20 @@ def main() -> int:
     # --- 5. times ---
     s, a, d = last
     outputs = step_kernel.step_autoreset(cfg, tables, s, a, d)
-    kernel_ms = event_ms(
+    rolling = [s]
+
+    def roll():
+        rolling[0], _ = step_kernel.step_autoreset(cfg, tables, rolling[0],
+                                                   a, d)
+
+    prof = profile_device(roll, 100)
+    mine = [v for k, v in prof['kernels'].items() if KERNEL_NAME in k]
+    if not mine:
+        raise AssertionError('the profiler saw no step_autoreset kernel')
+    device_ms = sum(v[0] for v in mine) / sum(v[1] for v in mine) / 1e3
+    host_blocks = host_us(roll)
+    wrapper_us = sorted(host_blocks)[len(host_blocks) // 2]
+    call_ms = event_ms(
         lambda: step_kernel.step_autoreset(cfg, tables, s, a, d), 200)
     plain_ms = event_ms(
         lambda: engine.step_autoreset(cfg, tables, s, a, d), 20)
@@ -230,14 +310,35 @@ def main() -> int:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    log(f'step_autoreset at B={num_envs} 20x20x4: kernel {kernel_ms:.5f} '
-        f'ms, plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms '
-        f'({nbytes} bytes -> {bytes_ms:.5f} ms; {ops} int ops -> '
-        f'{ops_ms:.5f} ms) [{smi}]')
+    pct_of_bound = 100.0 * bound_ms / device_ms
+    log(f'step_autoreset at B={num_envs} 20x20x4: device {device_ms:.5f} ms '
+        f'(torch.profiler, rolling), host {wrapper_us:.2f} us per call '
+        f'(median of blocks {[round(x, 2) for x in host_blocks]}), '
+        f'call {call_ms:.5f} ms, plain {plain_ms:.5f} ms, bound '
+        f'{bound_ms:.5f} ms ({nbytes} bytes -> {bytes_ms:.5f} ms; {ops} int '
+        f'ops -> {ops_ms:.5f} ms), {pct_of_bound:.1f}% of bound [{smi}]')
     log(f'acting forward ({num_envs * cfg.num_snakes} agents, fp32): '
         f'{forward_ms:.5f} ms [{smi}]')
     b = bench.run(num_envs=4096, num_steps=256, iters=4, device='cuda')
     log(f'bench: {json.dumps(b)} [{smi}]')
+
+    bench_env = VectorSnakeEnv(cfg, num_envs, device='cuda', seed=9)
+    bench_states, _ = bench_env.reset()
+    bench_gen = torch.Generator(device=bench_env.device)
+    bench_gen.manual_seed(10)
+    held = [bench_states]
+
+    def bench_steps():
+        held[0], r = bench.rollout(bench_env, held[0], 16, bench_gen)
+
+    window = profile_device(bench_steps, 1)
+    log(f'profile of 16 bench steps: wall {window["wall_us"]:.1f} us, '
+        f'device busy {window["busy_us"]:.1f} us over a span of '
+        f'{window["span_us"]:.1f} us, idle share {window["idle_share"]} '
+        f'[{smi}]')
+    for name, (us, count) in sorted(window['kernels'].items(),
+                                    key=lambda kv: -kv[1][0]):
+        log(f'  {us:10.1f} us {count:4d}x  {name[:100]}')
 
     log(json.dumps({'kernels': [{
         'name': 'step_autoreset',
@@ -246,14 +347,19 @@ def main() -> int:
         'replaces': 'marlsnake_tpu/ops/pallas_step.py:54',
         'launches': launches,
         'max_abs_err': err,
-        'ms': kernel_ms,
+        'ms': device_ms,
         'plain_ms': plain_ms,
         'bound_ms': bound_ms,
         'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
         'library_ms': None,
+        'device_ms': device_ms,
+        'host_us': wrapper_us,
+        'call_ms': call_ms,
+        'pct_of_bound': pct_of_bound,
         'bytes': nbytes,
         'acting_forward_ms': forward_ms,
         'bench_env_steps_per_s': b['value'],
+        'bench_idle_share': window['idle_share'],
     }]}))
     log(f'total {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'ok': True, 'device': {

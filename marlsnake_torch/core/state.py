@@ -15,8 +15,12 @@ import dataclasses
 import torch
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class EnvState:
+    """Frozen, so ``replace`` makes a new state: the CUDA step wrapper
+    feeds a state it returned back to the kernel as that step's output
+    arena, which a rebound field would silently bypass."""
+
     grid: torch.Tensor            # (B, H, W) int32: type | owner << 4
     direction: torch.Tensor       # (B, N) int32 heading
     head: torch.Tensor            # (B, N, 2) int32 (row, col)

@@ -1,40 +1,53 @@
 // Batched snake step with fused auto-reset and observation encode.
 //
 // Replaces the Pallas TPU kernel marlsnake_tpu/ops/pallas_step.py::_step_block
-// (and the obs-encode epilogue of its launcher, build_pallas_step). The plain
-// PyTorch version of the same function is marlsnake_torch/core/engine.py::
-// step_autoreset; both take every random number as an input, so they agree
-// bit for bit, floats included.
+// (:54-329) and the obs-encode epilogue of its launcher, build_pallas_step
+// (:332-491). The plain PyTorch version of the same function is
+// marlsnake_torch/core/engine.py::step_autoreset; both take every random
+// number as an input, so they agree bit for bit, floats included.
 //
-// What bounds it: bytes. Per env-step the kernel reads the state (grid H*W
-// int32, the 2-bit rings, ~50 bytes per snake) and writes the new state plus
-// the (N, H, W, 8) uint8 observation; at 20x20 with 4 snakes that is ~2.2 KB
-// in and ~15 KB out, of which 12.8 KB is the observation. Its arithmetic is a
-// few integer operations per byte, far below the card's rates.
+// What bounds it on an H100: bytes. Per env-step the kernel reads the state
+// (grid H*W int32, the 2-bit rings, ~50 bytes per snake, the draws) and
+// writes the new state plus the (N, H, W, 8) uint8 observation. At 4096 envs
+// of 20x20 with 4 snakes that is about 70 MB (12.8 KB of each env's 17.2 KB
+// is the obs), 21 us at 3.35 TB/s. Its arithmetic is a few integer
+// operations per byte, far below the card's rates. Tensor cores and wgmma
+// play no part: this is integer control flow and byte movement.
 //
-// Design: one thread block per env, 128 threads. The env's grid, its rings
-// and a prefix-count buffer live in shared memory, so the step touches device
-// memory once to read the state and once to write the result. Per-snake
-// phases (turn, collision, tail chase, rewards, ring push/pop) run on threads
-// < N; grid passes (erase, reset paint, fruit placement, obs) are strided over
-// the cells with __syncthreads() between phases. The obs is written as one
-// 8-byte store per (snake, cell), consecutive threads on consecutive
-// addresses. The fruit pick uses a block-wide prefix count of empty cells
-// (warp shuffles). Cell writes that may overlap (old head, tail erase, new
-// head, new tail) run in one thread in the engine's last-writer-wins order.
+// Design, against latency:
+// - One warp per env, lane i = snake i (N <= 32), up to 8 envs per block,
+//   each warp on its own slice of shared memory (grid and rings). There is
+//   no block-wide barrier: a warp syncs with __syncwarp() and its lanes
+//   talk through warp intrinsics (__match_any_sync for same-target groups,
+//   __ballot_sync masks, __shfl_sync loops over the N snakes,
+//   __reduce_add_sync for counts). 4096 envs are 4096 warps, one wave on
+//   132 SMs at 32 resident warps each (<= 64 registers a thread).
+// - Every global read starts at entry: the grid and the rings with
+//   16-byte cp.async copies into shared memory, each lane's snake fields,
+//   draws and the env's scalars into registers.
+// - The fruit pick counts empty cells per 32-cell chunk with __ballot_sync
+//   and __popc and finds a draw's cell inside its chunk with __fns: no
+//   prefix buffer.
+// - The obs is stored 16 bytes per lane (two cells of one snake), 512
+//   contiguous bytes per warp store. A lane encodes its two cells once and
+//   stores them in every snake's plane, with the streaming hint (st.global.cs):
+//   both measured faster than a snake-outer loop with plain stores.
+// - Cell writes that may overlap (old head, tail erase, new head, new tail)
+//   run on lane 0 in the engine's last-writer-wins order.
 //
 // Exactness: float sums use __fmul_rn/__fadd_rn in the engine's order (and
-// the library is built with -fmad=false); ring bit work is on uint32_t; the
-// ring index arithmetic is floor-modulo, as in PyTorch and JAX.
+// the library is built with -fmad=false); kills are an integer count held in
+// float, so their order of addition does not matter; ring bit work is on
+// uint32_t; ring indices are floor-modulo, as in PyTorch and JAX.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMaxSnakes = 32;
-constexpr int kMaxDraws = 32;
+constexpr int kMaxWarps = 8;           // envs per block
+constexpr int kMaxSmem = 232448;       // shared memory of one block (227 KB)
+constexpr unsigned kFull = 0xffffffffu;
 
 constexpr int EMPTY = 0, WALL = 1, FRUIT = 2, HEAD = 3, BODY = 4, TAIL = 5;
 constexpr int OWNER_SHIFT = 4;
@@ -42,63 +55,83 @@ constexpr int UP = 0, RIGHT = 1, DOWN = 2, LEFT = 3;
 
 }  // namespace
 
-// Field order is mirrored by ctypes in marlsnake_torch/ops/step_kernel.py.
+// Field order is mirrored by ctypes in marlsnake_torch/ops/step_kernel.py;
+// tests/test_torch_step_kernel.py parses this struct and checks the mirror.
 struct StepArgs {
-  // inputs
-  const int32_t* grid;       // (B, HW)
-  const int32_t* dir;        // (B, N)
-  const int32_t* head;       // (B, N, 2)
-  const int32_t* tail;       // (B, N, 2)
-  const int32_t* ring;       // (B, N, CW)
-  const int32_t* ring_head;  // (B, N)
-  const int32_t* ring_len;   // (B, N)
-  const uint8_t* alive;      // (B, N) bool
-  const int32_t* alive_count;  // (B,)
-  const float* epi_scores;   // (B, N)
-  const float* epi_steps;
-  const float* epi_fruits;
-  const float* epi_kills;
-  const int32_t* episode_length;  // (B,)
-  const int32_t* actions;    // (B, N)
-  const float* fruit_u;      // (B, N)
-  const float* reset_spawn_u;  // (B,)
-  const float* reset_fruit_u;  // (B, NF)
-  const int32_t* pool_cells;   // (P, N*K)
-  const int32_t* base_grid;    // (HW,)
-  // outputs: new state
-  int32_t* o_grid;
-  int32_t* o_dir;
-  int32_t* o_head;
-  int32_t* o_tail;
-  int32_t* o_ring;
-  int32_t* o_ring_head;
-  int32_t* o_ring_len;
-  uint8_t* o_alive;
-  int32_t* o_alive_count;
-  float* o_epi_scores;
-  float* o_epi_steps;
-  float* o_epi_fruits;
-  float* o_epi_kills;
-  int32_t* o_episode_length;
-  // outputs: step output
-  float* o_reward;
-  uint8_t* o_done;
-  int32_t* o_rank;
-  float* o_io_scores;
-  float* o_io_steps;
-  float* o_io_fruits;
-  float* o_io_kills;
-  uint8_t* o_done_all;
-  uint8_t* o_obs;  // (B, N, HW, 8)
+  // The state comes in as one arena and goes out in another, with the step
+  // output behind it; the o_* byte offsets (16-byte aligned) hold for both.
+  const uint8_t* state;            // the first 14 fields of the layout
+  uint8_t* out;                    // all 23 fields
+  const int32_t* actions;          // (B, N)
+  const float* fruit_u;            // (B, N)
+  const float* reset_spawn_u;      // (B,)
+  const float* reset_fruit_u;      // (B, NF)
+  const int32_t* pool_cells;       // (P, N*K)
+  const int32_t* base_grid;        // (HW,)
+  int64_t o_grid;                  // (B, HW) int32
+  int64_t o_direction;             // (B, N) int32
+  int64_t o_head;                  // (B, N, 2) int32
+  int64_t o_tail;                  // (B, N, 2) int32
+  int64_t o_ring;                  // (B, N, CW) int32
+  int64_t o_ring_head;             // (B, N) int32
+  int64_t o_ring_len;              // (B, N) int32
+  int64_t o_alive;                 // (B, N) bool
+  int64_t o_alive_count;           // (B,) int32
+  int64_t o_epi_scores;            // (B, N) float32
+  int64_t o_epi_steps;             // (B, N) float32
+  int64_t o_epi_fruits;            // (B, N) float32
+  int64_t o_epi_kills;             // (B, N) float32
+  int64_t o_episode_length;        // (B,) int32
+  int64_t o_obs;                   // (B, N, HW, 8) uint8
+  int64_t o_reward;                // (B, N) float32
+  int64_t o_done;                  // (B, N) bool
+  int64_t o_rank;                  // (B, N) int32
+  int64_t o_episode_scores;        // (B, N) float32
+  int64_t o_episode_steps;         // (B, N) float32
+  int64_t o_episode_fruits;        // (B, N) float32
+  int64_t o_episode_kills;         // (B, N) float32
+  int64_t o_done_all;              // (B,) bool
   // shapes and config
-  int B, H, W, N, K, NF, P, CW, cap;
-  int human, any_mode, max_steps;
-  float r_fruit, r_kill, r_lose, r_win, r_time;
+  int B;
+  int H;
+  int W;
+  int N;
+  int K;
+  int NF;
+  int P;
+  int CW;
+  int cap;
+  int human;
+  int any_mode;
+  int max_steps;
+  float r_fruit;
+  float r_kill;
+  float r_lose;
+  float r_win;
+  float r_time;
 };
+
+// Field at byte offset `offset` of the input state arena / the output arena.
+template <typename T>
+__device__ __forceinline__ const T* in(const StepArgs& a, int64_t offset) {
+  return reinterpret_cast<const T*>(a.state + offset);
+}
+
+template <typename T>
+__device__ __forceinline__ T* at(const StepArgs& a, int64_t offset) {
+  return reinterpret_cast<T*>(a.out + offset);
+}
 
 __device__ __forceinline__ int pmod(int x, int m) { return ((x % m) + m) % m; }
 __device__ __forceinline__ int drow(int d) { return (d == DOWN) - (d == UP); }
 __device__ __forceinline__ int dcol(int d) { return (d == RIGHT) - (d == LEFT); }
+__device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
+
+// (row, col) as one word: equal words <=> equal pairs for |row|, |col| <
+// 32768, far beyond any board.
+__device__ __forceinline__ unsigned pack(int r, int c) {
+  return (static_cast<unsigned>(r) << 16) | (static_cast<unsigned>(c) & 0xffffu);
+}
 
 __device__ __forceinline__ int next_dir(int d, int a, int human) {
   a = min(max(a, 0), 4);
@@ -117,356 +150,380 @@ __device__ __forceinline__ int flat_delta_to_dir(int d, int w) {
   return d == -w ? UP : (d == 1 ? RIGHT : (d == w ? DOWN : LEFT));
 }
 
-// Inclusive prefix count of EMPTY cells of g into cum; returns the total
-// to every thread. All threads of the block must call it.
-__device__ int empty_prefix_count(const int* g, int* cum, int hw,
-                                  int* s_warp) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  int carry = 0;
-  for (int base = 0; base < hw; base += kThreads) {
-    const int c = base + tid;
-    int x = (c < hw && g[c] == EMPTY) ? 1 : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
-    }
-    if (lane == 31) s_warp[warp] = x;
-    __syncthreads();
-    int off = carry, tot = 0;
-#pragma unroll
-    for (int w2 = 0; w2 < kThreads / 32; ++w2) {
-      const int s = s_warp[w2];
-      if (w2 < warp) off += s;
-      tot += s;
-    }
-    if (c < hw) cum[c] = off + x;
-    __syncthreads();
-    carry += tot;
-  }
-  return carry;
+// An obs cell is a little-endian 8-byte word (two 32-bit halves), byte c =
+// channel c: wall, fruit, other head/body/tail, my head/body/tail. Its
+// owner's word differs from every other snake's on snake cells only.
+struct ObsCell {
+  uint2 other, mine;
+  int owner;  // -1 where no snake owns the cell
+};
+
+__device__ __forceinline__ uint2 channel_word(int ch) {
+  return make_uint2(ch < 4 ? 1u << (8 * ch) : 0u,
+                    ch >= 4 && ch < 8 ? 1u << (8 * (ch - 4)) : 0u);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ ObsCell obs_cell(int v) {
+  const int t = v & 15;
+  if (t >= HEAD)
+    return {channel_word(2 + t - HEAD), channel_word(5 + t - HEAD),
+            v >> OWNER_SHIFT};
+  const uint2 w = t == WALL || t == FRUIT ? channel_word(t - WALL)
+                                          : make_uint2(0u, 0u);
+  return {w, w, -1};
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The warp copies n int32 from global to its shared slice (16-byte aligned)
+// without waiting: 16 bytes a lane where the source allows, else 4. The
+// caller waits with cp_async_wait_all() and __syncwarp().
+__device__ __forceinline__ void copy_in(int* dst, const int32_t* src, int n,
+                                        int lane) {
+  if ((n & 3) == 0 && aligned16(src)) {
+    for (int x = 4 * lane; x < n; x += 128) cp_async16(dst + x, src + x);
+  } else {
+    for (int x = lane; x < n; x += 32) cp_async4(dst + x, src + x);
+  }
+}
+
+__device__ __forceinline__ void copy_out(int32_t* dst, const int* src, int n,
+                                         int lane) {
+  if ((n & 3) == 0 && aligned16(dst)) {
+    for (int x = 4 * lane; x < n; x += 128)
+      *reinterpret_cast<int4*>(dst + x) = *reinterpret_cast<const int4*>(src + x);
+  } else {
+    for (int x = lane; x < n; x += 32) dst[x] = src[x];
+  }
+}
+
+__global__ void __launch_bounds__(kMaxWarps * 32, 4)
 step_autoreset_kernel(const StepArgs a) {
-  extern __shared__ int smem[];
+  extern __shared__ __align__(16) int smem[];
   const int H = a.H, W = a.W, HW = H * W, N = a.N, K = a.K, CW = a.CW;
-  int* g = smem;                                        // HW
-  int* cum = g + HW;                                    // HW
-  uint32_t* ring = reinterpret_cast<uint32_t*>(cum + HW);  // N * CW
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= a.B) return;  // the whole warp: there is no block barrier
+  const int ncw = N * CW;
+  int* g = smem + warp * (round4(HW) + round4(ncw));
+  uint32_t* ring = reinterpret_cast<uint32_t*>(g + round4(HW));
+  const bool snake = lane < N;
+  const int e = b * N + lane;
+  const unsigned below = (1u << lane) - 1u;  // lanes under mine
 
-  __shared__ int s_tr[kMaxSnakes], s_tc[kMaxSnakes];
-  __shared__ int s_tailr[kMaxSnakes], s_tailc[kMaxSnakes];
-  __shared__ int s_owner[kMaxSnakes];
-  __shared__ int s_alive0[kMaxSnakes], s_alive1[kMaxSnakes];
-  __shared__ int s_dead[kMaxSnakes], s_eats[kMaxSnakes];
-  __shared__ int s_kc[kMaxSnakes], s_fd[kMaxSnakes], s_dcoll[kMaxSnakes];
-  __shared__ int s_chase[kMaxSnakes], s_done[kMaxSnakes];
-  __shared__ float s_epi[kMaxSnakes];
-  __shared__ int s_wcell[4 * kMaxSnakes], s_wval[4 * kMaxSnakes];
-  __shared__ int s_wok[4 * kMaxSnakes];
-  __shared__ int s_r[kMaxDraws];
-  __shared__ int s_warp[kThreads / 32];
-  __shared__ int s_acount, s_fruit_taken, s_done_all;
-
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const bool snake = tid < N;
-  const int i = tid, e = b * N + tid;
-
-  for (int c = tid; c < HW; c += kThreads) g[c] = a.grid[(size_t)b * HW + c];
-  for (int x = tid; x < N * CW; x += kThreads)
-    ring[x] = static_cast<uint32_t>(a.ring[(size_t)b * N * CW + x]);
+  // --- every global read, started up front ---
+  copy_in(g, in<int32_t>(a, a.o_grid) + static_cast<size_t>(b) * HW, HW, lane);
+  copy_in(reinterpret_cast<int*>(ring),
+          in<int32_t>(a, a.o_ring) + static_cast<size_t>(b) * ncw, ncw, lane);
+  int d = 0, act = 0, hr = 0, hc = 0, tlr = 0, tlc = 0, al0 = 0, nrh = 0,
+      nrl = 0;
+  float es = 0.0f, est = 0.0f, ef = 0.0f, ek = 0.0f, fu = 0.0f;
+  if (snake) {
+    d = __ldg(in<int32_t>(a, a.o_direction) + e);
+    act = __ldg(a.actions + e);
+    hr = __ldg(in<int32_t>(a, a.o_head) + 2 * e);
+    hc = __ldg(in<int32_t>(a, a.o_head) + 2 * e + 1);
+    tlr = __ldg(in<int32_t>(a, a.o_tail) + 2 * e);
+    tlc = __ldg(in<int32_t>(a, a.o_tail) + 2 * e + 1);
+    al0 = __ldg(in<uint8_t>(a, a.o_alive) + e) != 0;
+    nrh = __ldg(in<int32_t>(a, a.o_ring_head) + e);
+    nrl = __ldg(in<int32_t>(a, a.o_ring_len) + e);
+    es = __ldg(in<float>(a, a.o_epi_scores) + e);
+    est = __ldg(in<float>(a, a.o_epi_steps) + e);
+    ef = __ldg(in<float>(a, a.o_epi_fruits) + e);
+    ek = __ldg(in<float>(a, a.o_epi_kills) + e);
+    fu = __ldg(a.fruit_u + e);
+  }
+  const float ru =
+      lane < a.NF ? __ldg(a.reset_fruit_u + static_cast<size_t>(b) * a.NF + lane)
+                  : 0.0f;
+  const int acount0 = __ldg(in<int32_t>(a, a.o_alive_count) + b);
+  const int elen = __ldg(in<int32_t>(a, a.o_episode_length) + b) + 1;
+  const float spawn_u = __ldg(a.reset_spawn_u + b);
+  cp_async_wait_all();
+  __syncwarp();
 
   // --- Phase 1: turn + proposed heads ---
-  int d = 0, nd = 0, hr = 0, hc = 0, tr = 0, tc = 0, tlr = 0, tlc = 0;
-  int type = 0, al0 = 0;
-  if (snake) {
-    d = a.dir[e];
-    hr = a.head[2 * e];
-    hc = a.head[2 * e + 1];
-    tlr = a.tail[2 * e];
-    tlc = a.tail[2 * e + 1];
-    al0 = a.alive[e] != 0;
-    nd = al0 ? next_dir(d, a.actions[e], a.human) : d;
-    tr = hr + drow(nd);
-    tc = hc + dcol(nd);
-    s_tr[i] = tr;
-    s_tc[i] = tc;
-    s_tailr[i] = tlr;
-    s_tailc[i] = tlc;
-    s_alive0[i] = al0;
-  }
-  __syncthreads();  // grid, rings and targets loaded
-  if (snake) {
-    const int tf = tr * W + tc;
-    const int cell = (tf >= 0 && tf < HW) ? g[tf] : 0;
-    type = cell & 15;
-    s_owner[i] = min(max(cell >> OWNER_SHIFT, 0), N - 1);
-  }
-  __syncthreads();
+  int nd = al0 ? next_dir(d, act, a.human) : d;
+  const int tr = hr + drow(nd), tc = hc + dcol(nd);
+  const int tf = tr * W + tc;
+  const int cell = (snake && tf >= 0 && tf < HW) ? g[tf] : 0;
+  const int type = cell & 15;
+  const int owner = min(max(cell >> OWNER_SHIFT, 0), N - 1);
+  const unsigned key = pack(tr, tc), tail_key = pack(tlr, tlc);
 
   // --- Phase 2: collision vs the pre-move grid ---
-  int eats = 0;
-  if (snake) {
-    int count = 0, shared_lower = 0;
-    for (int j = 0; j < N; ++j) {
-      const int same = al0 && s_alive0[j] && s_tr[j] == tr && s_tc[j] == tc;
-      count += same;
-      if (j < i && same) shared_lower = 1;
-    }
-    const int multi = count >= 2;
-    const int deadly = type == WALL || type == BODY || type == HEAD;
-    const int primary = al0 && !shared_lower;
-    eats = al0 && !multi && !deadly && type == FRUIT;
-    s_dcoll[i] = al0 && (multi || deadly);
-    s_kc[i] = primary && (type == BODY || type == HEAD);
-    s_fd[i] = primary && multi && type == FRUIT;
-    s_eats[i] = eats;
-  }
-  __syncthreads();
+  const unsigned alive0 = __ballot_sync(kFull, al0);
+  const unsigned same = __match_any_sync(kFull, key) & alive0;
+  const int multi = al0 && __popc(same) >= 2;
+  const int deadly = type == WALL || type == BODY || type == HEAD;
+  const int primary = al0 && (same & below) == 0;
+  const int eats = al0 && !multi && !deadly && type == FRUIT;
+  const int dcoll = al0 && (multi || deadly);
+  const int kc = primary && (type == BODY || type == HEAD);
+  const int fd = primary && multi && type == FRUIT;
 
-  // --- Phase 3: tail chase ---
-  float kd = 0.0f;
-  int dead = 0, al1 = 0;
-  if (snake) {
-    for (int j = 0; j < N; ++j)
-      if (s_kc[j] && s_owner[j] == i) kd = __fadd_rn(kd, 1.0f);
-    int chased = 0;  // chasers onto my old tail
-    if (eats)
-      for (int j = 0; j < N; ++j)
-        chased += s_alive0[j] && s_tr[j] == tlr && s_tc[j] == tlc;
-    kd = __fadd_rn(kd, static_cast<float>(chased));
-    int dies_chase = 0;
-    for (int f = 0; f < N; ++f)
-      if (s_eats[f] && al0 && tr == s_tailr[f] && tc == s_tailc[f])
-        dies_chase = 1;
-    s_chase[i] = chased;
-    dead = s_dcoll[i] || dies_chase;
-    al1 = al0 && !dead;
-    s_dead[i] = dead;
-    s_alive1[i] = al1;
+  // --- Phase 3: kill credit and tail chase ---
+  const unsigned eaters = __ballot_sync(kFull, eats);
+  const int kc_owner = kc ? owner : -1;
+  int kills = 0, dies_chase = 0;
+  unsigned onto_my_tail = 0;  // snakes whose target is my old tail
+  for (int j = 0; j < N; ++j) {
+    const unsigned kj = __shfl_sync(kFull, key, j);
+    const unsigned tj = __shfl_sync(kFull, tail_key, j);
+    kills += __shfl_sync(kFull, kc_owner, j) == lane;
+    if (kj == tail_key) onto_my_tail |= 1u << j;
+    if (((eaters >> j) & 1u) && key == tj) dies_chase = 1;
   }
-  __syncthreads();
-  if (tid == 0) {
-    int acount = a.alive_count[b], taken = 0;
-    for (int j = 0; j < N; ++j) {
-      acount -= s_dcoll[j] + s_chase[j];
-      taken += s_fd[j] + s_eats[j];
-    }
-    s_acount = acount;
-    s_fruit_taken = taken;
-  }
-  __syncthreads();
+  const int chased = eats ? __popc(onto_my_tail & alive0) : 0;
+  const float kd = static_cast<float>(kills + chased);
+  const int dead = dcoll || (al0 && dies_chase);
+  const int al1 = al0 && !dead;
+  const unsigned alive1 = __ballot_sync(kFull, al1);
+  // the reference decrements per chaser, on top of a phase-2 death
+  const int acount = acount0 - __reduce_add_sync(kFull, dcoll + chased);
+  const int taken = __reduce_add_sync(kFull, fd + eats);
 
-  // --- Phases 4, 5, 8: win, rewards, stats, dones ---
-  const int elen = a.episode_length[b] + 1;
+  // --- Phases 4, 5, 8: win, rewards, stats, dones, rank ---
   const int timeout = elen >= a.max_steps;
-  float rew = 0.0f, epi_s = 0.0f, epi_st = 0.0f, epi_f = 0.0f, epi_k = 0.0f;
-  if (snake) {
-    int prior = 0;
-    for (int j = 0; j < i; ++j) prior |= s_alive1[j];
-    const int win = s_acount == 1 && N > 1 && al1 && !prior;
-    rew = __fmul_rn(a.r_time, static_cast<float>(al1));
-    rew = __fadd_rn(rew, __fmul_rn(a.r_fruit, static_cast<float>(eats)));
-    rew = __fadd_rn(rew, __fmul_rn(a.r_lose, static_cast<float>(dead)));
-    rew = __fadd_rn(rew, __fmul_rn(a.r_kill, kd));
-    rew = __fadd_rn(rew, __fmul_rn(a.r_win, static_cast<float>(win)));
-    const float fruits_stat = al0 ? static_cast<float>(eats) : 0.0f;
-    const float kills_stat = al0 ? kd : 0.0f;
-    if (!al0) rew = 0.0f;
-    const float mask = __fsub_rn(1.0f, al1 ? 0.0f : 1.0f);
-    epi_s = __fadd_rn(a.epi_scores[e], __fmul_rn(mask, rew));
-    epi_st = __fadd_rn(a.epi_steps[e], mask);
-    epi_f = __fadd_rn(a.epi_fruits[e], __fmul_rn(mask, fruits_stat));
-    epi_k = __fadd_rn(a.epi_kills[e], __fmul_rn(mask, kills_stat));
-    s_epi[i] = epi_s;
-    s_done[i] = !al1 || timeout;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int any = 0, all = 1;
-    for (int j = 0; j < N; ++j) {
-      any |= s_done[j];
-      all &= s_done[j];
-    }
-    s_done_all = a.any_mode ? any : all;
-  }
+  const int win = acount == 1 && N > 1 && al1 && (alive1 & below) == 0;
+  float rew = __fmul_rn(a.r_time, static_cast<float>(al1));
+  rew = __fadd_rn(rew, __fmul_rn(a.r_fruit, static_cast<float>(eats)));
+  rew = __fadd_rn(rew, __fmul_rn(a.r_lose, static_cast<float>(dead)));
+  rew = __fadd_rn(rew, __fmul_rn(a.r_kill, kd));
+  rew = __fadd_rn(rew, __fmul_rn(a.r_win, static_cast<float>(win)));
+  const float fruits_stat = al0 ? static_cast<float>(eats) : 0.0f;
+  const float kills_stat = al0 ? kd : 0.0f;
+  if (!al0) rew = 0.0f;
+  const float mask = __fsub_rn(1.0f, al1 ? 0.0f : 1.0f);
+  const float epi_s = __fadd_rn(es, __fmul_rn(mask, rew));
+  const float epi_st = __fadd_rn(est, mask);
+  const float epi_f = __fadd_rn(ef, __fmul_rn(mask, fruits_stat));
+  const float epi_k = __fadd_rn(ek, __fmul_rn(mask, kills_stat));
+  const int done = !al1 || timeout;
+  const unsigned snakes = N == 32 ? kFull : (1u << N) - 1u;
+  const unsigned dones = __ballot_sync(kFull, snake && done);
+  const int done_all = a.any_mode ? dones != 0 : dones == snakes;
+  int rank = 1;
+  for (int j = 0; j < N; ++j) rank += __shfl_sync(kFull, epi_s, j) > epi_s;
 
-  // --- Phase 6: erase dead bodies ---
-  for (int c = tid; c < HW; c += kThreads) {
-    const int v = g[c], t = v & 15, o = v >> OWNER_SHIFT;
-    if (t >= HEAD && o < N && s_dead[o]) g[c] = EMPTY;
-  }
-
-  // ring push (alive) / pop (retracting), new head and tail
-  int nrh = 0, nrl = 0, nhr = hr, nhc = hc, ntr = tlr, ntc = tlc;
-  if (snake) {
-    const int cap = a.cap;
-    uint32_t* myr = ring + i * CW;
-    nrh = a.ring_head[e];
-    nrl = a.ring_len[e];
-    if (al1) {
-      nrh = pmod(nrh - 1, cap);
-      const int b0 = 2 * (nrh & 15);
-      uint32_t& word = myr[nrh >> 4];
-      word = (word & ~(3u << b0)) | (static_cast<uint32_t>(nd & 3) << b0);
-      nrl += 1;
+  // Either the step's own grid and rings or a fresh reset's; the branch is
+  // uniform across the warp.
+  int nhr = hr, nhc = hc, ntr = tlr, ntc = tlc, al_out = al1;
+  uint32_t* myr = ring + lane * CW;
+  if (!done_all) {
+    // --- Phase 6: erase dead bodies, ring push/pop, cell writes ---
+    const unsigned dead_mask = __ballot_sync(kFull, snake && dead);
+    if (dead_mask) {
+      for (int c = lane; c < HW; c += 32) {
+        const int v = g[c], o = v >> OWNER_SHIFT;
+        if ((v & 15) >= HEAD && o < N && ((dead_mask >> o) & 1u)) g[c] = EMPTY;
+      }
     }
     const int retract = al1 && !eats;
-    const int pidx = pmod(nrh + nrl - 1, cap);
-    const int popped =
-        static_cast<int>((myr[pidx >> 4] >> (2 * (pidx & 15))) & 3u);
-    if (retract) {
-      nrl -= 1;
-      ntr = tlr + drow(popped);
-      ntc = tlc + dcol(popped);
+    if (snake) {
+      const int cap = a.cap;
+      if (al1) {
+        nrh = pmod(nrh - 1, cap);
+        const int b0 = 2 * (nrh & 15);
+        uint32_t& word = myr[nrh >> 4];
+        word = (word & ~(3u << b0)) | (static_cast<uint32_t>(nd & 3) << b0);
+        nrl += 1;
+      }
+      const int pidx = pmod(nrh + nrl - 1, cap);
+      const int popped =
+          static_cast<int>((myr[pidx >> 4] >> (2 * (pidx & 15))) & 3u);
+      if (retract) {
+        nrl -= 1;
+        ntr = tlr + drow(popped);
+        ntc = tlc + dcol(popped);
+      }
+      if (al1) {
+        nhr = tr;
+        nhc = tc;
+      }
     }
-    if (al1) {
-      nhr = tr;
-      nhc = tc;
-    }
-    int claimed = 0;  // an alive mover targets my old tail
-    for (int j = 0; j < N; ++j)
-      claimed |= s_alive1[j] && s_tr[j] == tlr && s_tc[j] == tlc;
+    // a cell of -1 is a write that does not happen
+    const int claimed = (onto_my_tail & alive1) != 0;
     const int head_flat = hr * W + hc, nt_flat = ntr * W + ntc;
-    const int id = i << OWNER_SHIFT;
-    s_wcell[i] = head_flat;
-    s_wval[i] = BODY + id;
-    s_wok[i] = al1 && !(retract && nt_flat == head_flat);
-    s_wcell[N + i] = tlr * W + tlc;
-    s_wval[N + i] = EMPTY;
-    s_wok[N + i] = retract && !claimed;
-    s_wcell[2 * N + i] = nhr * W + nhc;
-    s_wval[2 * N + i] = HEAD + id;
-    s_wok[2 * N + i] = al1;
-    s_wcell[3 * N + i] = nt_flat;
-    s_wval[3 * N + i] = TAIL + id;
-    s_wok[3 * N + i] = al1;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    for (int x = 0; x < 4 * N; ++x) {
-      const int c = s_wcell[x];
-      if (s_wok[x] && c >= 0 && c < HW) g[c] = s_wval[x];
+    const int w_body =
+        (al1 && !(retract && nt_flat == head_flat)) ? head_flat : -1;
+    const int w_erase = (retract && !claimed) ? tlr * W + tlc : -1;
+    const int w_head = al1 ? nhr * W + nhc : -1;
+    const int w_tail = al1 ? nt_flat : -1;
+    __syncwarp();  // erase done
+    for (int kind = 0; kind < 4; ++kind) {
+      const int mine = kind == 0 ? w_body
+                     : kind == 1 ? w_erase
+                     : kind == 2 ? w_head : w_tail;
+      const int base = kind == 0 ? BODY
+                     : kind == 1 ? EMPTY
+                     : kind == 2 ? HEAD : TAIL;
+      for (int j = 0; j < N; ++j) {
+        const int c = __shfl_sync(kFull, mine, j);
+        if (lane == 0 && c >= 0 && c < HW)
+          g[c] = kind == 1 ? EMPTY : base + (j << OWNER_SHIFT);
+      }
     }
-  }
-  __syncthreads();
-
-  // --- fused auto-reset (the branch is uniform across the block) ---
-  const int done_all = s_done_all;
-  int al_out = al1;
-  if (done_all) {
+  } else {
+    // --- fused auto-reset: pool row, painted paths, rings ---
     const int P = a.P;
-    const int row =
-        min(static_cast<int>(__fmul_rn(a.reset_spawn_u[b],
-                                       static_cast<float>(P))), P - 1);
-    const int32_t* cells = a.pool_cells + (size_t)row * N * K;
-    for (int c = tid; c < HW; c += kThreads) g[c] = a.base_grid[c];
-    __syncthreads();
+    const int row = min(static_cast<int>(__fmul_rn(spawn_u, static_cast<float>(P))),
+                        P - 1);
+    copy_in(g, a.base_grid, HW, lane);
+    if (snake)
+      for (int x = 0; x < CW; ++x) myr[x] = 0u;
+    cp_async_wait_all();
+    __syncwarp();
     if (snake) {
       // paths are disjoint across snakes: body, then head, then tail
-      const int32_t* mine = cells + i * K;
-      const int id = i << OWNER_SHIFT;
-      for (int j = 0; j < K; ++j) g[mine[j]] = BODY + id;
-      g[mine[0]] = HEAD + id;
-      g[mine[K - 1]] = TAIL + id;
-      uint32_t* myr = ring + i * CW;
-      for (int x = 0; x < CW; ++x) myr[x] = 0u;
-      for (int j = 0; j < K - 1; ++j) {
-        const uint32_t dj =
-            static_cast<uint32_t>(flat_delta_to_dir(mine[j] - mine[j + 1], W));
-        myr[j >> 4] |= dj << (2 * (j & 15));
-        if (j == 0) nd = static_cast<int>(dj);
+      const int32_t* mine = a.pool_cells + (static_cast<size_t>(row) * N + lane) * K;
+      const int id = lane << OWNER_SHIFT;
+      const int first = __ldg(mine);
+      int prev = first;
+      g[first] = BODY + id;
+      for (int j = 1; j < K; ++j) {
+        const int c = __ldg(mine + j);
+        g[c] = BODY + id;
+        const uint32_t dj = static_cast<uint32_t>(flat_delta_to_dir(prev - c, W));
+        myr[(j - 1) >> 4] |= dj << (2 * ((j - 1) & 15));
+        if (j == 1) nd = static_cast<int>(dj);
+        prev = c;
       }
-      nhr = mine[0] / W;
-      nhc = mine[0] % W;
-      ntr = mine[K - 1] / W;
-      ntc = mine[K - 1] % W;
+      g[first] = HEAD + id;
+      g[prev] = TAIL + id;
+      nhr = first / W;
+      nhc = first % W;
+      ntr = prev / W;
+      ntc = prev % W;
       nrh = 0;
       nrl = K - 1;
       al_out = 1;
     }
   }
-  __syncthreads();
+  __syncwarp();
 
   // --- Phase 7: fruits on the selected grid, with the selected draws ---
-  const int count = done_all ? a.NF : s_fruit_taken;
-  const int num_empty = empty_prefix_count(g, cum, HW, s_warp);
-  if (tid < count) {
-    const float u = done_all ? a.reset_fruit_u[(size_t)b * a.NF + tid]
-                             : a.fruit_u[(size_t)b * N + tid];
-    int r = static_cast<int>(floorf(__fmul_rn(u, static_cast<float>(num_empty))));
-    r = min(max(r, 0), max(num_empty - 1, 0));
-    s_r[tid] = num_empty > 0 ? r + 1 : -1;
+  const int count = done_all ? a.NF : taken;
+  int num_empty = 0;
+  for (int base = 0; base < HW; base += 32) {
+    const int c = base + lane;
+    num_empty += __popc(__ballot_sync(kFull, c < HW && g[c] == EMPTY));
   }
-  __syncthreads();
-  for (int c = tid; c < HW; c += kThreads) {
-    if (g[c] != EMPTY) continue;
-    for (int k = 0; k < count; ++k)
-      if (cum[c] == s_r[k]) {
-        g[c] = FRUIT;
-        break;
-      }
+  int target = -1;  // my draw's 1-based rank among the empty cells
+  if (lane < count && num_empty > 0) {
+    const float u = done_all ? ru : fu;
+    const int r = static_cast<int>(floorf(__fmul_rn(u, static_cast<float>(num_empty))));
+    target = min(max(r, 0), num_empty - 1) + 1;
   }
-  __syncthreads();
+  const int last = __reduce_max_sync(kFull, target);
+  int fruit_cell = -1;
+  for (int base = 0, before = 0; before < last; base += 32) {
+    const int c = base + lane;
+    const unsigned m = __ballot_sync(kFull, c < HW && g[c] == EMPTY);
+    const int n = __popc(m);
+    if (target > before && target <= before + n)
+      fruit_cell = base + static_cast<int>(__fns(m, 0, target - before));
+    before += n;
+  }
+  __syncwarp();
+  if (fruit_cell >= 0) g[fruit_cell] = FRUIT;  // duplicate draws collapse
+  __syncwarp();
 
   // --- writes ---
-  for (int c = tid; c < HW; c += kThreads) a.o_grid[(size_t)b * HW + c] = g[c];
-  for (int x = tid; x < N * CW; x += kThreads)
-    a.o_ring[(size_t)b * N * CW + x] = static_cast<int32_t>(ring[x]);
+  copy_out(at<int32_t>(a, a.o_grid) + static_cast<size_t>(b) * HW, g, HW, lane);
+  copy_out(at<int32_t>(a, a.o_ring) + static_cast<size_t>(b) * ncw,
+           reinterpret_cast<const int*>(ring), ncw, lane);
   if (snake) {
-    int rank = 1;
-    for (int j = 0; j < N; ++j) rank += s_epi[j] > epi_s;
-    a.o_dir[e] = nd;
-    a.o_head[2 * e] = nhr;
-    a.o_head[2 * e + 1] = nhc;
-    a.o_tail[2 * e] = ntr;
-    a.o_tail[2 * e + 1] = ntc;
-    a.o_ring_head[e] = nrh;
-    a.o_ring_len[e] = nrl;
-    a.o_alive[e] = static_cast<uint8_t>(al_out);
-    a.o_epi_scores[e] = done_all ? 0.0f : epi_s;
-    a.o_epi_steps[e] = done_all ? 0.0f : epi_st;
-    a.o_epi_fruits[e] = done_all ? 0.0f : epi_f;
-    a.o_epi_kills[e] = done_all ? 0.0f : epi_k;
-    a.o_reward[e] = rew;
-    a.o_done[e] = static_cast<uint8_t>(a.any_mode ? (done_all || s_done[i])
-                                                  : s_done[i]);
-    a.o_rank[e] = rank;
-    a.o_io_scores[e] = epi_s;
-    a.o_io_steps[e] = epi_st;
-    a.o_io_fruits[e] = epi_f;
-    a.o_io_kills[e] = epi_k;
+    at<int32_t>(a, a.o_direction)[e] = nd;
+    at<int32_t>(a, a.o_head)[2 * e] = nhr;
+    at<int32_t>(a, a.o_head)[2 * e + 1] = nhc;
+    at<int32_t>(a, a.o_tail)[2 * e] = ntr;
+    at<int32_t>(a, a.o_tail)[2 * e + 1] = ntc;
+    at<int32_t>(a, a.o_ring_head)[e] = nrh;
+    at<int32_t>(a, a.o_ring_len)[e] = nrl;
+    at<uint8_t>(a, a.o_alive)[e] = static_cast<uint8_t>(al_out);
+    at<float>(a, a.o_epi_scores)[e] = done_all ? 0.0f : epi_s;
+    at<float>(a, a.o_epi_steps)[e] = done_all ? 0.0f : epi_st;
+    at<float>(a, a.o_epi_fruits)[e] = done_all ? 0.0f : epi_f;
+    at<float>(a, a.o_epi_kills)[e] = done_all ? 0.0f : epi_k;
+    at<float>(a, a.o_reward)[e] = rew;
+    at<uint8_t>(a, a.o_done)[e] =
+        static_cast<uint8_t>(a.any_mode ? (done_all || done) : done);
+    at<int32_t>(a, a.o_rank)[e] = rank;
+    at<float>(a, a.o_episode_scores)[e] = epi_s;
+    at<float>(a, a.o_episode_steps)[e] = epi_st;
+    at<float>(a, a.o_episode_fruits)[e] = epi_f;
+    at<float>(a, a.o_episode_kills)[e] = epi_k;
   }
-  if (tid == 0) {
-    a.o_alive_count[b] = done_all ? N : s_acount;
-    a.o_episode_length[b] = done_all ? 0 : elen;
-    a.o_done_all[b] = static_cast<uint8_t>(done_all);
+  if (lane == 0) {
+    at<int32_t>(a, a.o_alive_count)[b] = done_all ? N : acount;
+    at<int32_t>(a, a.o_episode_length)[b] = done_all ? 0 : elen;
+    at<uint8_t>(a, a.o_done_all)[b] = static_cast<uint8_t>(done_all);
   }
 
-  // observation: one little-endian 8-byte word per (snake, cell), byte c =
-  // channel c: wall, fruit, other head/body/tail, my head/body/tail
-  uint64_t* obs = reinterpret_cast<uint64_t*>(a.o_obs) + (size_t)b * N * HW;
-  for (int x = tid; x < N * HW; x += kThreads) {
-    const int s = x / HW, c = x - s * HW;
-    const int v = g[c], t = v & 15;
-    int bits = 0;
-    if (t == WALL) bits = 1;
-    else if (t == FRUIT) bits = 2;
-    else if (t >= HEAD) bits = 1 << (2 + (t - HEAD) + ((v >> OWNER_SHIFT) == s ? 3 : 0));
-    uint64_t word = 0;
-#pragma unroll
-    for (int ch = 0; ch < 8; ++ch)
-      word |= static_cast<uint64_t>((bits >> ch) & 1) << (8 * ch);
-    obs[x] = word;
+  // observation: a lane encodes two cells once, then stores their 16 bytes
+  // in every snake's plane (a warp store is 512 contiguous bytes)
+  uint8_t* obs = at<uint8_t>(a, a.o_obs) + static_cast<size_t>(b) * N * HW * 8;
+  if ((HW & 1) == 0 && aligned16(obs)) {
+    const int2* pairs = reinterpret_cast<const int2*>(g);
+    uint4* dst = reinterpret_cast<uint4*>(obs);
+    const int plane = HW / 2;  // 16-byte words per snake
+    for (int p = lane; p < plane; p += 32) {
+      const int2 v = pairs[p];
+      const ObsCell c0 = obs_cell(v.x), c1 = obs_cell(v.y);
+      for (int s = 0; s < N; ++s) {
+        const uint2 w0 = c0.owner == s ? c0.mine : c0.other;
+        const uint2 w1 = c1.owner == s ? c1.mine : c1.other;
+        __stcs(dst + s * plane + p, make_uint4(w0.x, w0.y, w1.x, w1.y));
+      }
+    }
+  } else {
+    uint2* dst = reinterpret_cast<uint2*>(obs);
+    for (int c = lane; c < HW; c += 32) {
+      const ObsCell c0 = obs_cell(g[c]);
+      for (int s = 0; s < N; ++s) dst[s * HW + c] = c0.owner == s ? c0.mine : c0.other;
+    }
   }
 }
 
+// Bytes of shared memory one env (one warp) takes: its grid and its rings,
+// each rounded up to 16 bytes.
+static size_t smem_per_env(const StepArgs& a) {
+  return static_cast<size_t>((a.H * a.W + 3) / 4 + (a.N * a.CW + 3) / 4) * 16;
+}
+
 extern "C" int marlsnake_step_autoreset(const StepArgs* args, void* stream) {
-  const size_t smem =
-      (2 * static_cast<size_t>(args->H) * args->W +
-       static_cast<size_t>(args->N) * args->CW) * sizeof(int);
-  step_autoreset_kernel<<<args->B, kThreads, smem,
+  const size_t per_env = smem_per_env(*args);
+  const int warps = static_cast<int>(
+      per_env * kMaxWarps <= kMaxSmem ? kMaxWarps : kMaxSmem / per_env);
+  if (warps == 0 || args->N > 32 || args->NF > 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = warps * per_env;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        step_autoreset_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (args->B + warps - 1) / warps;
+  step_autoreset_kernel<<<blocks, warps * 32, smem,
                           static_cast<cudaStream_t>(stream)>>>(*args);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,6 +11,16 @@ On CPU tensors the wrapper runs the plain version,
 ``engine.step_autoreset``. On CUDA tensors it launches the kernel or
 raises; it never falls back. ``step_autoreset.launches`` counts launches.
 
+The launch path is built to cost the host less than the kernel costs the
+device. A launch plan, made once per (cfg, num_envs, device), holds the
+checks, the output layout and a reusable argument struct. Each step
+allocates one byte arena for all 23 outputs (``output_layout``); the
+returned ``EnvState`` and ``StepOutput`` cut their typed views from it on
+first read, since the main path reads two or three of them and making a
+tensor view is host work on the order of a kernel launch. A state this
+wrapper returned goes back into the kernel as its arena, unchecked and
+uncopied; any other state is checked and copied into an arena first.
+
 The library is built on first use with ``nvcc`` (sm_90a, ``-fmad=false``)
 from the source in this package into ``build/marlsnake_torch/`` at the
 repository root, and loaded with ctypes.
@@ -19,12 +29,14 @@ repository root, and loaded with ctypes.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -41,35 +53,114 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
               '-fmad=false', '-std=c++17', '-shared', '-Xcompiler', '-fPIC',
               '-Xptxas', '-v')
 
-# Limits of the kernel itself (the plain version has none): per-snake
-# phases run on threads < N of a 128-thread block, the fruit draws on
-# threads < max(N, nf), and the grid, a prefix-count buffer and the rings
-# must fit the block's static shared-memory window.
+# Limits of the kernel itself (the plain version has none): one warp per
+# env with lane i = snake i, the fruit draws on lanes < nf, and one env's
+# grid and rings in shared memory, which one block holds at most
+# 227 KB of on an H100.
 MAX_SNAKES = 32
 MAX_DRAWS = 32
-MAX_DYNAMIC_SMEM = 40 * 1024
+MAX_SMEM_PER_ENV = 232448
+
+STATE_FIELDS = tuple(f.name for f in dataclasses.fields(EnvState))
+OUTPUT_FIELDS = tuple(f.name for f in dataclasses.fields(engine.StepOutput))
+_INPUTS = ('actions', 'fruit_u', 'reset_spawn_u', 'reset_fruit_u',
+           'pool_cells', 'base_grid')
 
 
 class _StepArgs(ctypes.Structure):
     """Mirror of ``struct StepArgs`` in csrc/step_autoreset.cu."""
     _fields_ = (
-        [(name, ctypes.c_void_p) for name in (
-            'grid', 'dir', 'head', 'tail', 'ring', 'ring_head', 'ring_len',
-            'alive', 'alive_count', 'epi_scores', 'epi_steps',
-            'epi_fruits', 'epi_kills', 'episode_length', 'actions',
-            'fruit_u', 'reset_spawn_u', 'reset_fruit_u', 'pool_cells',
-            'base_grid',
-            'o_grid', 'o_dir', 'o_head', 'o_tail', 'o_ring',
-            'o_ring_head', 'o_ring_len', 'o_alive', 'o_alive_count',
-            'o_epi_scores', 'o_epi_steps', 'o_epi_fruits', 'o_epi_kills',
-            'o_episode_length', 'o_reward', 'o_done', 'o_rank',
-            'o_io_scores', 'o_io_steps', 'o_io_fruits', 'o_io_kills',
-            'o_done_all', 'o_obs')]
+        [(name, ctypes.c_void_p) for name in ('state', 'out') + _INPUTS]
+        + [(f'o_{name}', ctypes.c_int64)
+           for name in STATE_FIELDS + OUTPUT_FIELDS]
         + [(name, ctypes.c_int) for name in (
             'B', 'H', 'W', 'N', 'K', 'NF', 'P', 'CW', 'cap', 'human',
             'any_mode', 'max_steps')]
         + [(name, ctypes.c_float) for name in (
             'r_fruit', 'r_kill', 'r_lose', 'r_win', 'r_time')])
+
+
+class Field(NamedTuple):
+    """One output of a step inside the byte arena."""
+    name: str
+    dtype: torch.dtype
+    shape: Tuple[int, ...]
+    offset: int  # bytes, a multiple of 16
+
+
+def output_layout(cfg: EnvConfig, num_envs: int
+                  ) -> Tuple[Tuple[Field, ...], int]:
+    """Where each output of one step lies in its byte arena: the new
+    state's fields, then the step output's, in declaration order (the
+    order of StepArgs's offsets), each at a 16-byte-aligned offset.
+    Returns (fields, arena bytes); the state's fields end where ``obs``
+    starts."""
+    b, h, w, n = num_envs, cfg.height, cfg.width, cfg.num_snakes
+    cw = ring_num_words(cfg.body_capacity)
+    i32, f32, flag = torch.int32, torch.float32, torch.bool
+    bn = (b, n)
+    spec = dict(
+        grid=(i32, (b, h, w)), direction=(i32, bn), head=(i32, (b, n, 2)),
+        tail=(i32, (b, n, 2)), ring=(i32, (b, n, cw)), ring_head=(i32, bn),
+        ring_len=(i32, bn), alive=(flag, bn), alive_count=(i32, (b,)),
+        epi_scores=(f32, bn), epi_steps=(f32, bn), epi_fruits=(f32, bn),
+        epi_kills=(f32, bn), episode_length=(i32, (b,)),
+        obs=(torch.uint8, (b, n, h, w, 8)), reward=(f32, bn),
+        done=(flag, bn), rank=(i32, bn), episode_scores=(f32, bn),
+        episode_steps=(f32, bn), episode_fruits=(f32, bn),
+        episode_kills=(f32, bn), done_all=(flag, (b,)))
+    fields, offset = [], 0
+    for name in STATE_FIELDS + OUTPUT_FIELDS:
+        dtype, shape = spec[name]
+        fields.append(Field(name, dtype, shape, offset))
+        offset += -(-math.prod(shape) * dtype.itemsize // 16) * 16
+    return tuple(fields), offset
+
+
+def field_view(arena: torch.Tensor, field: Field) -> torch.Tensor:
+    """The typed view of ``field`` in a uint8 ``arena``."""
+    size = field.dtype.itemsize
+    strides = [1]
+    for dim in reversed(field.shape[1:]):
+        strides.insert(0, strides[0] * dim)
+    return arena.view(field.dtype).as_strided(field.shape, strides,
+                                              field.offset // size)
+
+
+class _Carved:
+    """Fields of a dataclass kept as views of one step's output arena,
+    each cut on its first read and kept. ``_plan`` and ``_arena`` mark
+    the object as the kernel's own: a state that carries them goes back
+    into the kernel as its arena."""
+
+    def __getattr__(self, name):
+        # runs only for names not yet set on the object
+        d = self.__dict__
+        if '_plan' not in d or name not in d['_plan'].by_name:
+            raise AttributeError(name)
+        view = field_view(d['_arena'], d['_plan'].by_name[name])
+        object.__setattr__(self, name, view)
+        return view
+
+    def __reduce__(self):
+        # pickled and copied as the plain dataclass, with every field
+        return self._plain, tuple(getattr(self, f.name)
+                                  for f in dataclasses.fields(self))
+
+
+class _CarvedState(_Carved, EnvState):
+    _plain = EnvState
+
+
+class _CarvedOutput(_Carved, engine.StepOutput):
+    _plain = engine.StepOutput
+
+
+def _carved(cls, plan, arena):
+    obj = object.__new__(cls)
+    object.__setattr__(obj, '_plan', plan)
+    object.__setattr__(obj, '_arena', arena)
+    return obj
 
 
 def _nvcc() -> str:
@@ -127,101 +218,134 @@ def _check_scope(cfg: EnvConfig, spawn: engine.SpawnTables) -> None:
             f'cfg.spawn_pool_size={cfg.spawn_pool_size}')
 
 
+def smem_per_env(cfg: EnvConfig) -> int:
+    """Bytes of shared memory the kernel gives one env: its grid and its
+    rings, each rounded up to 16 bytes (``smem_per_env`` in the .cu)."""
+    rings = cfg.num_snakes * ring_num_words(cfg.body_capacity)
+    return (-(-cfg.height * cfg.width // 4) + -(-rings // 4)) * 16
+
+
 def _check_kernel_limits(cfg: EnvConfig) -> None:
     n, nf = cfg.num_snakes, cfg.resolved_num_fruits
-    cw = ring_num_words(cfg.body_capacity)
-    smem = (2 * cfg.height * cfg.width + n * cw) * 4
-    if n > MAX_SNAKES or nf > MAX_DRAWS or smem > MAX_DYNAMIC_SMEM:
+    smem = smem_per_env(cfg)
+    if n > MAX_SNAKES or nf > MAX_DRAWS or smem > MAX_SMEM_PER_ENV:
         raise NotImplementedError(
             f'the CUDA step kernel takes num_snakes <= {MAX_SNAKES}, '
             f'num_fruits <= {MAX_DRAWS} and boards whose grid and rings '
-            f'fit {MAX_DYNAMIC_SMEM} bytes of shared memory (this config: '
+            f'fit {MAX_SMEM_PER_ENV} bytes of shared memory (this config: '
             f'{n} snakes, {nf} fruits, {smem} bytes); see ROADMAP.md')
 
 
-def _input(t: torch.Tensor, dtype, shape, device) -> torch.Tensor:
-    if t.dtype != dtype:
-        raise TypeError(f'expected {dtype}, got {t.dtype}')
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f'expected shape {tuple(shape)}, got '
-                         f'{tuple(t.shape)}')
-    if t.device != device:
-        raise ValueError(f'expected a tensor on {device}, got {t.device}')
-    return t.contiguous()
+def _check(t: torch.Tensor, name: str, dtype, shape, index: int) -> int:
+    """The tensor's address, once it is ``dtype``, ``shape``, contiguous
+    and on CUDA device ``index``."""
+    if (t.dtype is not dtype or t.shape != shape or not t.is_contiguous()
+            or t.get_device() != index):
+        raise ValueError(
+            f'{name}: expected a contiguous {dtype} tensor of shape '
+            f'{tuple(shape)} on cuda:{index}, got {t.dtype} '
+            f'{tuple(t.shape)} on {t.device}'
+            f'{"" if t.is_contiguous() else ", not contiguous"}')
+    return t.data_ptr()
 
 
-def _launch(cfg: EnvConfig, spawn: engine.SpawnTables, state: EnvState,
-            actions: torch.Tensor, draws: StepDraws
-            ) -> Tuple[EnvState, engine.StepOutput]:
-    _check_kernel_limits(cfg)
-    lib = load_library()
-    dev = state.device
-    b = state.num_envs
-    h, w, n, k = cfg.height, cfg.width, cfg.num_snakes, cfg.snake_length
-    nf = cfg.resolved_num_fruits
-    cap = cfg.body_capacity
-    cw = ring_num_words(cap)
-    i32, f32, u8 = torch.int32, torch.float32, torch.uint8
-    bn = (b, n)
-    ins = [
-        _input(state.grid, i32, (b, h, w), dev),
-        _input(state.direction, i32, bn, dev),
-        _input(state.head, i32, (b, n, 2), dev),
-        _input(state.tail, i32, (b, n, 2), dev),
-        _input(state.ring, i32, (b, n, cw), dev),
-        _input(state.ring_head, i32, bn, dev),
-        _input(state.ring_len, i32, bn, dev),
-        _input(state.alive, torch.bool, bn, dev),
-        _input(state.alive_count, i32, (b,), dev),
-        _input(state.epi_scores, f32, bn, dev),
-        _input(state.epi_steps, f32, bn, dev),
-        _input(state.epi_fruits, f32, bn, dev),
-        _input(state.epi_kills, f32, bn, dev),
-        _input(state.episode_length, i32, (b,), dev),
-        _input(actions.to(i32), i32, bn, dev),
-        _input(draws.fruit_u, f32, bn, dev),
-        _input(draws.reset_spawn_u, f32, (b,), dev),
-        _input(draws.reset_fruit_u, f32, (b, nf), dev),
-        _input(spawn.cells, i32, (cfg.spawn_pool_size, n * k), dev),
-        _input(spawn.base_grid, i32, (h, w), dev),
-    ]
+class _LaunchPlan:
+    """What launches at one (cfg, num_envs, device) share: the scope and
+    limit checks (made once, here), the output layout, the inputs' shapes
+    and one argument struct whose per-step fields each call sets (so one
+    plan serves one thread at a time)."""
 
-    def empty(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device=dev)
+    def __init__(self, cfg: EnvConfig, num_envs: int, device: torch.device):
+        check_port_scope(cfg)
+        _check_kernel_limits(cfg)
+        self.lib = load_library()
+        self.cfg, self.device, self.index = cfg, device, device.index
+        self.fields, self.nbytes = output_layout(cfg, num_envs)
+        self.by_name = {f.name: f for f in self.fields}
+        self.state_nbytes = self.by_name['obs'].offset
+        b, n, nf = num_envs, cfg.num_snakes, cfg.resolved_num_fruits
+        f32 = torch.float32
+        self.draw_specs = (('fruit_u', f32, (b, n)),
+                           ('reset_spawn_u', f32, (b,)),
+                           ('reset_fruit_u', f32, (b, nf)))
+        self.actions_shape = (b, n)
+        self.spawn = None
+        r_fruit, r_kill, r_lose, r_win, r_time = cfg.rewards
+        self.args = _StepArgs(
+            B=b, H=cfg.height, W=cfg.width, N=n, K=cfg.snake_length, NF=nf,
+            P=cfg.spawn_pool_size, CW=ring_num_words(cfg.body_capacity),
+            cap=cfg.body_capacity, human=int(cfg.observer == 'human'),
+            any_mode=int(cfg.done_mode == 'any'),
+            max_steps=cfg.max_episode_steps, r_fruit=r_fruit,
+            r_kill=r_kill, r_lose=r_lose, r_win=r_win, r_time=r_time)
+        for f in self.fields:
+            setattr(self.args, f'o_{f.name}', f.offset)
 
-    new_state = EnvState(
-        grid=empty((b, h, w), i32), direction=empty(bn, i32),
-        head=empty((b, n, 2), i32), tail=empty((b, n, 2), i32),
-        ring=empty((b, n, cw), i32), ring_head=empty(bn, i32),
-        ring_len=empty(bn, i32), alive=empty(bn, torch.bool),
-        alive_count=empty((b,), i32), epi_scores=empty(bn, f32),
-        epi_steps=empty(bn, f32), epi_fruits=empty(bn, f32),
-        epi_kills=empty(bn, f32), episode_length=empty((b,), i32))
-    out = engine.StepOutput(
-        obs=empty((b, n, h, w, 8), u8), reward=empty(bn, f32),
-        done=empty(bn, torch.bool), rank=empty(bn, i32),
-        episode_scores=empty(bn, f32), episode_steps=empty(bn, f32),
-        episode_fruits=empty(bn, f32), episode_kills=empty(bn, f32),
-        done_all=empty((b,), torch.bool))
-    outs = ([t for _, t in new_state.fields()]
-            + [out.reward, out.done, out.rank, out.episode_scores,
-               out.episode_steps, out.episode_fruits, out.episode_kills,
-               out.done_all, out.obs])
-    r_fruit, r_kill, r_lose, r_win, r_time = cfg.rewards
-    args = _StepArgs(
-        *[t.data_ptr() for t in ins + outs],
-        b, h, w, n, k, nf, cfg.spawn_pool_size, cw, cap,
-        int(cfg.observer == 'human'), int(cfg.done_mode == 'any'),
-        cfg.max_episode_steps, r_fruit, r_kill, r_lose, r_win, r_time)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.marlsnake_step_autoreset(ctypes.byref(args),
-                                          ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError('step_autoreset kernel launch failed: '
-                           f'{lib.marlsnake_error_string(rc).decode()}')
-    step_autoreset.launches += 1
-    return new_state, out
+    def pack(self, state: EnvState) -> torch.Tensor:
+        """A state the kernel did not make, copied into a state arena."""
+        arena = torch.empty(self.state_nbytes, dtype=torch.uint8,
+                            device=self.device)
+        for (name, t), f in zip(state.fields(), self.fields):
+            if t.dtype != f.dtype or t.shape != f.shape:
+                raise ValueError(f'state.{name}: expected {f.dtype} '
+                                 f'{f.shape}, got {t.dtype} '
+                                 f'{tuple(t.shape)}')
+            field_view(arena, f).copy_(t)
+        return arena
+
+    def _set_spawn(self, spawn: engine.SpawnTables) -> None:
+        # the pool must have cfg.spawn_pool_size rows (see _check_scope)
+        cfg, i32 = self.cfg, torch.int32
+        self.args.pool_cells = _check(
+            spawn.cells, 'spawn.cells', i32,
+            (cfg.spawn_pool_size, cfg.num_snakes * cfg.snake_length),
+            self.index)
+        self.args.base_grid = _check(spawn.base_grid, 'spawn.base_grid',
+                                     i32, (cfg.height, cfg.width),
+                                     self.index)
+        self.spawn = spawn
+
+    def launch(self, state_arena: torch.Tensor, spawn: engine.SpawnTables,
+               actions: torch.Tensor, draws: StepDraws
+               ) -> Tuple[EnvState, engine.StepOutput]:
+        args, index = self.args, self.index
+        if spawn is not self.spawn:
+            self._set_spawn(spawn)
+        if actions.dtype != torch.int32:
+            actions = actions.to(torch.int32)
+        args.actions = _check(actions, 'actions', torch.int32,
+                              self.actions_shape, index)
+        for (name, dtype, shape), t in zip(self.draw_specs, draws):
+            setattr(args, name, _check(t, name, dtype, shape, index))
+        out = torch.empty(self.nbytes, dtype=torch.uint8, device=self.device)
+        args.state = state_arena.data_ptr()
+        args.out = out.data_ptr()
+        if torch.cuda.current_device() != index:
+            with torch.cuda.device(index):
+                rc = self._enqueue()
+        else:
+            rc = self._enqueue()
+        if rc != 0:
+            raise RuntimeError(
+                'step_autoreset kernel launch failed: '
+                f'{self.lib.marlsnake_error_string(rc).decode()}')
+        step_autoreset.launches += 1
+        return (_carved(_CarvedState, self, out),
+                _carved(_CarvedOutput, self, out))
+
+    def _enqueue(self) -> int:
+        # the raw handle of PyTorch's current stream, as its own Triton
+        # launcher takes it: torch.cuda.current_stream() would build a
+        # Stream object on every call
+        stream = torch._C._cuda_getCurrentRawStream(self.index)
+        return self.lib.marlsnake_step_autoreset(ctypes.byref(self.args),
+                                                 stream)
+
+
+@functools.lru_cache(maxsize=16)
+def _plan(cfg: EnvConfig, num_envs: int, device: torch.device
+          ) -> _LaunchPlan:
+    return _LaunchPlan(cfg, num_envs, device)
 
 
 def step_autoreset(cfg: EnvConfig, spawn: engine.SpawnTables,
@@ -229,12 +353,16 @@ def step_autoreset(cfg: EnvConfig, spawn: engine.SpawnTables,
                    draws: StepDraws) -> Tuple[EnvState, engine.StepOutput]:
     """``engine.step_autoreset`` for a batch of envs: the plain version
     for CPU tensors, the CUDA kernel for CUDA tensors."""
+    plan = getattr(state, '_plan', None)
+    if plan is not None and (plan.cfg is cfg or plan.cfg == cfg):
+        return plan.launch(state._arena, spawn, actions, draws)
     _check_scope(cfg, spawn)
     if state.device.type == 'cpu':
         return engine.step_autoreset(cfg, spawn, state, actions, draws)
     if state.device.type != 'cuda':
         raise ValueError(f'unsupported device {state.device}')
-    return _launch(cfg, spawn, state, actions, draws)
+    plan = _plan(cfg, state.num_envs, state.device)
+    return plan.launch(plan.pack(state), spawn, actions, draws)
 
 
 step_autoreset.launches = 0

@@ -263,8 +263,14 @@ def test_kernel_limits_and_pool_size_checks():
     with pytest.raises(ValueError):
         step_kernel.step_autoreset(cfg, small_pool, None, None, None)
     step_kernel._check_kernel_limits(EnvConfig())
+    # one warp per env: an 80x80 board's grid and rings (31,696 bytes)
+    # fit one block's shared memory
+    step_kernel._check_kernel_limits(EnvConfig(height=80, width=80))
     with pytest.raises(NotImplementedError):
         step_kernel._check_kernel_limits(
             EnvConfig(height=40, width=40, num_snakes=33))
     with pytest.raises(NotImplementedError):
-        step_kernel._check_kernel_limits(EnvConfig(height=80, width=80))
+        step_kernel._check_kernel_limits(
+            EnvConfig(height=40, width=40, num_snakes=8, num_fruits=33))
+    with pytest.raises(NotImplementedError):
+        step_kernel._check_kernel_limits(EnvConfig(height=240, width=240))
