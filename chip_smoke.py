@@ -33,7 +33,39 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    - the plain version, the acting forward, marlsnake_torch.bench's
      env-steps/s, and a profiler window over 16 bench steps: device time
      by kernel name and the device's idle share;
-6. one JSON line of kernels, then, as the last line,
+6. the step kernel's entry without auto-reset (step_kernel.step, the DQN
+   trainer's env step) against engine.step at the same four sizes, 64
+   steps of random actions with no reset, so that most envs finish and go
+   on being stepped: every field EQUAL (tolerance 0), some env finished.
+   Then at the shape and config the training path gives it (256 envs of
+   20x20x4 with the trainer's rewards), once as above and once holding
+   finished envs still as the trainer does (against engine.step followed
+   by step_kernel.select_envs), and holding at 10x10x2, 40x40x8 and
+   11x9x3 too;
+7. the replay ring on the card against the same calls on the CPU, with the
+   same rows, masks and draws: pushes that wrap the ring, then a sample,
+   every field and sampled row equal;
+8. the training path: DQNTrainer at 256 envs of 20x20 with 4 snakes
+   (reference-width DQN, batch 512, ring of 10,000, float32, TF32 off),
+   two episodes through train_episode; the no-reset entry's launch counter
+   is set to 0 before and must equal the env steps taken; updates happen,
+   the loss is finite, the ring holds min(pushed, capacity) rows, the
+   parameters moved and the target parameters did not;
+9. one TD update on the card against the same update on the CPU (same
+   parameters and batch): loss within 1e-5 relative, each gradient within
+   1e-5 + 1e-4 x its largest magnitude (cuDNN and oneDNN sum in other
+   orders, and cuDNN's backward may use atomics);
+10. a full checkpoint saved on the card and loaded into a fresh trainer:
+   one more episode from each gives equal metrics and parameters (cuDNN
+   set to its deterministic algorithms for this phase);
+11. times of the training path: the no-reset entry's device_ms, host_us and
+   call_ms at 256 and 4096 envs with its byte bound and engine.step
+   beside it, its device time while it holds no, half or all envs still,
+   a replay push's device time, milliseconds per episode at 32
+   and 256 envs for update_every 1 and 4 (marlsnake_torch.bench's train
+   rows), and a profiler window over 16 training steps at 32 and 256 envs:
+   device time by kernel name, idle share, device-to-host copies a step;
+12. one JSON line of kernels, then, as the last line,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Exits non-zero without a result when CUDA is not available.
@@ -43,13 +75,15 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_OPS_PER_S = 67e12        # H100 SXM CUDA-core rate (used for int ops)
-KERNEL_NAME = 'step_autoreset'
+KERNEL_NAME = 'step_autoreset'       # part of the kernels' names as the
+STEP_KERNEL_NAME = 'step_noreset'    # profiler reports them
 
 
 def log(*args):
@@ -91,9 +125,10 @@ def host_us(fn, blocks: int = 5, iters: int = 100) -> list:
 def profile_device(fn, iters: int) -> dict:
     """Run ``fn()`` ``iters`` times under torch.profiler (CPU and CUDA).
     Returns {'kernels': {name: [device us, count]}, 'busy_us', 'span_us',
-    'idle_share', 'wall_us'} from the device-side events: busy is their
-    summed duration, span the time from the first start to the last end
-    (one stream, so they do not overlap)."""
+    'idle_share', 'wall_us', 'dtoh'} from the device-side events: busy is
+    their summed duration, span the time from the first start to the last
+    end (one stream, so they do not overlap), dtoh the number of
+    device-to-host copies, each of which the host waits for."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -118,7 +153,9 @@ def profile_device(fn, iters: int) -> dict:
     span = (last - first) if kernels else 0.0
     return {'kernels': kernels, 'busy_us': busy, 'span_us': span,
             'idle_share': 1.0 - busy / span if span > 0 else None,
-            'wall_us': wall_us}
+            'wall_us': wall_us,
+            'dtoh': sum(v[1] for k, v in kernels.items()
+                        if 'Memcpy DtoH' in k)}
 
 
 def compare(kernel_pair, plain_pair, where: str) -> float:
@@ -175,14 +212,72 @@ def parity(cfg, num_envs: int, steps: int, seed: int) -> float:
     return err
 
 
-def kernel_traffic(cfg, state, actions, draws, outputs) -> tuple:
+def parity_step(cfg, num_envs: int, steps: int, seed: int,
+                hold: bool = False) -> float:
+    """The entry without auto-reset against engine.step, from one reset
+    on: envs finish and go on being stepped or, with ``hold``, are held
+    still from the step after they finish, inside the kernel's launch
+    (against engine.step followed by step_kernel.select_envs)."""
+    from marlsnake_torch.core import engine
+    from marlsnake_torch.ops import step_kernel
+    from marlsnake_torch.rng import reset_draws
+
+    dev = torch.device('cuda')
+    tables = engine.spawn_tables(cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    state, _ = engine.reset(cfg, tables,
+                            reset_draws(cfg, num_envs, gen, dev))
+    before = step_kernel.step.launches
+    err, finished, stepped_after, held = 0.0, 0, 0, 0
+    frozen = torch.zeros((num_envs,), dtype=torch.bool, device=dev)
+    out = want_out = None
+    for t in range(steps):
+        actions = torch.randint(0, cfg.num_actions,
+                                (num_envs, cfg.num_snakes), generator=gen,
+                                device=dev, dtype=torch.int32)
+        fruit_u = torch.rand((num_envs, cfg.num_snakes), generator=gen,
+                             device=dev)
+        want = engine.step(cfg, state, actions, fruit_u)
+        if hold and t > 0:
+            held += int(frozen.sum())
+            want = step_kernel.select_envs(frozen, (state, want_out), want)
+            got = step_kernel.step(cfg, state, actions, fruit_u,
+                                   hold=(frozen, out))
+        else:
+            stepped_after += int((~state.alive.any(1)).sum())
+            got = step_kernel.step(cfg, state, actions, fruit_u)
+        torch.cuda.synchronize()
+        err = max(err, compare(got, want, f'step {cfg.height}x{cfg.width}x'
+                               f'{cfg.num_snakes} {cfg.done_mode} t={t}'))
+        state, out, want_out = got[0], got[1], want[1]
+        frozen = frozen | out.done_all
+        finished = int(frozen.sum()) if hold else int(out.done_all.sum())
+    if step_kernel.step.launches - before != steps:
+        raise AssertionError('the step launch counter did not move by one '
+                             'a step')
+    if finished == 0 or (held if hold else stepped_after) == 0:
+        raise AssertionError('no finished env was stepped or held in the '
+                             'run')
+    log(f'parity step (no reset) {cfg.height}x{cfg.width}x{cfg.num_snakes} '
+        f'done_mode={cfg.done_mode} rewards={cfg.rewards} B={num_envs} '
+        f'steps={steps}: equal, {finished} envs finished at the end, '
+        + (f'{held} steps of envs held still, ' if hold else
+           f'{stepped_after} steps of finished envs, ')
+        + f'max_abs_err={err}')
+    return err
+
+
+def kernel_traffic(cfg, state, actions, draws, outputs,
+                   autoreset: bool = True) -> tuple:
     """(bytes, ops) one step must move and do: every input read once,
     every output written once; spawn rows and the base grid only for the
-    envs that reset in this step."""
+    envs that reset in this step (none without auto-reset, where
+    ``draws`` is the fruit draws alone)."""
     def nbytes(ts):
         return sum(t.numel() * t.element_size() for t in ts)
     new_state, out = outputs
-    resets = int(out.done_all.sum())
+    resets = int(out.done_all.sum()) if autoreset else 0
     n, k, hw = cfg.num_snakes, cfg.snake_length, cfg.height * cfg.width
     read = (nbytes([t for _, t in state.fields()])
             + nbytes([actions.to(torch.int32)]) + nbytes(list(draws))
@@ -195,6 +290,101 @@ def kernel_traffic(cfg, state, actions, draws, outputs) -> tuple:
     return read + written, ops
 
 
+def time_entry(label, kernel_name, step_fn, plain_fn, state, traffic,
+               smi) -> dict:
+    """Times of one entry of the step kernel. ``step_fn(state)`` returns
+    (state, out) through the wrapper; ``plain_fn()`` is its plain version
+    on the same inputs; ``traffic`` is kernel_traffic's (bytes, ops)."""
+    rolling = [state]
+
+    def roll():
+        rolling[0], _ = step_fn(rolling[0])
+
+    prof = profile_device(roll, 100)
+    mine = [v for k, v in prof['kernels'].items() if kernel_name in k]
+    if not mine:
+        raise AssertionError(f'the profiler saw no {kernel_name} kernel')
+    device_ms = sum(v[0] for v in mine) / sum(v[1] for v in mine) / 1e3
+    host_blocks = host_us(roll)
+    wrapper_us = sorted(host_blocks)[len(host_blocks) // 2]
+    call_ms = event_ms(lambda: step_fn(state), 200)
+    plain_ms = event_ms(plain_fn, 20)
+    nbytes, ops = traffic
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    pct_of_bound = 100.0 * bound_ms / device_ms
+    log(f'{label}: device {device_ms:.5f} ms (torch.profiler, rolling), '
+        f'host {wrapper_us:.2f} us per call (median of blocks '
+        f'{[round(x, 2) for x in host_blocks]}), call {call_ms:.5f} ms, '
+        f'plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({nbytes} bytes '
+        f'-> {bytes_ms:.5f} ms; {ops} int ops -> {ops_ms:.5f} ms), '
+        f'{pct_of_bound:.1f}% of bound [{smi}]')
+    return {'ms': device_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+            'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
+            'library_ms': None, 'device_ms': device_ms,
+            'host_us': wrapper_us, 'call_ms': call_ms,
+            'pct_of_bound': pct_of_bound, 'bytes': nbytes}
+
+
+def log_window(title, window, steps, smi, also=()) -> None:
+    """The window's totals and its 14 largest kernels, then every kernel
+    whose name holds one of ``also``."""
+    log(f'{title}: wall {window["wall_us"]:.1f} us, device busy '
+        f'{window["busy_us"]:.1f} us over a span of '
+        f'{window["span_us"]:.1f} us, idle share {window["idle_share"]}, '
+        f'{window["dtoh"]} device-to-host copies in {steps} steps '
+        f'({window["dtoh"] / steps:.2f} a step), '
+        f'{sum(v[1] for v in window["kernels"].values())} device events '
+        f'[{smi}]')
+    table = sorted(window['kernels'].items(), key=lambda kv: -kv[1][0])
+    for i, (name, (us, count)) in enumerate(table):
+        if i < 14 or any(part in name for part in also):
+            log(f'  {us:10.1f} us {count:4d}x  {name[:100]}')
+
+
+def replay_parity(seed: int) -> None:
+    """The ring on the card against the ring on the CPU: the same rows,
+    masks and sort keys (made on the CPU from ``seed``)."""
+    from marlsnake_torch.algo import replay
+
+    gen = torch.Generator().manual_seed(seed)
+    cap, rows, obs_shape = 1000, 384, (20, 20, 8)
+    rings = {d: replay.create(cap, obs_shape, device=d)
+             for d in ('cpu', 'cuda')}
+    pushed = 0
+    for _ in range(4):                      # 4 x ~270 rows wrap 1000 slots
+        obs = torch.randint(0, 2, (rows,) + obs_shape, generator=gen,
+                            dtype=torch.uint8)
+        nxt = torch.randint(0, 2, (rows,) + obs_shape, generator=gen,
+                            dtype=torch.uint8)
+        act = torch.randint(0, 3, (rows,), generator=gen, dtype=torch.int32)
+        rew = torch.randn((rows,), generator=gen)
+        done = torch.rand((rows,), generator=gen) < 0.3
+        mask = torch.rand((rows,), generator=gen) < 0.7
+        pushed += int(mask.sum())
+        for d, ring in rings.items():
+            replay.push(ring, *(x.to(d) for x in (obs, act, rew, nxt, done)),
+                        mask=mask.to(d))
+    u = torch.rand((cap,), generator=gen)
+    samples = {d: replay.sample(ring, 512, u.to(d))
+               for d, ring in rings.items()}
+    torch.cuda.synchronize()
+    if pushed <= cap:
+        raise AssertionError('the pushes did not wrap the ring')
+    for (name, a), (_, b) in zip(rings['cpu'].fields(),
+                                 rings['cuda'].fields()):
+        a, b = (a, b.cpu()) if a.dim() == 0 else (a[:cap], b[:cap].cpu())
+        if not torch.equal(a, b):
+            raise AssertionError(f'replay ring: {name} differs')
+    for i, (a, b) in enumerate(zip(samples['cpu'], samples['cuda'])):
+        if not torch.equal(a, b.cpu()):
+            raise AssertionError(f'replay sample: part {i} differs')
+    log(f'replay on the card equals the CPU ring: {pushed} rows pushed '
+        f'into {cap} slots (ptr {int(rings["cuda"].ptr)}, size '
+        f'{int(rings["cuda"].size)}), a sample of 512 equal')
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -203,13 +393,15 @@ def main() -> int:
     t_start = time.perf_counter()
     # the port only: no module of JAX or of the JAX package is imported
     from marlsnake_torch import bench
+    from marlsnake_torch.algo import replay
     from marlsnake_torch.algo.acting import select_actions
+    from marlsnake_torch.algo.dqn_trainer import DQNConfig, DQNTrainer
     from marlsnake_torch.core import engine
     from marlsnake_torch.core.types import EnvConfig
     from marlsnake_torch.envs.vector import VectorSnakeEnv
     from marlsnake_torch.models.dqn import make_dqn
     from marlsnake_torch.ops import step_kernel
-    from marlsnake_torch.rng import step_draws
+    from marlsnake_torch.rng import reset_draws, step_draws, train_draws
 
     # --- 1. the card ---
     smi = subprocess.run(
@@ -283,40 +475,17 @@ def main() -> int:
     log(f'main path ok: obs {tuple(obs.shape)}, q {tuple(q.shape)} finite, '
         f'{int(out.done_all.sum())} envs reset in the last step')
 
-    # --- 5. times ---
+    # --- 5. times of the acting rollout ---
     s, a, d = last
     outputs = step_kernel.step_autoreset(cfg, tables, s, a, d)
-    rolling = [s]
-
-    def roll():
-        rolling[0], _ = step_kernel.step_autoreset(cfg, tables, rolling[0],
-                                                   a, d)
-
-    prof = profile_device(roll, 100)
-    mine = [v for k, v in prof['kernels'].items() if KERNEL_NAME in k]
-    if not mine:
-        raise AssertionError('the profiler saw no step_autoreset kernel')
-    device_ms = sum(v[0] for v in mine) / sum(v[1] for v in mine) / 1e3
-    host_blocks = host_us(roll)
-    wrapper_us = sorted(host_blocks)[len(host_blocks) // 2]
-    call_ms = event_ms(
-        lambda: step_kernel.step_autoreset(cfg, tables, s, a, d), 200)
-    plain_ms = event_ms(
-        lambda: engine.step_autoreset(cfg, tables, s, a, d), 20)
+    auto = time_entry(
+        f'step_autoreset at B={num_envs} 20x20x4', KERNEL_NAME,
+        lambda st: step_kernel.step_autoreset(cfg, tables, st, a, d),
+        lambda: engine.step_autoreset(cfg, tables, s, a, d), s,
+        kernel_traffic(cfg, s, a, d, outputs), smi)
     flat_obs = obs.reshape((-1,) + cfg.obs_shape[1:])
     with torch.no_grad():
         forward_ms = event_ms(lambda: net(flat_obs), 10)
-    nbytes, ops = kernel_traffic(cfg, s, a, d, outputs)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    pct_of_bound = 100.0 * bound_ms / device_ms
-    log(f'step_autoreset at B={num_envs} 20x20x4: device {device_ms:.5f} ms '
-        f'(torch.profiler, rolling), host {wrapper_us:.2f} us per call '
-        f'(median of blocks {[round(x, 2) for x in host_blocks]}), '
-        f'call {call_ms:.5f} ms, plain {plain_ms:.5f} ms, bound '
-        f'{bound_ms:.5f} ms ({nbytes} bytes -> {bytes_ms:.5f} ms; {ops} int '
-        f'ops -> {ops_ms:.5f} ms), {pct_of_bound:.1f}% of bound [{smi}]')
     log(f'acting forward ({num_envs * cfg.num_snakes} agents, fp32): '
         f'{forward_ms:.5f} ms [{smi}]')
     b = bench.run(num_envs=4096, num_steps=256, iters=4, device='cuda')
@@ -332,35 +501,303 @@ def main() -> int:
         held[0], r = bench.rollout(bench_env, held[0], 16, bench_gen)
 
     window = profile_device(bench_steps, 1)
-    log(f'profile of 16 bench steps: wall {window["wall_us"]:.1f} us, '
-        f'device busy {window["busy_us"]:.1f} us over a span of '
-        f'{window["span_us"]:.1f} us, idle share {window["idle_share"]} '
-        f'[{smi}]')
-    for name, (us, count) in sorted(window['kernels'].items(),
-                                    key=lambda kv: -kv[1][0]):
-        log(f'  {us:10.1f} us {count:4d}x  {name[:100]}')
+    log_window('profile of 16 bench steps', window, 16, smi,
+               also=(KERNEL_NAME,))
+    bench_idle = window['idle_share']
+    del bench_env, bench_states, held, outputs, last, s, states, out, obs
+    torch.cuda.empty_cache()
 
-    log(json.dumps({'kernels': [{
-        'name': 'step_autoreset',
-        'route': 'cuda',
-        'source': 'marlsnake_torch/csrc/step_autoreset.cu',
-        'replaces': 'marlsnake_tpu/ops/pallas_step.py:54',
-        'launches': launches,
-        'max_abs_err': err,
-        'ms': device_ms,
-        'plain_ms': plain_ms,
-        'bound_ms': bound_ms,
-        'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
-        'library_ms': None,
-        'device_ms': device_ms,
-        'host_us': wrapper_us,
-        'call_ms': call_ms,
-        'pct_of_bound': pct_of_bound,
-        'bytes': nbytes,
-        'acting_forward_ms': forward_ms,
-        'bench_env_steps_per_s': b['value'],
-        'bench_idle_share': window['idle_share'],
-    }]}))
+    # --- 6. the entry without auto-reset against engine.step ---
+    step_err = max(
+        parity_step(EnvConfig(**small), 64, 64, seed=11),
+        parity_step(EnvConfig(**small, done_mode='any'), 64, 64, seed=12),
+        parity_step(EnvConfig(**big), 4096, 64, seed=13),
+        parity_step(EnvConfig(**wide), 1024, 64, seed=14))
+
+    # ... and at the training path's own shape and config, with its hold
+    train_env_cfg = DQNConfig(snake_length=3).env_config()
+    train_step_err = max(
+        parity_step(train_env_cfg, 256, 64, seed=17),
+        parity_step(train_env_cfg, 256, 64, seed=18, hold=True))
+    step_err = max(
+        step_err,
+        parity_step(EnvConfig(**small, done_mode='any'), 64, 64, seed=19,
+                    hold=True),
+        parity_step(EnvConfig(**wide), 1024, 64, seed=20, hold=True),
+        # an odd board: rows that are no multiple of 16 or 4 bytes
+        parity_step(EnvConfig(height=11, width=9, num_snakes=3,
+                              snake_length=3), 64, 64, seed=21, hold=True))
+
+    # --- 7. the replay ring, card against CPU ---
+    replay_parity(seed=15)
+
+    # --- 8. the training path at full width ---
+    def train_config(**kwargs):
+        return DQNConfig(**{**dict(num_envs=256, snake_length=3,
+                                   max_steps_per_episode=256), **kwargs})
+
+    trainer = DQNTrainer(train_config(), device='cuda')
+    tcfg = trainer.config
+    if trainer.env_cfg != train_env_cfg:
+        raise AssertionError('the step entry was held against its plain '
+                             'version at another config than the '
+                             "trainer's")
+    if (tcfg.height, tcfg.width, tcfg.num_snakes, tcfg.batch_size,
+            tcfg.buffer_size, tcfg.min_buffer_size) != (20, 20, 4, 512,
+                                                        10_000, 1536):
+        raise AssertionError('the training defaults moved')
+    ts = trainer.init_state()
+    first = {k: v.clone() for k, v in ts.params.items()}
+    step_kernel.step.launches = 0
+    env_steps, episodes = 0, []
+    for _ in range(2):
+        ts, m = trainer.train_episode(ts)
+        env_steps += int(m.episode_length)
+        episodes.append(m)
+    torch.cuda.synchronize()
+    train_launches = step_kernel.step.launches
+    last_m = episodes[-1]
+    log(f'training path: 2 episodes at {tcfg.num_envs} envs, '
+        f'{[int(m.episode_length) for m in episodes]} steps, '
+        f'{[m.updates for m in episodes]} updates, mean loss '
+        f'{[float(m.mean_loss) for m in episodes]}, mean reward '
+        f'{[float(m.mean_reward) for m in episodes]}, step launches='
+        f'{train_launches}, ring size {int(ts.buffer.size)}')
+    if train_launches != env_steps:
+        raise AssertionError(f'{env_steps} env steps on the training path '
+                             f'but {train_launches} kernel launches')
+    if last_m.updates <= 0 or ts.global_step != sum(m.updates
+                                                    for m in episodes):
+        raise AssertionError('no optimizer update in the second episode')
+    if not all(bool(torch.isfinite(m.mean_loss)) for m in episodes) \
+            or float(last_m.mean_loss) <= 0.0:
+        raise AssertionError('the training loss is not finite and positive')
+    # size == min(pushed, capacity): until the ring is full the write
+    # pointer equals the size, and the first step of each episode alone
+    # pushes every agent
+    size, ptr = int(ts.buffer.size), int(ts.buffer.ptr)
+    at_least = min(2 * tcfg.num_envs * tcfg.num_snakes, tcfg.buffer_size)
+    if not (at_least <= size <= tcfg.buffer_size) \
+            or (size < tcfg.buffer_size and ptr != size):
+        raise AssertionError(f'ring size {size}, ptr {ptr}')
+    if not any(not torch.equal(ts.params[k], first[k]) for k in first):
+        raise AssertionError('the parameters did not change')
+    if not all(torch.equal(ts.target_params[k], first[k]) for k in first):
+        raise AssertionError('the target parameters changed before a sync')
+    if not all(bool(torch.isfinite(v).all()) for v in ts.params.values()):
+        raise AssertionError('parameters are not finite')
+    log('training path ok: launches equal env steps, updates made, loss '
+        'finite, parameters moved, target parameters unchanged')
+
+    # --- 9. one TD update, card against CPU ---
+    u = torch.rand((tcfg.buffer_size,), generator=trainer.generator,
+                   device='cuda')
+    batch = replay.sample(ts.buffer, tcfg.batch_size, u)
+    loss, grads, _ = trainer.loss_and_grads(ts.params, ts.target_params,
+                                            batch)
+    cpu_trainer = DQNTrainer(train_config(), device='cpu')
+    cpu_loss, cpu_grads, _ = cpu_trainer.loss_and_grads(
+        {k: v.cpu() for k, v in ts.params.items()},
+        {k: v.cpu() for k, v in ts.target_params.items()},
+        tuple(x.cpu() for x in batch))
+    loss_rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    worst = 0.0
+    for name, g, c in zip(ts.params, grads, cpu_grads):
+        scale = float(c.abs().max())
+        diff = float((g.cpu() - c).abs().max())
+        worst = max(worst, diff / (1e-5 + 1e-4 * scale))
+        if diff > 1e-5 + 1e-4 * scale:
+            raise AssertionError(f'TD update: gradient of {name} differs '
+                                 f'by {diff} (largest magnitude {scale})')
+    if loss_rel > 1e-5:
+        raise AssertionError(f'TD update: loss {float(loss)} on the card, '
+                             f'{float(cpu_loss)} on the CPU')
+    log(f'one TD update (batch {tcfg.batch_size}) card against CPU: loss '
+        f'{float(loss)} vs {float(cpu_loss)} (relative difference '
+        f'{loss_rel:.3g}, limit 1e-5); the gradients use at most '
+        f'{worst:.3g} of their tolerance 1e-5 + 1e-4 x max|g|')
+    del cpu_trainer, cpu_grads
+
+    # --- 10. a full checkpoint round trip on the card ---
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as save_dir:
+        trainer.config.save_dir = save_dir
+        trainer.save_checkpoint(ts, 'smoke', full=True)
+        other = DQNTrainer(train_config(save_dir=save_dir, seed=99),
+                           device='cuda')
+        ts_other, _ = other.load_checkpoint('smoke', other.init_state(),
+                                            full=True)
+    ts, m_a = trainer.train_episode(ts)
+    ts_other, m_b = other.train_episode(ts_other)
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = deterministic
+    got_a = (m_a.episode_length, m_a.updates, float(m_a.mean_reward),
+             float(m_a.mean_loss))
+    got_b = (m_b.episode_length, m_b.updates, float(m_b.mean_reward),
+             float(m_b.mean_loss))
+    if got_a != got_b or not all(torch.equal(ts.params[k],
+                                             ts_other.params[k])
+                                 for k in ts.params):
+        raise AssertionError(f'after a full checkpoint round trip the next '
+                             f'episode differs: {got_a} vs {got_b}')
+    log(f'checkpoint round trip (full) on the card: the next episode is '
+        f'equal from both, (length, updates, mean reward, mean loss) = '
+        f'{got_a}')
+    del other, ts_other
+
+    # --- 11. times of the training path ---
+    tenv = trainer.env_cfg
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(16)
+    tables_t = engine.spawn_tables(tenv, torch.device('cuda'))
+    step_rows = {}
+    for b_envs in (256, 4096):
+        st, _ = engine.reset(tenv, tables_t,
+                             reset_draws(tenv, b_envs, gen, 'cuda'))
+        acts = torch.randint(0, 3, (b_envs, 4), generator=gen,
+                             device='cuda', dtype=torch.int32)
+        fruit_u = torch.rand((b_envs, 4), generator=gen, device='cuda')
+        st, outp = step_kernel.step(tenv, st, acts, fruit_u)
+        step_rows[b_envs] = time_entry(
+            f'step (no reset) at B={b_envs} 20x20x4', STEP_KERNEL_NAME,
+            lambda x: step_kernel.step(tenv, x, acts, fruit_u),
+            lambda: engine.step(tenv, st, acts, fruit_u), st,
+            kernel_traffic(tenv, st, acts, [fruit_u], (st, outp),
+                           autoreset=False), smi)
+        # the same rolling loop while the entry holds envs still
+        held_us = {}
+        for label, keep in (
+                ('none', torch.zeros(b_envs, dtype=torch.bool,
+                                     device='cuda')),
+                ('half', torch.arange(b_envs, device='cuda') % 2 == 0),
+                ('all', torch.ones(b_envs, dtype=torch.bool,
+                                   device='cuda'))):
+            pair = [(st, outp)]
+
+            def roll_held():
+                pair[0] = step_kernel.step(tenv, pair[0][0], acts, fruit_u,
+                                           hold=(keep, pair[0][1]))
+
+            prof = profile_device(roll_held, 100)
+            mine = [v for k, v in prof['kernels'].items()
+                    if STEP_KERNEL_NAME in k]
+            held_us[label] = (sum(v[0] for v in mine)
+                              / sum(v[1] for v in mine))
+        step_rows[b_envs]['device_us_holding'] = held_us
+        log(f'step (no reset) at B={b_envs} holding envs still, device us '
+            f'a launch by share of envs held (torch.profiler, rolling): '
+            f'{json.dumps(held_us)} [{smi}]')
+    del st, outp, pair
+
+    for rows_n, cap in ((1024, 10_000), (16384, 32768)):
+        ring = replay.create(cap, tenv.obs_shape[1:], device='cuda')
+        o = torch.randint(0, 2, (rows_n,) + tenv.obs_shape[1:],
+                          generator=gen, device='cuda', dtype=torch.uint8)
+        a_ = torch.randint(0, 3, (rows_n,), generator=gen, device='cuda',
+                           dtype=torch.int32)
+        r_ = torch.rand((rows_n,), generator=gen, device='cuda')
+        mk = torch.rand((rows_n,), generator=gen, device='cuda') < 0.7
+        push = profile_device(
+            lambda: replay.push(ring, o, a_, r_, o, mk, mask=mk), 20)
+        moved = 2 * (2 * rows_n * o[0].numel() + rows_n * 9)
+        log(f'replay push of {rows_n} rows ({rows_n // 4} envs) into '
+            f'{cap} slots: device {push["busy_us"] / 20:.1f} us a push in '
+            f'{sum(v[1] for v in push["kernels"].values()) // 20} kernels, '
+            f'host wall {push["wall_us"] / 20:.1f} us; it reads and writes '
+            f'{moved} bytes -> {moved / HBM_BYTES_PER_S * 1e6:.2f} us at '
+            f'the memory rate [{smi}]')
+    del ring, o
+
+    for n_envs in (32, 256):
+        for every in (1, 4):
+            row = bench.run_train(n_envs, every, episodes=2, device='cuda')
+            log(f'train bench: {json.dumps(row)} [{smi}]')
+
+    windows = {}
+    for n_envs in (32, 256):
+        short = DQNTrainer(train_config(num_envs=n_envs,
+                                        max_steps_per_episode=16),
+                           device='cuda')
+        held_ts = [ts]                              # with its warm ring
+        lengths = []
+
+        def train_steps():
+            held_ts[0], m = short.train_episode(held_ts[0])
+            lengths.append((int(m.episode_length), m.updates))
+
+        window = profile_device(train_steps, 1)
+        steps_n, updates_n = lengths[-1]
+        windows[n_envs] = dict(window, steps=steps_n)
+        log_window(f'profile of {steps_n} training steps ({updates_n} '
+                   f'updates) at {n_envs} envs', window, steps_n, smi,
+                   also=(STEP_KERNEL_NAME, 'index', 'Memcpy', 'RadixSort',
+                         'multi_tensor'))
+        # the step's parts, each alone (CUDA events around repeats)
+        st, o = short._reset_env(reset_draws(tenv, n_envs, gen, 'cuda'))
+        d = train_draws(tenv, n_envs, 2, tcfg.buffer_size, tcfg.batch_size,
+                        gen, 'cuda').at(0)
+        zeros = torch.zeros((n_envs, 4), dtype=torch.bool, device='cuda')
+        acts = short._select_actions(ts.params, o, zeros, ts.epsilon, d)
+        pairs = [step_kernel.step(tenv, st, acts, d.fruit_u)]
+        half = torch.arange(n_envs, device='cuda') % 2 == 0
+        batch = replay.sample(ts.buffer, tcfg.batch_size, d.sample_u)
+        parts = {
+            'acting forward + choice': (lambda: short._select_actions(
+                ts.params, o, zeros, ts.epsilon, d), 20),
+            'env step (kernel)': (lambda: step_kernel.step(
+                tenv, pairs[0][0], acts, d.fruit_u), 100),
+            'env step holding half the envs (kernel)': (
+                lambda: step_kernel.step(tenv, pairs[0][0], acts, d.fruit_u,
+                                         hold=(half, pairs[0][1])), 100),
+            'replay push': (lambda: replay.push(
+                ts.buffer, o.flatten(0, 1), acts.flatten(), d.explore_u
+                .flatten(), o.flatten(0, 1), zeros.flatten(),
+                mask=~zeros.flatten()), 50),
+            'replay sample': (lambda: replay.sample(
+                ts.buffer, tcfg.batch_size, d.sample_u), 50),
+            'TD update': (lambda: short._td_update(
+                ts.params, ts.target_params, ts.opt_state, batch), 20),
+            'read-back': (lambda: torch.stack(
+                [ts.buffer.size, zeros.any().to(torch.int32)]).tolist(),
+                50),
+        }
+        with torch.no_grad():
+            times = {k: event_ms(fn, it) for k, (fn, it) in parts.items()}
+        log(f'parts of a training step at {n_envs} envs, ms each (CUDA '
+            f'events around repeats, so the slower of host and device): '
+            f'{json.dumps(times)} [{smi}]')
+
+    step_main = step_rows[256]
+    log(json.dumps({'kernels': [dict(
+        auto,
+        name='step_autoreset',
+        route='cuda',
+        source='marlsnake_torch/csrc/step_autoreset.cu',
+        replaces='marlsnake_tpu/ops/pallas_step.py:54',
+        launches=launches,
+        max_abs_err=err,
+        acting_forward_ms=forward_ms,
+        bench_env_steps_per_s=b['value'],
+        bench_idle_share=bench_idle,
+    ), dict(
+        step_main,
+        name='step',
+        route='cuda',
+        source='marlsnake_torch/csrc/step_autoreset.cu',
+        replaces='marlsnake_tpu/core/engine.py:987 (step, an XLA path, '
+                 'not a Pallas kernel)',
+        launches=train_launches,
+        max_abs_err=train_step_err,      # at the training path's shape
+        max_abs_err_other_shapes=step_err,
+        num_envs=256,
+        at_4096_envs={k: step_rows[4096][k] for k in (
+            'device_ms', 'host_us', 'call_ms', 'plain_ms', 'bound_ms',
+            'pct_of_bound', 'bytes', 'device_us_holding')},
+        train_idle_share={n: w['idle_share'] for n, w in windows.items()},
+        train_dtoh_per_step={n: w['dtoh'] / w['steps']
+                             for n, w in windows.items()},
+    )]}))
     log(f'total {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -1,9 +1,9 @@
 """marlsnake_torch — the PyTorch / CUDA port of marlsnake_tpu.
 
-The batched multi-agent snake engine and its DQN acting, for one NVIDIA
-GPU. The auto-reset step runs as one hand-written CUDA kernel
-(``ops/step_kernel.py``); everything else is plain PyTorch. Imports torch
-and numpy only.
+The batched multi-agent snake engine, its DQN acting and DQN training, for
+one NVIDIA GPU. The env step, with and without auto-reset, runs as one
+hand-written CUDA kernel (``ops/step_kernel.py``); everything else is
+plain PyTorch. Imports torch and numpy only.
 """
 
 __version__ = '0.1.0'

@@ -1,0 +1,524 @@
+"""Parameter-shared multi-agent DQN trainer on one device.
+
+The port of the JAX package's ``algo/dqn_trainer.py``, with the same
+algorithm and hyperparameter defaults as the reference trainer:
+
+* one shared policy and target DQN serve every snake;
+* per-agent epsilon-greedy actions, a shared uniform replay ring, and an
+  optimizer update per env step (Huber TD loss, gradient clipped to a
+  global norm of 10, Adam);
+* epsilon decays by 0.9995 per episode down to its floor, the target net
+  is synced every 100 episodes, and an agent that dies in the first steps
+  of an episode is penalised;
+* scalars Train/{Mean_Reward, Epsilon, Episode_Length, Loss}; best,
+  periodic (keep the last N) and final checkpoints, and resume.
+
+An episode steps ``num_envs`` envs together: one forward picks the
+actions of all (num_envs x num_snakes) agents, the env step is one launch
+of the CUDA step kernel's entry without auto-reset (``ops/step_kernel``;
+the plain engine on the CPU), and the replay ring and the optimizer state
+stay on the device. Where the JAX package runs the episode as one
+``lax.scan`` program, this is a Python loop that reads two numbers back
+from the device per step (the ring's fill and whether any env is still
+live) and stops once every env has finished; the steps the scan would
+still run are no-ops there.
+
+Random numbers: the trainer owns one ``torch.Generator`` on its device;
+``train_episode`` draws an episode's numbers from it up front
+(``rng.reset_draws``, ``rng.train_draws``) unless the caller hands them
+in. The replay ring is updated in place, so a ``TrainState`` that went
+into ``train_episode`` must not be used again.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from marlsnake_torch.algo import optim, replay
+from marlsnake_torch.algo.acting import epsilon_greedy
+from marlsnake_torch.core import engine
+from marlsnake_torch.core.types import EnvConfig
+from marlsnake_torch.device import resolve_device
+from marlsnake_torch.envs.vector import build_vector_fns
+from marlsnake_torch.models.dqn import make_dqn
+from marlsnake_torch.rng import (ResetDraws, StepDraws, TrainDraws,
+                                 reset_draws, train_draws)
+from marlsnake_torch.utils import checkpoint as ckpt
+from marlsnake_torch.utils.metrics import MetricWriter
+
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class DQNConfig:
+    """The reference trainer's ``Config``, with the JAX package's extra
+    knobs; field names and defaults are the JAX ``DQNConfig``'s."""
+    # environment
+    num_snakes: int = 4
+    height: int = 20
+    width: int = 20
+    snake_length: int = 5
+    vision_range: Optional[int] = None
+    frame_stack: int = 1
+    # training
+    num_episodes: int = 50_000
+    max_steps_per_episode: int = 256
+    batch_size: int = 512
+    gamma: float = 0.99
+    lr: float = 5e-4
+    epsilon_start: float = 1.0
+    epsilon_end: float = 0.05
+    epsilon_decay: float = 0.9995
+    buffer_size: int = 10_000
+    min_buffer_size: int = 512 * 3
+    target_update_freq: int = 100
+    # reward shaping
+    early_death_threshold: int = 10
+    early_death_penalty: float = -1.0
+    reward_dict: Any = dataclasses.field(default_factory=lambda: {
+        'fruit': 1.0, 'kill': 0.0, 'lose': 0.0, 'win': 0.0, 'time': 0.0})
+    # checkpoints and logs
+    save_freq: int = 500
+    save_best_only: bool = True
+    keep_last_n: int = 3
+    save_dir: str = 'checkpoints'
+    log_dir: str = 'runs_dqn'
+    resume_from: Optional[str] = None
+    # scaling knobs (no reference analog)
+    num_envs: int = 1
+    seed: int = 0
+    # float32 parameters; torch.bfloat16 runs the convolutions and
+    # products in bfloat16 (models/dqn.py)
+    compute_dtype: torch.dtype = torch.float32
+    # The engine's obs are one-hot {0, 1} planes, so the reference's
+    # conditional /255 never divides and skipping its whole-obs max gives
+    # the same activations. Set False only for other (0..255) inputs.
+    assume_binary_obs: bool = True
+    # Zero-pad the obs channels before conv1 (exact: the extra kernel
+    # columns see zeros). It widens conv1's kernel to (32, 8 + pad, 3, 3),
+    # so such parameters do not fit a consumer that applies the net to raw
+    # 8-channel obs; the pad is written beside every checkpoint.
+    obs_pad_channels: int = 0
+    # 'packed' (bit-packed env observations) is not ported yet.
+    obs_format: str = 'uint8'
+    # Re-encode the acting forward's obs from the carried env grid instead
+    # of reading the carried obs: the same bytes for full-obs
+    # frame_stack=1 uint8 configs. None and False mean off.
+    reencode_acting_obs: Optional[bool] = None
+    # Learner pacing. update_every=K runs K env steps between optimizer
+    # updates (it must divide max_steps_per_episode); update_batch_size is
+    # the minibatch of an update (None = batch_size).
+    update_every: int = 1
+    update_batch_size: Optional[int] = None
+    # Sample the TD minibatch BEFORE the step's push (one step staler, and
+    # warm-up crosses min_buffer_size one step later) and run the acting
+    # rows and the TD rows through one forward. Requires update_every=1.
+    fused_act_update: bool = False
+
+    def env_config(self) -> EnvConfig:
+        return EnvConfig.from_reward_dict(
+            self.reward_dict, height=self.height, width=self.width,
+            num_snakes=self.num_snakes, snake_length=self.snake_length,
+            vision_range=self.vision_range, frame_stack=self.frame_stack,
+            obs_format=self.obs_format)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What training carries from episode to episode, all on the device
+    but the two counters. The JAX ``TrainState``'s ``key`` has no field
+    here: the trainer's generator takes its place."""
+    params: Params             # the DQN's state_dict layout
+    target_params: Params
+    opt_state: optim.AdamState  # moments in the order of ``params``
+    buffer: replay.ReplayBuffer
+    epsilon: torch.Tensor      # () float32
+    episode: int
+    global_step: int           # optimizer updates performed
+
+    def replace(self, **changes) -> 'TrainState':
+        return dataclasses.replace(self, **changes)
+
+
+@dataclasses.dataclass
+class EpisodeMetrics:
+    mean_reward: torch.Tensor  # () float32: mean total shaped reward
+    mean_loss: torch.Tensor    # () float32
+    episode_length: float      # steps until every env was done
+    updates: int
+
+
+def huber_loss(pred: torch.Tensor, target: torch.Tensor,
+               delta: float = 1.0) -> torch.Tensor:
+    """Elementwise Huber loss, in optax's arithmetic."""
+    abs_err = (pred - target).abs()
+    quadratic = abs_err.clamp(max=delta)
+    return 0.5 * quadratic ** 2 + delta * (abs_err - quadratic)
+
+
+class DQNTrainer:
+    """Single-device trainer. ``device`` defaults to the GPU; pass
+    ``'cpu'`` to run the plain PyTorch path."""
+
+    def __init__(self, config: DQNConfig, device='cuda'):
+        self.config = config
+        if config.max_steps_per_episode % config.update_every != 0:
+            raise ValueError(
+                f'update_every={config.update_every} must divide '
+                f'max_steps_per_episode={config.max_steps_per_episode}')
+        if config.fused_act_update and config.update_every != 1:
+            raise ValueError(
+                'fused_act_update requires update_every=1 (it fuses the '
+                'per-step update into the acting forward)')
+        self.device = resolve_device(device)
+        self.env_cfg = config.env_config()
+        self._reset_env, self._step_env = build_vector_fns(
+            self.env_cfg, autoreset=False, device=self.device)
+        # the net is applied to parameters handed in (TrainState.params);
+        # its own, made from config.seed, are what init_state starts from
+        self.net = make_dqn(
+            self.env_cfg, config.seed, self.device, config.assume_binary_obs,
+            config.obs_pad_channels, config.compute_dtype
+        ).requires_grad_(False)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(config.seed + 1)
+        self.update_batch = config.update_batch_size or config.batch_size
+        self.best_mean_reward = float('-inf')
+        self.writer = None
+
+    # ------------------------------------------------------------------
+    def init_state(self) -> TrainState:
+        cfg = self.config
+        params = {k: v.detach().clone()
+                  for k, v in self.net.state_dict().items()}
+        return TrainState(
+            params=params, target_params=params,
+            opt_state=optim.adam_init(list(params.values())),
+            buffer=replay.create(cfg.buffer_size, self.env_cfg.obs_shape[1:],
+                                 device=self.device),
+            epsilon=torch.tensor(cfg.epsilon_start, dtype=torch.float32,
+                                 device=self.device),
+            episode=0, global_step=0)
+
+    # ------------------------------------------------------------------
+    def _prep(self, flat_obs: torch.Tensor) -> torch.Tensor:
+        """Net-ingress obs transform: zero-pad the obs channels
+        (``obs_pad_channels``; exact, the widened conv1 sees zeros)."""
+        pad = self.config.obs_pad_channels
+        return F.pad(flat_obs, (0, pad)) if pad else flat_obs
+
+    def _q(self, params: Params, flat_obs: torch.Tensor) -> torch.Tensor:
+        """Q-values (rows, A) of per-agent obs under ``params``."""
+        return torch.func.functional_call(self.net, params,
+                                          (self._prep(flat_obs),))
+
+    def _acting_obs(self, env_states, obs):
+        if not self.config.reencode_acting_obs:
+            return obs
+        return engine.encode_frame(self.env_cfg, env_states.grid)
+
+    def _select_actions(self, params: Params, obs, dones, eps,
+                        draws: TrainDraws) -> torch.Tensor:
+        """Batched epsilon-greedy for (E, N) agents in one forward."""
+        e, n = obs.shape[:2]
+        q = self._q(params, obs.reshape((e * n,) + obs.shape[2:]))
+        return epsilon_greedy(q, dones, eps, draws.rand, draws.explore_u)
+
+    def _td_loss(self, q: torch.Tensor, target_params: Params, batch
+                 ) -> torch.Tensor:
+        """Mean Huber loss of Q(s, .) rows ``q`` against the one-step
+        target ``r + (1 - done) * gamma * max_a Q_target(s', a)``."""
+        _, action, rew, next_obs, done = batch
+        q_sa = q.gather(1, action.long()[:, None])[:, 0]
+        with torch.no_grad():
+            next_q = self._q(target_params, next_obs).max(-1).values
+            target = rew + (1.0 - done.to(torch.float32)) \
+                * self.config.gamma * next_q
+        return huber_loss(q_sa, target).mean()
+
+    def loss_and_grads(self, params: Params, target_params: Params, batch,
+                       acting_obs: Optional[torch.Tensor] = None):
+        """(loss, gradients in the order of ``params``, acting Q-values).
+        With ``acting_obs`` (rows of per-agent obs) those rows go through
+        the same forward as the batch's, ahead of them, and their
+        Q-values come back detached; else the third result is None."""
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        obs = batch[0]
+        with torch.enable_grad():
+            if acting_obs is None:
+                q_act, q = None, self._q(leaves, obs)
+            else:
+                rows = acting_obs.shape[0]
+                q_all = self._q(leaves, torch.cat([acting_obs, obs], 0))
+                q_act, q = q_all[:rows].detach(), q_all[rows:]
+            loss = self._td_loss(q, target_params, batch)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), list(grads), q_act
+
+    def apply_gradients(self, params: Params, opt_state: optim.AdamState,
+                        grads) -> Tuple[Params, optim.AdamState]:
+        """Clip to a global norm of 10, then one Adam step at ``lr``."""
+        grads = optim.clip_by_global_norm(grads, 10.0)
+        updates, opt_state = optim.adam_update(grads, opt_state,
+                                               self.config.lr)
+        new = optim.apply_updates(list(params.values()), updates)
+        return dict(zip(params, new)), opt_state
+
+    def _td_update(self, params: Params, target_params: Params,
+                   opt_state: optim.AdamState, batch,
+                   acting_obs: Optional[torch.Tensor] = None):
+        """One optimizer step on ``batch`` = (obs, action, reward,
+        next_obs, done). Returns (params, opt_state, loss, acting Q)."""
+        loss, grads, q_act = self.loss_and_grads(params, target_params,
+                                                 batch, acting_obs)
+        params, opt_state = self.apply_gradients(params, opt_state, grads)
+        return params, opt_state, loss, q_act
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def train_episode(self, ts: TrainState,
+                      draws: Optional[TrainDraws] = None,
+                      reset: Optional[ResetDraws] = None
+                      ) -> Tuple[TrainState, EpisodeMetrics]:
+        """One episode of ``num_envs`` envs: reset, then up to
+        ``max_steps_per_episode`` steps of act, env step, early-death
+        shaping, masked push, freeze of finished envs, and the optimizer
+        update the pacing mode asks for; then epsilon decay, target sync
+        and the metrics. ``draws`` and ``reset`` default to numbers from
+        the trainer's generator."""
+        cfg = self.config
+        e, n = cfg.num_envs, cfg.num_snakes
+        dev = self.device
+        num_steps = cfg.max_steps_per_episode
+        if reset is None:
+            reset = reset_draws(self.env_cfg, e, self.generator, dev)
+        if draws is None:
+            draws = train_draws(self.env_cfg, e, num_steps, cfg.buffer_size,
+                                self.update_batch, self.generator, dev)
+        env_states, obs = self._reset_env(reset)
+        out = None
+        dones = torch.zeros((e, n), dtype=torch.bool, device=dev)
+        frozen = torch.zeros((e,), dtype=torch.bool, device=dev)
+        ep_rew = torch.zeros((e, n), dtype=torch.float32, device=dev)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        params, opt_state, buffer = ts.params, ts.opt_state, ts.buffer
+        updates = steps = 0
+        size = int(buffer.size)  # the ring's fill, mirrored on the host
+
+        def flat(x):
+            return x.reshape((e * n,) + x.shape[2:])
+
+        for t in range(num_steps):
+            d = draws.at(t)
+            if cfg.fused_act_update:
+                # the minibatch comes from the ring as it is before this
+                # step's push; acting and TD rows share one forward
+                acting = flat(self._acting_obs(env_states, obs))
+                if size >= cfg.min_buffer_size:
+                    batch = replay.sample(buffer, self.update_batch,
+                                          d.sample_u, idx=d.sample_idx)
+                    params, opt_state, loss, q_act = self._td_update(
+                        params, ts.target_params, opt_state, batch, acting)
+                    loss_sum = loss_sum + loss
+                    updates += 1
+                else:
+                    q_act = self._q(params, acting)
+                actions = epsilon_greedy(q_act, dones, ts.epsilon, d.rand,
+                                         d.explore_u)
+            else:
+                actions = self._select_actions(
+                    params, self._acting_obs(env_states, obs), dones,
+                    ts.epsilon, d)
+            # finished envs stand still (the reference loops while not
+            # all done): the step leaves them as they came in; no env is
+            # frozen before the first step
+            new_states, new_out = self._step_env(
+                env_states, actions, StepDraws(d.fruit_u, None, None),
+                hold=(frozen, out) if t > 0 else None)
+
+            # early-death shaping; t is the step count, since the loop
+            # ends with the last live env
+            shaped = new_out.reward
+            if t < cfg.early_death_threshold:
+                shaped = shaped + torch.where(
+                    new_out.done, cfg.early_death_penalty, 0.0)
+            push_mask = ~dones & ~frozen[:, None]  # agents alive at step
+            replay.push(buffer, flat(obs), flat(actions), flat(shaped),
+                        flat(new_out.obs), flat(new_out.done),
+                        mask=flat(push_mask))
+            ep_rew = ep_rew + torch.where(push_mask, shaped, 0.0)
+
+            env_states, out = new_states, new_out
+            obs, dones = out.obs, out.done
+            frozen = frozen | dones.all(-1)
+            steps = t + 1
+
+            # the one read-back of the step
+            size, live = torch.stack(
+                [buffer.size, (~frozen).any().to(torch.int32)]).tolist()
+            if (not cfg.fused_act_update and live
+                    and steps % cfg.update_every == 0
+                    and size >= cfg.min_buffer_size):
+                batch = replay.sample(buffer, self.update_batch, d.sample_u,
+                                      idx=d.sample_idx)
+                params, opt_state, loss, _ = self._td_update(
+                    params, ts.target_params, opt_state, batch)
+                loss_sum = loss_sum + loss
+                updates += 1
+            if not live:
+                break
+
+        episode = ts.episode + 1
+        epsilon = torch.clamp(ts.epsilon * cfg.epsilon_decay,
+                              min=cfg.epsilon_end)
+        sync = episode % cfg.target_update_freq == 0
+        metrics = EpisodeMetrics(
+            mean_reward=ep_rew.mean(),
+            mean_loss=loss_sum / updates if updates else loss_sum,
+            episode_length=float(steps), updates=updates)
+        ts = ts.replace(
+            params=params, target_params=params if sync else ts.target_params,
+            opt_state=opt_state, buffer=buffer, epsilon=epsilon,
+            episode=episode, global_step=ts.global_step + updates)
+        return ts, metrics
+
+    # ------------------------------------------------------------------
+    def train(self, num_episodes: Optional[int] = None,
+              log: bool = True) -> TrainState:
+        cfg = self.config
+        num_episodes = num_episodes or cfg.num_episodes
+        ts = self.init_state()
+        start_ep = 1
+        if cfg.resume_from:
+            ts, extra = self.load_checkpoint(cfg.resume_from, ts)
+            start_ep = ts.episode + 1
+            self.best_mean_reward = extra.get('best_mean_reward',
+                                              float('-inf'))
+        if log:
+            from datetime import datetime
+            run_dir = os.path.join(
+                cfg.log_dir, datetime.now().strftime('%Y%m%d-%H%M%S'))
+            self.writer = MetricWriter(run_dir)
+        os.makedirs(cfg.save_dir, exist_ok=True)
+        history = []
+
+        t0 = time.time()
+        for ep in range(start_ep, num_episodes + 1):
+            ts, m = self.train_episode(ts)
+            if ep % 10 == 0 or ep == num_episodes:
+                mr, ml = float(m.mean_reward), float(m.mean_loss)
+                eps = float(ts.epsilon)
+                if self.writer:
+                    self.writer.add_scalar('Train/Mean_Reward', mr, ep)
+                    self.writer.add_scalar('Train/Epsilon', eps, ep)
+                    self.writer.add_scalar('Train/Episode_Length',
+                                           m.episode_length, ep)
+                    if ml > 0:
+                        self.writer.add_scalar('Train/Loss', ml, ep)
+                print(f'Ep {ep:5d} | Mean Reward: {mr:6.2f} | '
+                      f'Loss: {ml:.4f} | eps: {eps:.3f} | '
+                      f'Steps: {m.episode_length:.0f} | '
+                      f'{(time.time() - t0):.1f}s')
+            if cfg.save_best_only and ep >= 50:
+                mr = float(m.mean_reward)
+                if mr > self.best_mean_reward:
+                    self.best_mean_reward = mr
+                    self.save_checkpoint(ts, 'best')
+            if cfg.save_freq and ep % cfg.save_freq == 0:
+                self.save_checkpoint(ts, ep)
+                history.append(ep)
+                if len(history) > cfg.keep_last_n:
+                    self.delete_checkpoint(history.pop(0))
+        self.save_checkpoint(ts, 'final')
+        if self.writer:
+            self.writer.close()
+        return ts
+
+    # --- checkpoints ---------------------------------------------------
+    def _ckpt_path(self, tag) -> str:
+        return os.path.abspath(
+            os.path.join(self.config.save_dir, f'shared_model_{tag}.pt'))
+
+    @staticmethod
+    def _meta_path(path: str) -> str:
+        return path[:-len('.pt')] + '.meta.json'
+
+    def _payload(self, ts: TrainState, full: bool) -> dict:
+        # the optimizer state rides along, so a resumed run goes on with
+        # warm Adam moments; full=True adds the replay ring and the
+        # generator's state, so that a resumed run repeats the
+        # uninterrupted one
+        opt = ts.opt_state
+        payload = {
+            'params': ts.params, 'target_params': ts.target_params,
+            'opt_state': {'count': opt.count, 'mu': opt.mu, 'nu': opt.nu},
+            'global_step': ts.global_step, 'epsilon': ts.epsilon,
+            'episode': ts.episode,
+            'best_mean_reward': float(self.best_mean_reward),
+        }
+        if full:
+            payload['buffer'] = dict(ts.buffer.fields())
+            payload['generator'] = self.generator.get_state()
+        return payload
+
+    def save_checkpoint(self, ts: TrainState, tag, full: bool = False):
+        path = self._ckpt_path(tag)
+        ckpt.save(path, self._payload(ts, full))
+        # beside it: what a consumer needs to apply these parameters to
+        # raw engine obs (see DQNConfig.obs_pad_channels)
+        with open(self._meta_path(path), 'w') as f:
+            json.dump({'obs_pad_channels': self.config.obs_pad_channels,
+                       'obs_format': self.config.obs_format}, f)
+
+    def load_checkpoint(self, tag, ts: TrainState, full: bool = False):
+        """``ts`` with what the checkpoint ``tag`` holds, and
+        ``{'best_mean_reward': ...}``. With ``full=True`` the replay ring
+        is read into ``ts``'s and the trainer's generator is set too."""
+        got = ckpt.restore(self._ckpt_path(tag), self._payload(ts, full))
+        opt = got['opt_state']
+        ts = ts.replace(
+            params=got['params'], target_params=got['target_params'],
+            opt_state=optim.AdamState(opt['count'], opt['mu'], opt['nu']),
+            global_step=got['global_step'], epsilon=got['epsilon'],
+            episode=got['episode'])
+        if full:
+            ts = ts.replace(buffer=dataclasses.replace(ts.buffer,
+                                                       **got['buffer']))
+            self.generator.set_state(got['generator'].cpu())
+        return ts, {'best_mean_reward': got['best_mean_reward']}
+
+    def delete_checkpoint(self, tag):
+        path = self._ckpt_path(tag)
+        for p in (path, self._meta_path(path)):
+            if os.path.exists(p):
+                os.remove(p)
+
+
+def main(argv=None):
+    import argparse
+    p = argparse.ArgumentParser()
+    p.add_argument('--episodes', type=int, default=200)
+    p.add_argument('--num-envs', type=int, default=1)
+    p.add_argument('--height', type=int, default=20)
+    p.add_argument('--width', type=int, default=20)
+    p.add_argument('--num-snakes', type=int, default=4)
+    p.add_argument('--resume', type=str, default=None)
+    p.add_argument('--no-log', action='store_true')
+    p.add_argument('--device', default='cuda')
+    args = p.parse_args(argv)
+    cfg = DQNConfig(num_episodes=args.episodes, num_envs=args.num_envs,
+                    height=args.height, width=args.width,
+                    num_snakes=args.num_snakes, resume_from=args.resume)
+    DQNTrainer(cfg, device=args.device).train(log=not args.no_log)
+
+
+if __name__ == '__main__':
+    main()

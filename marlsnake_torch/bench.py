@@ -7,6 +7,12 @@ obs pipeline is in the measurement. Prints ONE JSON line:
 "device"}``; ``value`` is the best of three timed blocks and ``median``
 their median. Run ``python -m marlsnake_torch.bench`` on the GPU; pass
 ``--device cpu`` (and small sizes) to run the plain path on the CPU.
+
+``--mode train`` times DQN training instead: milliseconds per episode and
+env-steps/s of ``DQNTrainer.train_episode`` at 32 and 256 envs (20x20, 4
+snakes of length 3, 256-step episodes, batch 512, ring of 10,000), for
+``update_every`` 1 and 4, after one warm-up episode; one JSON line per
+row, each with the device.
 """
 
 from __future__ import annotations
@@ -66,8 +72,6 @@ def run(num_envs: int = 4096, num_steps: int = 256, iters: int = 4,
         dts.append(time.perf_counter() - t0)
     total = num_envs * num_steps * iters
     best = total / min(dts)
-    name = (torch.cuda.get_device_name(env.device)
-            if env.device.type == 'cuda' else 'cpu')
     return {
         'metric': f'env-steps/s at {num_envs} parallel envs '
                   '(20x20, 4 snakes)',
@@ -76,7 +80,48 @@ def run(num_envs: int = 4096, num_steps: int = 256, iters: int = 4,
         'vs_baseline': best / BASELINE_STEPS_PER_SEC,
         'median': total / sorted(dts)[1],
         'spawn_mode': cfg.spawn_mode,
-        'device': name,
+        'device': _device_name(env.device),
+    }
+
+
+def _device_name(device: torch.device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == 'cuda'
+            else 'cpu')
+
+
+def run_train(num_envs: int, update_every: int = 1, episodes: int = 3,
+              device='cuda', **config) -> dict:
+    """Mean wall time of ``episodes`` training episodes after one warm-up
+    episode (which also fills the ring). Episodes end when their last env
+    does, so ``steps_per_episode`` says how long they were. ``config``
+    overrides fields of the ``DQNConfig`` (a small board for a CPU run)."""
+    from marlsnake_torch.algo.dqn_trainer import DQNConfig, DQNTrainer
+    cfg = DQNConfig(**{**dict(
+        height=20, width=20, num_snakes=4, snake_length=3,
+        num_envs=num_envs, max_steps_per_episode=256, batch_size=512,
+        min_buffer_size=512 * 3, buffer_size=10_000,
+        update_every=update_every), **config})
+    trainer = DQNTrainer(cfg, device=device)
+    ts, m = trainer.train_episode(trainer.init_state())
+    _sync(trainer.device)
+    steps = updates = 0
+    t0 = time.perf_counter()
+    for _ in range(episodes):
+        ts, m = trainer.train_episode(ts)
+        steps += m.episode_length
+        updates += m.updates
+    _sync(trainer.device)
+    dt = (time.perf_counter() - t0) / episodes
+    return {
+        'metric': f'DQN training episode ({cfg.height}x{cfg.width}, '
+                  f'{cfg.num_snakes} snakes)',
+        'num_envs': num_envs, 'update_every': update_every,
+        'update_batch_size': trainer.update_batch,
+        'episode_ms': dt * 1e3,
+        'env_steps_per_s': num_envs * steps / episodes / dt,
+        'steps_per_episode': steps / episodes,
+        'updates_per_episode': updates / episodes,
+        'device': _device_name(trainer.device),
     }
 
 
@@ -87,7 +132,17 @@ def main(argv=None) -> None:
     ap.add_argument('--iters', type=int, default=4)
     ap.add_argument('--device', default='cuda')
     ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--mode', choices=('rollout', 'train'),
+                    default='rollout')
+    ap.add_argument('--episodes', type=int, default=3,
+                    help='timed episodes per row (train mode)')
     a = ap.parse_args(argv)
+    if a.mode == 'train':
+        for num_envs in (32, 256):
+            for every in (1, 4):
+                print(json.dumps(run_train(num_envs, every, a.episodes,
+                                           a.device)), flush=True)
+        return
     print(json.dumps(run(a.num_envs, a.num_steps, a.iters, a.device,
                          a.seed)))
 

@@ -1,10 +1,19 @@
-// Batched snake step with fused auto-reset and observation encode.
+// Batched snake step with observation encode, with and without fused
+// auto-reset: one kernel body, instantiated twice.
 //
-// Replaces the Pallas TPU kernel marlsnake_tpu/ops/pallas_step.py::_step_block
-// (:54-329) and the obs-encode epilogue of its launcher, build_pallas_step
-// (:332-491). The plain PyTorch version of the same function is
-// marlsnake_torch/core/engine.py::step_autoreset; both take every random
-// number as an input, so they agree bit for bit, floats included.
+// step_autoreset_kernel (step_body<true>) replaces the Pallas TPU kernel
+// marlsnake_tpu/ops/pallas_step.py::_step_block (:54-329) and the obs-encode
+// epilogue of its launcher, build_pallas_step (:332-491); its plain PyTorch
+// version is marlsnake_torch/core/engine.py::step_autoreset.
+// step_noreset_kernel (step_body<false>) is the same step with the reset
+// compiled out (no reset draw, pool row or base grid is read): the DQN
+// trainer's env step, which the JAX package leaves to XLA
+// (marlsnake_tpu/core/engine.py::step); its plain version is
+// marlsnake_torch/core/engine.py::step. That entry can also hold envs still
+// (the trainer's finished envs): an env whose `keep` flag is set is copied
+// from the input arena, state and step output, instead of being stepped.
+// Kernel and plain version take every random number as an input, so they
+// agree bit for bit, floats included.
 //
 // What bounds it on an H100: bytes. Per env-step the kernel reads the state
 // (grid H*W int32, the 2-bit rings, ~50 bytes per snake, the draws) and
@@ -60,14 +69,18 @@ constexpr int UP = 0, RIGHT = 1, DOWN = 2, LEFT = 3;
 struct StepArgs {
   // The state comes in as one arena and goes out in another, with the step
   // output behind it; the o_* byte offsets (16-byte aligned) hold for both.
-  const uint8_t* state;            // the first 14 fields of the layout
+  const uint8_t* state;            // the first 14 fields of the layout, or
+                                   // all 23 where `keep` is given
   uint8_t* out;                    // all 23 fields
   const int32_t* actions;          // (B, N)
   const float* fruit_u;            // (B, N)
+  // read by the auto-reset entry only; null for the plain step
   const float* reset_spawn_u;      // (B,)
   const float* reset_fruit_u;      // (B, NF)
   const int32_t* pool_cells;       // (P, N*K)
   const int32_t* base_grid;        // (HW,)
+  // read by the plain step only: envs to hold still (see hold_env), or null
+  const uint8_t* keep;             // (B,) bool
   int64_t o_grid;                  // (B, HW) int32
   int64_t o_direction;             // (B, N) int32
   int64_t o_head;                  // (B, N, 2) int32
@@ -213,13 +226,100 @@ __device__ __forceinline__ void copy_out(int32_t* dst, const int* src, int n,
   }
 }
 
-__global__ void __launch_bounds__(kMaxWarps * 32, 4)
-step_autoreset_kernel(const StepArgs a) {
+// The warp copies one env's row of a field (a multiple of 4 bytes at a
+// 4-byte-aligned address) from the input arena to the output arena, 16 bytes
+// a lane where size and address allow, else 4. The loads are read-only
+// (ld.global.nc) and the loops unrolled, so that a lane has several loads in
+// flight before its first store.
+__device__ __forceinline__ void copy_row(const StepArgs& a, int64_t offset,
+                                         size_t row_bytes, int b, int lane) {
+  const uint8_t* src = a.state + offset + b * row_bytes;
+  uint8_t* dst = a.out + offset + b * row_bytes;
+  const int n = static_cast<int>(row_bytes);
+  if ((n & 15) == 0 && aligned16(src) && aligned16(dst)) {
+#pragma unroll 4
+    for (int x = 16 * lane; x < n; x += 512)
+      *reinterpret_cast<int4*>(dst + x) = __ldg(reinterpret_cast<const int4*>(src + x));
+  } else {
+#pragma unroll 4
+    for (int x = 4 * lane; x < n; x += 128)
+      *reinterpret_cast<int32_t*>(dst + x) =
+          __ldg(reinterpret_cast<const int32_t*>(src + x));
+  }
+}
+
+// An env that is held still leaves the step as it came in: all 23 fields of
+// its row, state and step output, are copied from the input arena, which must
+// then be a whole arena (the output of the step before). As in the step
+// itself, the per-snake and per-env values are all loaded before any is
+// stored; the grid, the rings and the obs are copied in between.
+__device__ __forceinline__ void hold_env(const StepArgs& a, int b, int lane) {
+  const int N = a.N, HW = a.H * a.W;
+  const int e = b * N + lane;
+  const bool snake = lane < N;
+  // the (B, N) fields of 4-byte elements, then head and tail (two each)
+  const int64_t words[] = {
+      a.o_direction,      a.o_ring_head,     a.o_ring_len,       a.o_epi_scores,
+      a.o_epi_steps,      a.o_epi_fruits,    a.o_epi_kills,      a.o_reward,
+      a.o_rank,           a.o_episode_scores, a.o_episode_steps,
+      a.o_episode_fruits, a.o_episode_kills};
+  constexpr int kWords = sizeof(words) / sizeof(words[0]);
+  const int64_t pairs[] = {a.o_head, a.o_tail};
+  const int64_t flags[] = {a.o_alive, a.o_done};      // (B, N) bool
+  const int64_t scalars[] = {a.o_alive_count, a.o_episode_length};  // (B,)
+  int32_t w[kWords] = {}, p[2][2] = {}, sc[2] = {};
+  uint8_t f[2] = {}, done_all = 0;
+  if (snake) {
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) w[i] = __ldg(in<int32_t>(a, words[i]) + e);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      p[i][0] = __ldg(in<int32_t>(a, pairs[i]) + 2 * e);
+      p[i][1] = __ldg(in<int32_t>(a, pairs[i]) + 2 * e + 1);
+      f[i] = __ldg(in<uint8_t>(a, flags[i]) + e);
+    }
+  }
+  if (lane == 0) {
+    sc[0] = __ldg(in<int32_t>(a, scalars[0]) + b);
+    sc[1] = __ldg(in<int32_t>(a, scalars[1]) + b);
+    done_all = __ldg(in<uint8_t>(a, a.o_done_all) + b);
+  }
+  copy_row(a, a.o_grid, static_cast<size_t>(HW) * 4, b, lane);
+  copy_row(a, a.o_ring, static_cast<size_t>(N) * a.CW * 4, b, lane);
+  copy_row(a, a.o_obs, static_cast<size_t>(N) * HW * 8, b, lane);
+  if (snake) {
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) at<int32_t>(a, words[i])[e] = w[i];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      at<int32_t>(a, pairs[i])[2 * e] = p[i][0];
+      at<int32_t>(a, pairs[i])[2 * e + 1] = p[i][1];
+      at<uint8_t>(a, flags[i])[e] = f[i];
+    }
+  }
+  if (lane == 0) {
+    at<int32_t>(a, scalars[0])[b] = sc[0];
+    at<int32_t>(a, scalars[1])[b] = sc[1];
+    at<uint8_t>(a, a.o_done_all)[b] = done_all;
+  }
+}
+
+// kReset: an env whose episode-done predicate fires leaves the step as a
+// fresh reset. Without it the env keeps its finished state (the reward,
+// done, rank and stats outputs are the same either way).
+template <bool kReset>
+__device__ __forceinline__ void step_body(const StepArgs& a) {
   extern __shared__ __align__(16) int smem[];
   const int H = a.H, W = a.W, HW = H * W, N = a.N, K = a.K, CW = a.CW;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= a.B) return;  // the whole warp: there is no block barrier
+  if constexpr (!kReset) {
+    if (a.keep != nullptr && a.keep[b]) {  // uniform across the warp
+      hold_env(a, b, lane);
+      return;
+    }
+  }
   const int ncw = N * CW;
   int* g = smem + warp * (round4(HW) + round4(ncw));
   uint32_t* ring = reinterpret_cast<uint32_t*>(g + round4(HW));
@@ -250,12 +350,14 @@ step_autoreset_kernel(const StepArgs a) {
     ek = __ldg(in<float>(a, a.o_epi_kills) + e);
     fu = __ldg(a.fruit_u + e);
   }
-  const float ru =
-      lane < a.NF ? __ldg(a.reset_fruit_u + static_cast<size_t>(b) * a.NF + lane)
-                  : 0.0f;
+  float ru = 0.0f, spawn_u = 0.0f;
+  if constexpr (kReset) {
+    if (lane < a.NF)
+      ru = __ldg(a.reset_fruit_u + static_cast<size_t>(b) * a.NF + lane);
+    spawn_u = __ldg(a.reset_spawn_u + b);
+  }
   const int acount0 = __ldg(in<int32_t>(a, a.o_alive_count) + b);
   const int elen = __ldg(in<int32_t>(a, a.o_episode_length) + b) + 1;
-  const float spawn_u = __ldg(a.reset_spawn_u + b);
   cp_async_wait_all();
   __syncwarp();
 
@@ -320,6 +422,7 @@ step_autoreset_kernel(const StepArgs a) {
   const unsigned snakes = N == 32 ? kFull : (1u << N) - 1u;
   const unsigned dones = __ballot_sync(kFull, snake && done);
   const int done_all = a.any_mode ? dones != 0 : dones == snakes;
+  const bool reset_now = kReset && done_all;
   int rank = 1;
   for (int j = 0; j < N; ++j) rank += __shfl_sync(kFull, epi_s, j) > epi_s;
 
@@ -327,7 +430,7 @@ step_autoreset_kernel(const StepArgs a) {
   // uniform across the warp.
   int nhr = hr, nhc = hc, ntr = tlr, ntc = tlc, al_out = al1;
   uint32_t* myr = ring + lane * CW;
-  if (!done_all) {
+  if (!reset_now) {
     // --- Phase 6: erase dead bodies, ring push/pop, cell writes ---
     const unsigned dead_mask = __ballot_sync(kFull, snake && dead);
     if (dead_mask) {
@@ -420,7 +523,7 @@ step_autoreset_kernel(const StepArgs a) {
   __syncwarp();
 
   // --- Phase 7: fruits on the selected grid, with the selected draws ---
-  const int count = done_all ? a.NF : taken;
+  const int count = reset_now ? a.NF : taken;
   int num_empty = 0;
   for (int base = 0; base < HW; base += 32) {
     const int c = base + lane;
@@ -428,7 +531,7 @@ step_autoreset_kernel(const StepArgs a) {
   }
   int target = -1;  // my draw's 1-based rank among the empty cells
   if (lane < count && num_empty > 0) {
-    const float u = done_all ? ru : fu;
+    const float u = reset_now ? ru : fu;
     const int r = static_cast<int>(floorf(__fmul_rn(u, static_cast<float>(num_empty))));
     target = min(max(r, 0), num_empty - 1) + 1;
   }
@@ -459,6 +562,7 @@ step_autoreset_kernel(const StepArgs a) {
     at<int32_t>(a, a.o_ring_head)[e] = nrh;
     at<int32_t>(a, a.o_ring_len)[e] = nrl;
     at<uint8_t>(a, a.o_alive)[e] = static_cast<uint8_t>(al_out);
+    // the running stats restart where the episode ends, reset or not
     at<float>(a, a.o_epi_scores)[e] = done_all ? 0.0f : epi_s;
     at<float>(a, a.o_epi_steps)[e] = done_all ? 0.0f : epi_st;
     at<float>(a, a.o_epi_fruits)[e] = done_all ? 0.0f : epi_f;
@@ -473,8 +577,8 @@ step_autoreset_kernel(const StepArgs a) {
     at<float>(a, a.o_episode_kills)[e] = epi_k;
   }
   if (lane == 0) {
-    at<int32_t>(a, a.o_alive_count)[b] = done_all ? N : acount;
-    at<int32_t>(a, a.o_episode_length)[b] = done_all ? 0 : elen;
+    at<int32_t>(a, a.o_alive_count)[b] = reset_now ? N : acount;
+    at<int32_t>(a, a.o_episode_length)[b] = reset_now ? 0 : elen;
     at<uint8_t>(a, a.o_done_all)[b] = static_cast<uint8_t>(done_all);
   }
 
@@ -503,13 +607,24 @@ step_autoreset_kernel(const StepArgs a) {
   }
 }
 
+__global__ void __launch_bounds__(kMaxWarps * 32, 4)
+step_autoreset_kernel(const StepArgs a) {
+  step_body<true>(a);
+}
+
+__global__ void __launch_bounds__(kMaxWarps * 32, 4)
+step_noreset_kernel(const StepArgs a) {
+  step_body<false>(a);
+}
+
 // Bytes of shared memory one env (one warp) takes: its grid and its rings,
 // each rounded up to 16 bytes.
 static size_t smem_per_env(const StepArgs& a) {
   return static_cast<size_t>((a.H * a.W + 3) / 4 + (a.N * a.CW + 3) / 4) * 16;
 }
 
-extern "C" int marlsnake_step_autoreset(const StepArgs* args, void* stream) {
+static int launch(void (*kernel)(const StepArgs), const StepArgs* args,
+                  void* stream) {
   const size_t per_env = smem_per_env(*args);
   const int warps = static_cast<int>(
       per_env * kMaxWarps <= kMaxSmem ? kMaxWarps : kMaxSmem / per_env);
@@ -518,14 +633,24 @@ extern "C" int marlsnake_step_autoreset(const StepArgs* args, void* stream) {
   const size_t smem = warps * per_env;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        step_autoreset_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (args->B + warps - 1) / warps;
-  step_autoreset_kernel<<<blocks, warps * 32, smem,
-                          static_cast<cudaStream_t>(stream)>>>(*args);
+  kernel<<<blocks, warps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      *args);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int marlsnake_step_autoreset(const StepArgs* args, void* stream) {
+  return launch(step_autoreset_kernel, args, stream);
+}
+
+// The step without auto-reset; the four reset inputs of *args are not read,
+// and `keep` may be null.
+extern "C" int marlsnake_step(const StepArgs* args, void* stream) {
+  return launch(step_noreset_kernel, args, stream);
 }
 
 extern "C" const char* marlsnake_error_string(int code) {

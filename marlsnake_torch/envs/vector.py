@@ -2,9 +2,10 @@
 
 With ``autoreset=True`` (the default), an env whose episode ends is reset
 inside the same step: the returned state and obs are the fresh episode's,
-while reward, done and the stats describe the finished step. On CUDA that
-step is one launch of the hand-written kernel (``ops/step_kernel.py``);
-on the CPU it is the plain version, ``engine.step_autoreset``.
+while reward, done and the stats describe the finished step. On CUDA a
+step is one launch of the hand-written kernel (``ops/step_kernel.py``),
+with or without auto-reset; on the CPU it is the plain version,
+``engine.step_autoreset`` or ``engine.step``.
 """
 
 from __future__ import annotations
@@ -28,7 +29,9 @@ def build_vector_fns(cfg: EnvConfig, autoreset: bool = True,
 
     ``reset_fn(draws: ResetDraws) -> (states, obs)``;
     ``step_fn(states, actions (B, N), draws: StepDraws) -> (states, out)``.
-    Without auto-reset the step uses only ``draws.fruit_u``.
+    Without auto-reset the step uses only ``draws.fruit_u``, and takes
+    ``hold=(keep (B,) bool, out)`` to leave the envs where ``keep`` is set
+    as ``states`` and ``out`` have them (``step_kernel.step``).
     """
     check_port_scope(cfg)
     tables = engine.spawn_tables(cfg, resolve_device(device))
@@ -41,8 +44,9 @@ def build_vector_fns(cfg: EnvConfig, autoreset: bool = True,
             return step_kernel.step_autoreset(cfg, tables, states, actions,
                                               draws)
     else:
-        def step_fn(states, actions, draws: StepDraws):
-            return engine.step(cfg, states, actions, draws.fruit_u)
+        def step_fn(states, actions, draws: StepDraws, hold=None):
+            return step_kernel.step(cfg, states, actions, draws.fruit_u,
+                                    hold)
 
     return reset_fn, step_fn
 

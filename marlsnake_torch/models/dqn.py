@@ -8,6 +8,11 @@ before fc1 is in NCHW order, so the parameters are laid out as the
 reference's torch checkpoints (``models/weights.py`` converts flax
 parameters). Without ``assume_binary_obs`` the input is divided by 255
 when its maximum over the batch exceeds 1, as in the reference.
+
+The parameters are float32. With ``compute_dtype=torch.bfloat16`` the
+input, and each layer's weights as it uses them, are cast to bfloat16,
+the convolutions and products run in bfloat16, and the Q-values come out
+as float32: the flax DQN's ``compute_dtype``.
 """
 
 from __future__ import annotations
@@ -22,11 +27,13 @@ from marlsnake_torch.device import resolve_device
 
 class DQN(nn.Module):
     def __init__(self, grid_hw, in_channels: int = 8, num_actions: int = 3,
-                 assume_binary_obs: bool = False, device='cuda'):
+                 assume_binary_obs: bool = False, device='cuda',
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         h, w = grid_hw
         dev = resolve_device(device)
         self.assume_binary_obs = assume_binary_obs
+        self.compute_dtype = compute_dtype
         self.conv1 = nn.Conv2d(in_channels, 32, 3, padding=1, device=dev)
         self.conv2 = nn.Conv2d(32, 64, 3, padding=1, device=dev)
         self.conv3 = nn.Conv2d(64, 64, 3, padding=1, device=dev)
@@ -37,32 +44,44 @@ class DQN(nn.Module):
     def _trunk(self, x: torch.Tensor) -> torch.Tensor:
         if x.dim() == 3:
             x = x[None]
-        x = x.to(torch.float32)
-        if not self.assume_binary_obs:
-            x = torch.where(x.max() > 1.0, x / 255.0, x)
+        dt = self.compute_dtype
+        if self.assume_binary_obs:
+            x = x.to(dt)
+        else:
+            x = x.to(torch.float32)
+            x = torch.where(x.max() > 1.0, x / 255.0, x).to(dt)
         x = x.permute(0, 3, 1, 2)
         for conv in (self.conv1, self.conv2, self.conv3):
-            x = F.relu(F.conv2d(x, conv.weight, conv.bias, padding=1))
+            x = F.relu(F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt),
+                                padding=1))
         x = x.flatten(1)
-        x = F.relu(F.linear(x, self.fc1.weight, self.fc1.bias))
-        return F.relu(F.linear(x, self.fc2.weight, self.fc2.bias))
+        for fc in (self.fc1, self.fc2):
+            x = F.relu(F.linear(x, fc.weight.to(dt), fc.bias.to(dt)))
+        return x
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Q-values (B, num_actions) of NHWC observations (B, H, W, C)."""
-        return F.linear(self._trunk(x), self.fc3.weight, self.fc3.bias)
+        """Q-values (B, num_actions), float32, of NHWC observations
+        (B, H, W, C)."""
+        dt = self.compute_dtype
+        return F.linear(self._trunk(x), self.fc3.weight.to(dt),
+                        self.fc3.bias.to(dt)).to(torch.float32)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
-        """128-d penultimate embedding."""
-        return self._trunk(x)
+        """128-d penultimate embedding, float32."""
+        return self._trunk(x).to(torch.float32)
 
 
 def make_dqn(cfg: EnvConfig, seed: int = 0, device='cuda',
-             assume_binary_obs: bool = True) -> DQN:
-    """A DQN for ``cfg``'s observations, initialised from ``seed`` (on the
-    CPU, then moved, so the weights do not depend on the device)."""
+             assume_binary_obs: bool = True, pad_channels: int = 0,
+             compute_dtype: torch.dtype = torch.float32) -> DQN:
+    """A DQN for ``cfg``'s observations (with ``pad_channels`` zero
+    channels behind them), initialised from ``seed`` (on the CPU, then
+    moved, so the weights do not depend on the device)."""
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        net = DQN((cfg.obs_height, cfg.obs_width), cfg.obs_channels,
-                  cfg.num_actions, assume_binary_obs, device='cpu')
+        net = DQN((cfg.obs_height, cfg.obs_width),
+                  cfg.obs_channels + pad_channels, cfg.num_actions,
+                  assume_binary_obs, device='cpu',
+                  compute_dtype=compute_dtype)
     return net.to(dev)

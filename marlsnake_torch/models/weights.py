@@ -4,7 +4,10 @@ The port's DQN flattens its conv activations in NCHW order, as the
 reference's torch model does, so a reference ``state_dict`` loads as it
 is. Flax's DQN flattens NHWC: its fc1 kernel's input axis is permuted
 here, and conv kernels (kH, kW, I, O) and dense kernels (in, out) are
-transposed to torch's (O, I, kH, kW) and (out, in).
+transposed to torch's (O, I, kH, kW) and (out, in). ``dqn_to_flax`` is the
+inverse, and ``train_state_from_flax`` carries a whole JAX training state
+(parameters, Adam moments in the same layouts, replay ring, counters)
+into the port's ``TrainState``.
 """
 
 from __future__ import annotations
@@ -45,6 +48,76 @@ def dqn_from_flax(params: Mapping, grid_hw) -> Dict[str, torch.Tensor]:
         out[f'{name}.weight'] = t(np.asarray(p[name]['kernel']).T)
         out[f'{name}.bias'] = t(p[name]['bias'])
     return out
+
+
+def dqn_to_flax(state_dict: Mapping, grid_hw) -> Dict[str, dict]:
+    """The inverse of ``dqn_from_flax``: a ``DQN`` state_dict (or any dict
+    of that layout, such as gradients or Adam moments) as flax's
+    ``{'params': {layer: {'kernel', 'bias'}}}`` of numpy arrays."""
+    def a(t):
+        return np.asarray(torch.as_tensor(t).detach().cpu())
+
+    out = {}
+    for name in ('conv1', 'conv2', 'conv3'):
+        out[name] = {'kernel': np.transpose(a(state_dict[f'{name}.weight']),
+                                            (2, 3, 1, 0)),
+                     'bias': a(state_dict[f'{name}.bias'])}
+    fc1 = np.empty_like(a(state_dict['fc1.weight']).T)
+    fc1[_fc1_flax_rows(grid_hw)] = a(state_dict['fc1.weight']).T
+    out['fc1'] = {'kernel': fc1, 'bias': a(state_dict['fc1.bias'])}
+    for name in ('fc2', 'fc3'):
+        out[name] = {'kernel': a(state_dict[f'{name}.weight']).T,
+                     'bias': a(state_dict[f'{name}.bias'])}
+    return {'params': out}
+
+
+def _get(obj, name):
+    return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
+
+
+def train_state_from_flax(ts, grid_hw, device='cuda'):
+    """A JAX ``dqn_trainer.TrainState`` whose leaves are numpy arrays (an
+    object or a mapping with ``params``, ``target_params``, ``opt_state``,
+    ``buffer``, ``epsilon``, ``episode`` and ``global_step``; its ``key``
+    is not read) -> the port's ``TrainState`` on ``device``.
+
+    ``opt_state`` is optax's for ``chain(clip_by_global_norm, adam)``:
+    ``(ClipByGlobalNormState, (ScaleByAdamState(count, mu, nu),
+    ScaleState))``; the moments take the parameters' axis permutations.
+    The ring's ``capacity`` rows are copied into the port's ring, which
+    has one spare row more.
+    """
+    from marlsnake_torch.algo import optim, replay
+    from marlsnake_torch.algo.dqn_trainer import TrainState
+    from marlsnake_torch.device import resolve_device
+    dev = resolve_device(device)
+
+    def params(tree):
+        return {k: v.to(dev) for k, v in dqn_from_flax(tree, grid_hw).items()}
+
+    adam = _get(ts, 'opt_state')[1][0]
+    opt_state = optim.AdamState(
+        torch.as_tensor(np.array(_get(adam, 'count'), np.int32),
+                        device=dev),
+        list(params(_get(adam, 'mu')).values()),
+        list(params(_get(adam, 'nu')).values()))
+    jbuf = _get(ts, 'buffer')
+    cap = np.asarray(_get(jbuf, 'obs')).shape[0]
+    buf = replay.create(cap, tuple(_get(jbuf, 'obs_shape')), device=dev)
+    for name, t in buf.fields():
+        src = torch.as_tensor(np.array(_get(jbuf, name)), device=dev)
+        if t.dim() == 0:
+            setattr(buf, name, src.to(t.dtype))
+        else:
+            t[:cap] = src
+    return TrainState(
+        params=params(_get(ts, 'params')),
+        target_params=params(_get(ts, 'target_params')),
+        opt_state=opt_state, buffer=buf,
+        epsilon=torch.as_tensor(np.array(_get(ts, 'epsilon'), np.float32),
+                                device=dev),
+        episode=int(_get(ts, 'episode')),
+        global_step=int(_get(ts, 'global_step')))
 
 
 def dqn_from_reference(state_dict: Mapping) -> Dict[str, torch.Tensor]:

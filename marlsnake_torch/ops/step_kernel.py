@@ -1,4 +1,4 @@
-"""The fused step + auto-reset on the GPU: a hand-written CUDA kernel.
+"""The env step on the GPU: a hand-written CUDA kernel with two entries.
 
 ``step_autoreset`` computes ``engine.step_autoreset`` (state, reward,
 done, rank, episodic stats and the uint8 obs) for a batch of envs in one
@@ -7,9 +7,16 @@ launch of ``csrc/step_autoreset.cu``, the port of the Pallas kernel
 random numbers come in as ``StepDraws``, as the Pallas launcher
 precomputes them, so kernel and plain version agree bit for bit.
 
-On CPU tensors the wrapper runs the plain version,
-``engine.step_autoreset``. On CUDA tensors it launches the kernel or
-raises; it never falls back. ``step_autoreset.launches`` counts launches.
+``step`` computes ``engine.step``, the same step without auto-reset (the
+DQN trainer's env step), through the kernel's second entry: the same
+body with the reset compiled out, the same arena and launch plan. It can
+hold chosen envs still inside the same launch (``hold``): such an env
+leaves the step with the state and the step output it came in with.
+
+On CPU tensors a wrapper runs its plain version (``engine.step_autoreset``
+or ``engine.step``). On CUDA tensors it launches the kernel or raises; it
+never falls back. ``step_autoreset.launches`` and ``step.launches`` count
+each entry's launches.
 
 The launch path is built to cost the host less than the kernel costs the
 device. A launch plan, made once per (cfg, num_envs, device), holds the
@@ -36,7 +43,7 @@ import math
 import os
 import shutil
 import subprocess
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -64,7 +71,7 @@ MAX_SMEM_PER_ENV = 232448
 STATE_FIELDS = tuple(f.name for f in dataclasses.fields(EnvState))
 OUTPUT_FIELDS = tuple(f.name for f in dataclasses.fields(engine.StepOutput))
 _INPUTS = ('actions', 'fruit_u', 'reset_spawn_u', 'reset_fruit_u',
-           'pool_cells', 'base_grid')
+           'pool_cells', 'base_grid', 'keep')
 
 
 class _StepArgs(ctypes.Structure):
@@ -200,9 +207,9 @@ def build_library() -> Tuple[str, str]:
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build_library()[0])
-    lib.marlsnake_step_autoreset.argtypes = [ctypes.POINTER(_StepArgs),
-                                             ctypes.c_void_p]
-    lib.marlsnake_step_autoreset.restype = ctypes.c_int
+    for entry in (lib.marlsnake_step_autoreset, lib.marlsnake_step):
+        entry.argtypes = [ctypes.POINTER(_StepArgs), ctypes.c_void_p]
+        entry.restype = ctypes.c_int
     lib.marlsnake_error_string.argtypes = [ctypes.c_int]
     lib.marlsnake_error_string.restype = ctypes.c_char_p
     return lib
@@ -281,13 +288,18 @@ class _LaunchPlan:
         for f in self.fields:
             setattr(self.args, f'o_{f.name}', f.offset)
 
-    def pack(self, state: EnvState) -> torch.Tensor:
-        """A state the kernel did not make, copied into a state arena."""
-        arena = torch.empty(self.state_nbytes, dtype=torch.uint8,
-                            device=self.device)
-        for (name, t), f in zip(state.fields(), self.fields):
+    def pack(self, state: EnvState,
+             out: Optional[engine.StepOutput] = None) -> torch.Tensor:
+        """A state the kernel did not make, copied into a state arena;
+        with ``out``, the step output that came with it, into a whole
+        arena."""
+        given = state.fields() + (out.fields() if out is not None else [])
+        arena = torch.empty(
+            self.state_nbytes if out is None else self.nbytes,
+            dtype=torch.uint8, device=self.device)
+        for (name, t), f in zip(given, self.fields):
             if t.dtype != f.dtype or t.shape != f.shape:
-                raise ValueError(f'state.{name}: expected {f.dtype} '
+                raise ValueError(f'{name}: expected {f.dtype} '
                                  f'{f.shape}, got {t.dtype} '
                                  f'{tuple(t.shape)}')
             field_view(arena, f).copy_(t)
@@ -308,38 +320,65 @@ class _LaunchPlan:
     def launch(self, state_arena: torch.Tensor, spawn: engine.SpawnTables,
                actions: torch.Tensor, draws: StepDraws
                ) -> Tuple[EnvState, engine.StepOutput]:
-        args, index = self.args, self.index
+        """One launch of the auto-reset entry."""
         if spawn is not self.spawn:
             self._set_spawn(spawn)
+        for (name, dtype, shape), t in zip(self.draw_specs, draws):
+            setattr(self.args, name, _check(t, name, dtype, shape,
+                                            self.index))
+        return self._launch(step_autoreset, self.lib.marlsnake_step_autoreset,
+                            state_arena, actions)
+
+    def launch_step(self, state_arena: torch.Tensor, actions: torch.Tensor,
+                    fruit_u: torch.Tensor,
+                    keep: Optional[torch.Tensor] = None
+                    ) -> Tuple[EnvState, engine.StepOutput]:
+        """One launch of the entry without auto-reset, which reads none
+        of the reset inputs of the argument struct. With ``keep`` (B,)
+        bool, ``state_arena`` must be a whole arena (state and output)."""
+        name, dtype, shape = self.draw_specs[0]
+        self.args.fruit_u = _check(fruit_u, name, dtype, shape, self.index)
+        if keep is None:
+            self.args.keep = None
+        else:
+            if state_arena.numel() != self.nbytes:
+                raise ValueError('keep needs the whole arena of the step '
+                                 'before, state and output')
+            self.args.keep = _check(keep, 'keep', torch.bool,
+                                    self.actions_shape[:1], self.index)
+        return self._launch(step, self.lib.marlsnake_step, state_arena,
+                            actions)
+
+    def _launch(self, wrapper, entry, state_arena: torch.Tensor,
+                actions: torch.Tensor
+                ) -> Tuple[EnvState, engine.StepOutput]:
+        args, index = self.args, self.index
         if actions.dtype != torch.int32:
             actions = actions.to(torch.int32)
         args.actions = _check(actions, 'actions', torch.int32,
                               self.actions_shape, index)
-        for (name, dtype, shape), t in zip(self.draw_specs, draws):
-            setattr(args, name, _check(t, name, dtype, shape, index))
         out = torch.empty(self.nbytes, dtype=torch.uint8, device=self.device)
         args.state = state_arena.data_ptr()
         args.out = out.data_ptr()
         if torch.cuda.current_device() != index:
             with torch.cuda.device(index):
-                rc = self._enqueue()
+                rc = self._enqueue(entry)
         else:
-            rc = self._enqueue()
+            rc = self._enqueue(entry)
         if rc != 0:
             raise RuntimeError(
-                'step_autoreset kernel launch failed: '
+                f'{wrapper.__name__} kernel launch failed: '
                 f'{self.lib.marlsnake_error_string(rc).decode()}')
-        step_autoreset.launches += 1
+        wrapper.launches += 1
         return (_carved(_CarvedState, self, out),
                 _carved(_CarvedOutput, self, out))
 
-    def _enqueue(self) -> int:
+    def _enqueue(self, entry) -> int:
         # the raw handle of PyTorch's current stream, as its own Triton
         # launcher takes it: torch.cuda.current_stream() would build a
         # Stream object on every call
         stream = torch._C._cuda_getCurrentRawStream(self.index)
-        return self.lib.marlsnake_step_autoreset(ctypes.byref(self.args),
-                                                 stream)
+        return entry(ctypes.byref(self.args), stream)
 
 
 @functools.lru_cache(maxsize=16)
@@ -365,4 +404,49 @@ def step_autoreset(cfg: EnvConfig, spawn: engine.SpawnTables,
     return plan.launch(plan.pack(state), spawn, actions, draws)
 
 
+def step(cfg: EnvConfig, state: EnvState, actions: torch.Tensor,
+         fruit_u: torch.Tensor,
+         hold: Optional[Tuple[torch.Tensor, engine.StepOutput]] = None
+         ) -> Tuple[EnvState, engine.StepOutput]:
+    """``engine.step`` (no auto-reset) for a batch of envs: the plain
+    version for CPU tensors, the CUDA kernel's second entry for CUDA
+    tensors. An env whose episode is over is stepped like any other, as
+    ``engine.step`` steps it.
+
+    ``hold=(keep, out)``, with ``keep`` (B,) bool and ``out`` the step
+    output that came with ``state``, holds envs still: where ``keep`` is
+    set the env is not stepped, and every field of the returned state and
+    output has the value it has in ``state`` and ``out``. This is how a
+    caller freezes finished envs while the others go on; its plain
+    version is ``engine.step`` followed by ``select_envs``. On CUDA the
+    kernel copies the held envs' rows itself, with no further launch.
+    """
+    keep, out = hold if hold is not None else (None, None)
+    plan = getattr(state, '_plan', None)
+    if plan is not None and (plan.cfg is cfg or plan.cfg == cfg) and (
+            out is None or getattr(out, '_arena', None) is state._arena):
+        return plan.launch_step(state._arena, actions, fruit_u, keep)
+    check_port_scope(cfg)
+    if state.device.type == 'cpu':
+        new = engine.step(cfg, state, actions, fruit_u)
+        return new if hold is None else select_envs(keep, (state, out), new)
+    if state.device.type != 'cuda':
+        raise ValueError(f'unsupported device {state.device}')
+    plan = _plan(cfg, state.num_envs, state.device)
+    return plan.launch_step(plan.pack(state, out), actions, fruit_u, keep)
+
+
+def select_envs(keep: torch.Tensor, old, new):
+    """Per env, every field of the (state, output) pair ``old`` where
+    ``keep`` (B,) bool, of ``new`` elsewhere, as a new pair of plain
+    dataclasses: the plain version of ``step``'s ``hold``."""
+    def where(a, b):
+        return torch.where(keep.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+    return tuple(
+        cls(*[where(a, b) for (_, a), (_, b) in zip(o.fields(), n.fields())])
+        for cls, o, n in zip((EnvState, engine.StepOutput), old, new))
+
+
 step_autoreset.launches = 0
+step.launches = 0

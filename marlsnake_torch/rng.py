@@ -7,11 +7,16 @@ uniforms for fruit respawn plus one reset's worth, used by the envs whose
 episode ends. Draws come from an explicit ``torch.Generator``, so a run
 is reproducible from its seed. They are not the JAX package's numbers (a
 threefry key schedule); tests hand both packages the same draws.
+
+A DQN training episode takes ``TrainDraws``: for each of its env steps
+the acting draws, the env's fruit draws and the replay sampling draw, all
+drawn before the episode starts and read by step index, so that an
+episode that stops early leaves the generator where a full one does.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -47,3 +52,34 @@ def step_draws(cfg: EnvConfig, num_envs: int, generator: torch.Generator,
     return StepDraws(_rand((num_envs, n), generator, device),
                      _rand((num_envs,), generator, device),
                      _rand((num_envs, nf), generator, device))
+
+
+class TrainDraws(NamedTuple):
+    """The draws of ``T`` training steps of ``E`` envs, step axis first;
+    ``draws.at(t)`` is one step's."""
+    rand: torch.Tensor       # (T, E, N) int32 in [0, num_actions)
+    explore_u: torch.Tensor  # (T, E, N) float32: explores where < epsilon
+    fruit_u: torch.Tensor    # (T, E, N) float32: fruit respawn
+    # (T, capacity) float32 sort keys of the sample without replacement,
+    # or (T, batch) uniforms scaled to an index when the batch exceeds
+    # the ring (``replay.sample``)
+    sample_u: torch.Tensor
+    # (T, batch) slot indices that ARE the sample, in place of one drawn
+    # from ``sample_u``: how a test hands over the indices the JAX ring
+    # draws with ``randint`` when it samples with replacement
+    sample_idx: Optional[torch.Tensor] = None
+
+    def at(self, t: int) -> 'TrainDraws':
+        return TrainDraws(*(None if x is None else x[t] for x in self))
+
+
+def train_draws(cfg: EnvConfig, num_envs: int, num_steps: int,
+                capacity: int, batch_size: int, generator: torch.Generator,
+                device) -> TrainDraws:
+    shape = (num_steps, num_envs, cfg.num_snakes)
+    rand = torch.randint(0, cfg.num_actions, shape, generator=generator,
+                         device=device, dtype=torch.int32)
+    width = capacity if batch_size <= capacity else batch_size
+    return TrainDraws(rand, _rand(shape, generator, device),
+                      _rand(shape, generator, device),
+                      _rand((num_steps, width), generator, device))

@@ -1,6 +1,7 @@
-"""The port's first slice as a whole: the acting rollout (auto-reset step,
-obs encode, greedy DQN) against the JAX package, its import boundary,
-its default device, and a CPU smoke of its bench."""
+"""The port as a whole: the acting rollout (auto-reset step, obs encode,
+greedy DQN) against the JAX package, the import boundary and default
+device of every module, and CPU smokes of its bench (rollout and
+training rows)."""
 
 import json
 import os
@@ -15,12 +16,16 @@ import torch
 
 from marlsnake_tpu.models.dqn import DQN as FlaxDQN
 from marlsnake_torch import bench
+from marlsnake_torch.algo import replay
 from marlsnake_torch.algo.acting import select_actions
+from marlsnake_torch.algo.dqn_trainer import DQNConfig, DQNTrainer
+from marlsnake_torch.algo.dqn_trainer import main as dqn_trainer_main
 from marlsnake_torch.core.types import EnvConfig
 from marlsnake_torch.envs.env import make_env
 from marlsnake_torch.envs.vector import VectorSnakeEnv, build_vector_fns
 from marlsnake_torch.models.dqn import DQN, make_dqn
-from marlsnake_torch.models.weights import dqn_from_flax
+from marlsnake_torch.models.weights import (dqn_from_flax,
+                                            train_state_from_flax)
 from test_torch_engine import (assert_fields_equal, configs, jax_reset,
                                jax_spawn, jax_step_autoreset,
                                reset_draws_from_keys, step_draws_from_keys)
@@ -77,9 +82,13 @@ def test_port_imports_no_jax():
     code = ('import marlsnake_torch, marlsnake_torch.envs.vector, '
             'marlsnake_torch.envs.env, marlsnake_torch.models.dqn, '
             'marlsnake_torch.models.weights, marlsnake_torch.algo.acting, '
-            'marlsnake_torch.ops.step_kernel, marlsnake_torch.bench; '
+            'marlsnake_torch.ops.step_kernel, marlsnake_torch.bench, '
+            'marlsnake_torch.algo.replay, marlsnake_torch.algo.optim, '
+            'marlsnake_torch.algo.dqn_trainer, '
+            'marlsnake_torch.utils.checkpoint, marlsnake_torch.utils.metrics; '
             'import sys; bad = [m for m in sys.modules if m.split(".")[0] '
-            'in ("jax", "flax", "marlsnake_tpu")]; assert not bad, bad')
+            'in ("jax", "jaxlib", "flax", "optax", "orbax", "marlsnake_tpu")]; '
+            'assert not bad, bad')
     subprocess.run([sys.executable, '-c', code], cwd=REPO, check=True,
                    timeout=120)
 
@@ -89,7 +98,13 @@ def test_default_device_needs_cuda():
         pytest.skip('a CUDA device is present: the default is valid here')
     cfg = EnvConfig(height=10, width=10, num_snakes=2)
     for build in (lambda: VectorSnakeEnv(cfg, 2), lambda: make_env(cfg),
-                  lambda: make_dqn(cfg), lambda: bench.run(4, 2, 1)):
+                  lambda: make_dqn(cfg), lambda: bench.run(4, 2, 1),
+                  lambda: DQNTrainer(DQNConfig()),
+                  lambda: replay.create(16, (4, 4, 8)),
+                  lambda: bench.run_train(2, episodes=1),
+                  lambda: bench.main(['--mode', 'train']),
+                  lambda: dqn_trainer_main(['--episodes', '1', '--no-log']),
+                  lambda: train_state_from_flax(None, (8, 8))):
         with pytest.raises(RuntimeError, match='CUDA'):
             build()
 
@@ -117,3 +132,16 @@ def test_bench_cpu_smoke(capsys):
     rec = json.loads(line)
     assert rec['device'] == 'cpu' and rec['unit'] == 'env-steps/s'
     assert rec['value'] > 0 and rec['spawn_mode'] == 'pool'
+
+
+def test_train_bench_cpu_smoke():
+    """The ``--mode train`` row at a toy size on the CPU: it times whole
+    episodes and says which device ran them."""
+    rec = bench.run_train(2, update_every=2, episodes=1, device='cpu',
+                          max_steps_per_episode=8, height=8, width=8, num_snakes=2,
+                          batch_size=8, buffer_size=64, min_buffer_size=8)
+    assert rec['device'] == 'cpu' and rec['num_envs'] == 2
+    assert rec['update_every'] == 2 and rec['update_batch_size'] == 8
+    assert rec['episode_ms'] > 0 and rec['env_steps_per_s'] > 0
+    assert 1 <= rec['steps_per_episode'] <= 8
+    json.dumps(rec)

@@ -4,8 +4,9 @@ The kernel itself runs only on the card (chip_smoke.py holds it against
 the plain version there). What surrounds it is plain Python and is
 checked here: the argument struct's ctypes mirror against the C source,
 the output arena's layout, the typed views cut from it, and the whole
-launch path driven on CPU tensors with a stand-in library that runs the
-plain version on the arenas it is handed.
+launch path of both entries (with and without auto-reset) driven on CPU
+tensors with a stand-in library that runs the plain version on the arenas
+it is handed, and the hold that leaves finished envs still inside a step.
 """
 
 import ctypes
@@ -110,10 +111,17 @@ class _PlainLibrary:
         return b'stand-in'
 
     def marlsnake_step_autoreset(self, args_ref, stream):
-        a, plan = args_ref._obj, self.plan
+        return self._run(args_ref._obj, autoreset=True)
+
+    def marlsnake_step(self, args_ref, stream):
+        return self._run(args_ref._obj, autoreset=False)
+
+    def _run(self, a, autoreset):
+        plan = self.plan
         b, n, nf = a.B, a.N, a.NF
         fields = plan.fields
-        src = _tensor_at(a.state, plan.state_nbytes)
+        src = _tensor_at(a.state, plan.nbytes if a.keep
+                         else plan.state_nbytes)
         state = EnvState(*[step_kernel.field_view(src, f).clone()
                            for f in fields[:len(step_kernel.STATE_FIELDS)]])
 
@@ -124,17 +132,30 @@ class _PlainLibrary:
             return _tensor_at(address, size).view(dtype).view(shape).clone()
 
         actions = typed(a.actions, torch.int32, (b, n))
-        draws = StepDraws(typed(a.fruit_u, torch.float32, (b, n)),
-                          typed(a.reset_spawn_u, torch.float32, (b,)),
-                          typed(a.reset_fruit_u, torch.float32, (b, nf)))
-        spawn = engine.SpawnTables(
-            typed(a.pool_cells, torch.int32, tuple(plan.spawn.cells.shape)),
-            typed(a.base_grid, torch.int32, (a.H, a.W)))
-        new_state, out = engine.step_autoreset(plan.cfg, spawn, state,
-                                               actions, draws)
+        fruit_u = typed(a.fruit_u, torch.float32, (b, n))
+        if autoreset:
+            draws = StepDraws(fruit_u,
+                              typed(a.reset_spawn_u, torch.float32, (b,)),
+                              typed(a.reset_fruit_u, torch.float32, (b, nf)))
+            spawn = engine.SpawnTables(
+                typed(a.pool_cells, torch.int32,
+                      tuple(plan.spawn.cells.shape)),
+                typed(a.base_grid, torch.int32, (a.H, a.W)))
+            new_state, out = engine.step_autoreset(plan.cfg, spawn, state,
+                                                   actions, draws)
+        else:
+            # the entry without auto-reset reads no reset input
+            new_state, out = engine.step(plan.cfg, state, actions, fruit_u)
         dst = _tensor_at(a.out, plan.nbytes)
         for f, (_, t) in zip(fields, new_state.fields() + out.fields()):
             step_kernel.field_view(dst, f).copy_(t)
+        if a.keep:
+            # held envs: every field's row comes from the input arena
+            assert not autoreset
+            keep = typed(a.keep, torch.bool, (b,))
+            for f in fields:
+                step_kernel.field_view(dst, f)[keep] = \
+                    step_kernel.field_view(src, f)[keep]
         self.calls += 1
         return 0
 
@@ -244,3 +265,181 @@ def test_carved_outputs_are_lazy_frozen_and_plain_when_copied(
         assert torch.equal(a, b), name
     assert getattr(new_state.replace(grid=new_state.grid.clone()),
                    '_plan', None) is None
+
+
+# --- the entry without auto-reset -------------------------------------------
+
+def _assert_pairs_equal(got, want, where):
+    for g, w in zip(got, want):
+        for (name, a), (_, e) in zip(g.fields(), w.fields()):
+            assert a.dtype == e.dtype and a.shape == e.shape, (where, name)
+            assert torch.equal(a, e), (where, name)
+
+
+@pytest.mark.parametrize('kwargs', [
+    dict(height=8, width=8, num_snakes=2, snake_length=3),
+    dict(height=11, width=9, num_snakes=3, snake_length=3,
+         done_mode='any', max_episode_steps=7)], ids=['8x8x2', '11x9x3'])
+def test_step_launch_path_feeds_its_arenas_back(plain_library, kwargs):
+    """``step`` packs a reset state once, then takes its own arenas back;
+    finished envs go on being stepped, and every field equals
+    ``engine.step``'s, step after step. No reset input is set."""
+    cfg = EnvConfig(**kwargs)
+    b, n = 6, cfg.num_snakes
+    tables = engine.spawn_tables(cfg, 'cpu')
+    gen = torch.Generator().manual_seed(n)
+    want_state, _ = engine.reset(cfg, tables, reset_draws(cfg, b, gen, 'cpu'))
+    plan = step_kernel._plan(cfg, b, torch.device('cpu'))
+    state = want_state
+    before = (step_kernel.step.launches, step_kernel.step_autoreset.launches)
+    after_done = 0
+    for t in range(40):
+        actions = torch.randint(0, 3, (b, n), generator=gen)  # int64
+        fruit_u = torch.rand((b, n), generator=gen)
+        want = engine.step(cfg, want_state, actions, fruit_u)
+        if t == 0:
+            got = plan.launch_step(plan.pack(state), actions, fruit_u)
+        else:
+            assert state._plan is plan
+            got = step_kernel.step(cfg, state, actions, fruit_u)
+        _assert_pairs_equal(got, want, t)
+        after_done += int((~want_state.alive.any(1)).sum())
+        state, want_state = got[0], want[0]
+    assert after_done > 0, 'no finished env was stepped again'
+    assert plain_library.calls == 40
+    assert step_kernel.step.launches - before[0] == 40
+    assert step_kernel.step_autoreset.launches == before[1]
+    assert not plan.args.reset_spawn_u and not plan.args.pool_cells
+    with pytest.raises(ValueError):
+        plan.launch_step(state._arena, actions, fruit_u[:3])
+
+
+def test_step_on_cpu_tensors_is_the_plain_version():
+    cfg = EnvConfig(height=10, width=10, num_snakes=2, snake_length=3)
+    tables = engine.spawn_tables(cfg, 'cpu')
+    gen = torch.Generator().manual_seed(4)
+    state, _ = engine.reset(cfg, tables, reset_draws(cfg, 5, gen, 'cpu'))
+    from marlsnake_torch.envs.vector import build_vector_fns
+    _, step_fn = build_vector_fns(cfg, autoreset=False, device='cpu')
+    before = step_kernel.step.launches
+    for t in range(6):
+        actions = torch.randint(0, 3, (5, 2), generator=gen)
+        draws = step_draws(cfg, 5, gen, 'cpu')
+        want = engine.step(cfg, state, actions, draws.fruit_u)
+        _assert_pairs_equal(step_kernel.step(cfg, state, actions,
+                                             draws.fruit_u), want, t)
+        _assert_pairs_equal(step_fn(state, actions, draws), want, t)
+        state = want[0]
+    assert type(state) is EnvState
+    assert step_kernel.step.launches == before
+
+
+@pytest.mark.parametrize('kwargs', [
+    dict(frame_stack=2), dict(vision_range=3), dict(obs_format='packed'),
+    dict(spawn_mode='procedural')])
+def test_step_raises_for_unported_scopes(kwargs):
+    cfg = EnvConfig(height=10, width=10, num_snakes=2, snake_length=3,
+                    **kwargs)
+    with pytest.raises(NotImplementedError):
+        step_kernel.step(cfg, None, None, None)
+
+
+def test_select_envs_takes_kept_envs_from_the_older_pair():
+    cfg = EnvConfig(height=8, width=8, num_snakes=2, snake_length=3)
+    b = 6
+    tables = engine.spawn_tables(cfg, 'cpu')
+    gen = torch.Generator().manual_seed(5)
+    state, _ = engine.reset(cfg, tables, reset_draws(cfg, b, gen, 'cpu'))
+    pairs = []
+    for _ in range(2):
+        actions = torch.randint(0, 3, (b, 2), generator=gen)
+        pairs.append(engine.step(cfg, state, actions,
+                                 torch.rand((b, 2), generator=gen)))
+        state = pairs[-1][0]
+    keep = torch.tensor([True, False, False, True, False, True])
+    got = step_kernel.select_envs(keep, *pairs)
+    assert type(got[0]) is EnvState and type(got[1]) is engine.StepOutput
+    for (name, a), (_, o), (_, n_) in zip(
+            got[0].fields() + got[1].fields(),
+            pairs[0][0].fields() + pairs[0][1].fields(),
+            pairs[1][0].fields() + pairs[1][1].fields()):
+        assert torch.equal(a[keep], o[keep]), name
+        assert torch.equal(a[~keep], n_[~keep]), name
+
+
+@pytest.mark.parametrize('kwargs', [
+    dict(height=8, width=8, num_snakes=2, snake_length=3),
+    dict(height=11, width=9, num_snakes=3, snake_length=3,
+         done_mode='any', max_episode_steps=7)], ids=['8x8x2', '11x9x3'])
+def test_step_holds_finished_envs_inside_the_launch(plain_library, kwargs):
+    """Envs whose episode is over are held from the next step on, as the
+    DQN trainer holds them: through the launch path the held rows come
+    from the arena of the step before, with no launch besides the step's,
+    the returned state is still the kernel's own, and every field equals
+    the plain version's (``engine.step``, then ``select_envs``)."""
+    cfg = EnvConfig(**kwargs)
+    b, n = 6, cfg.num_snakes
+    tables = engine.spawn_tables(cfg, 'cpu')
+    gen = torch.Generator().manual_seed(7 + n)
+    want_state, _ = engine.reset(cfg, tables, reset_draws(cfg, b, gen, 'cpu'))
+    plan = step_kernel._plan(cfg, b, torch.device('cpu'))
+    state, want_out, out = want_state, None, None
+    frozen = torch.zeros(b, dtype=torch.bool)
+    before, held_steps, mixed = step_kernel.step.launches, 0, 0
+    for t in range(40):
+        actions = torch.randint(0, 3, (b, n), generator=gen)
+        fruit_u = torch.rand((b, n), generator=gen)
+        want = engine.step(cfg, want_state, actions, fruit_u)
+        if t == 0:
+            got = plan.launch_step(plan.pack(state), actions, fruit_u)
+        else:
+            want = step_kernel.select_envs(frozen, (want_state, want_out),
+                                           want)
+            assert state._plan is plan and out._arena is state._arena
+            got = step_kernel.step(cfg, state, actions, fruit_u,
+                                   hold=(frozen, out))
+            assert got[0]._plan is plan
+        _assert_pairs_equal(got, want, t)
+        held_steps += int(frozen.sum())
+        mixed += 0 < int(frozen.sum()) < b   # some held, some stepped
+        (state, out), (want_state, want_out) = got, want
+        frozen = frozen | out.done_all
+    assert held_steps > 0 and mixed > 0
+    assert plain_library.calls == step_kernel.step.launches - before == 40
+    # the mask is checked like any input, and needs a whole arena
+    with pytest.raises(ValueError):
+        step_kernel.step(cfg, state, actions, fruit_u,
+                         hold=(frozen[:3], out))
+    with pytest.raises(ValueError):
+        plan.launch_step(plan.pack(want_state), actions, fruit_u, frozen)
+    # a state the kernel did not make is packed with its output
+    plain = tuple(pickle.loads(pickle.dumps(x)) for x in (state, out))
+    got = plan.launch_step(plan.pack(*plain), actions, fruit_u, frozen)
+    _assert_pairs_equal(got, step_kernel.select_envs(
+        frozen, plain, engine.step(cfg, plain[0], actions, fruit_u)), 'packed')
+
+
+def test_step_with_hold_on_cpu_tensors_is_the_plain_version():
+    cfg = EnvConfig(height=8, width=8, num_snakes=2, snake_length=3)
+    tables = engine.spawn_tables(cfg, 'cpu')
+    gen = torch.Generator().manual_seed(9)
+    state, _ = engine.reset(cfg, tables, reset_draws(cfg, 5, gen, 'cpu'))
+    from marlsnake_torch.envs.vector import build_vector_fns
+    _, step_fn = build_vector_fns(cfg, autoreset=False, device='cpu')
+    actions = torch.randint(0, 3, (5, 2), generator=gen)
+    state, out = engine.step(cfg, state, actions, torch.rand((5, 2),
+                                                              generator=gen))
+    keep = torch.tensor([False, True, True, False, True])
+    fruit_u = torch.rand((5, 2), generator=gen)
+    before = step_kernel.step.launches
+    want = step_kernel.select_envs(
+        keep, (state, out), engine.step(cfg, state, actions, fruit_u))
+    _assert_pairs_equal(step_kernel.step(cfg, state, actions, fruit_u,
+                                         hold=(keep, out)), want, 'step')
+    _assert_pairs_equal(step_fn(state, actions,
+                                StepDraws(fruit_u, None, None),
+                                hold=(keep, out)), want, 'step_fn')
+    for (name, a), (_, o) in zip(want[0].fields() + want[1].fields(),
+                                 state.fields() + out.fields()):
+        assert torch.equal(a[keep], o[keep]), name
+    assert step_kernel.step.launches == before
