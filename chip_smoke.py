@@ -30,6 +30,9 @@ Phases, each of which fails loudly (non-zero exit, no result line):
      on its first read);
    - call_ms: the wrapper's wall rate (CUDA events around 200 calls on
      the same inputs): the slower of host and device sets it;
+   - the same device time under three pacings of the launches (as the
+     host sends them, queued back to back behind a device-side sleep,
+     spaced 100 us apart), for both entries: pacing_probe;
    - the plain version, the acting forward, marlsnake_torch.bench's
      env-steps/s, and a profiler window over 16 bench steps: device time
      by kernel name and the device's idle share;
@@ -65,8 +68,28 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    and 256 envs for update_every 1 and 4 (marlsnake_torch.bench's train
    rows), and a profiler window over 16 training steps at 32 and 256 envs:
    device time by kernel name, idle share, device-to-host copies a step;
-12. one JSON line of kernels, then, as the last line,
-   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+12. the rest of the config surface, one variant after another: procedural
+   spawn ('horizontal' at 20x20x4 B=4096, 'both' at 20x20x2), packed obs
+   (20x20x4), frame stack 4 with full obs (10x10x2 and 20x20x4, uint8 and
+   packed), vision 5 (20x20x4, frame_stack 1 and 2) and all of them at
+   once at 40x40x8. For each: both entries against the plain engine, 64
+   steps, every state and output field EQUAL (tolerance 0; the step entry
+   stepped on and holding finished envs), with the auto-resets and held
+   steps counted; then a rollout of 16 steps through VectorSnakeEnv and
+   one through the step entry as the trainer drives it, the launch
+   counters set to 0 before and read after, the last step held against the
+   plain version; then both entries' device_ms, host_us, call_ms and byte
+   bound (recomputed for the variant's obs and spawn);
+13. this slice's paths at full width: the bench rollout at 4096 envs of
+   20x20x4 with pool and procedural spawn, uint8 and packed obs, the
+   vision-5 window and the graph (ray) env with the rays' own time;
+   profiler windows of 16 packed and 16 graph steps; the replay push on
+   packed rows beside uint8 rows; two training episodes at 256 envs with
+   packed obs (launches equal env steps, updates made, loss finite) and
+   its train-bench row;
+14. one JSON line of kernels (every entry and variant), then, as the last
+   line, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
+   ...}}.
 
 Exits non-zero without a result when CUDA is not available.
 """
@@ -158,6 +181,21 @@ def profile_device(fn, iters: int) -> dict:
                         if 'Memcpy DtoH' in k)}
 
 
+def kernel_device_us(fn, kernel_name: str, iters: int) -> float:
+    """Mean device microseconds of the kernels named ``kernel_name`` over
+    ``iters`` calls of ``fn()``, from torch.profiler. The tracer now and
+    then returns a window without its device records: such a window is
+    taken again, at most twice, before this raises."""
+    for _ in range(3):
+        prof = profile_device(fn, iters)
+        mine = [v for k, v in prof['kernels'].items() if kernel_name in k]
+        if mine:
+            return sum(v[0] for v in mine) / sum(v[1] for v in mine)
+        log(f'the profiler saw no {kernel_name} kernel in {iters} calls '
+            f'({len(prof["kernels"])} device event names): once more')
+    raise AssertionError(f'the profiler saw no {kernel_name} kernel')
+
+
 def compare(kernel_pair, plain_pair, where: str) -> float:
     """Raise unless every field is equal; returns the max abs difference
     over the float fields (0.0 when equal)."""
@@ -175,6 +213,21 @@ def compare(kernel_pair, plain_pair, where: str) -> float:
                 bad = (a != b).nonzero()[:5].tolist()
                 raise AssertionError(f'{where}: {name} differs at {bad}')
     return err
+
+
+def describe(cfg) -> str:
+    """A config's board and the options that differ from the default."""
+    parts = [f'{cfg.height}x{cfg.width}x{cfg.num_snakes}',
+             f'done_mode={cfg.done_mode}']
+    if cfg.spawn_mode != 'pool':
+        parts.append(f'spawn={cfg.spawn_mode}/{cfg.spawn_orientations}')
+    if cfg.obs_format != 'uint8':
+        parts.append(cfg.obs_format)
+    if cfg.frame_stack != 1:
+        parts.append(f'frame_stack={cfg.frame_stack}')
+    if cfg.vision_range:
+        parts.append(f'vision={cfg.vision_range}')
+    return ' '.join(parts)
 
 
 def parity(cfg, num_envs: int, steps: int, seed: int) -> float:
@@ -198,16 +251,14 @@ def parity(cfg, num_envs: int, steps: int, seed: int) -> float:
         want = engine.step_autoreset(cfg, tables, state, actions, draws)
         got = step_kernel.step_autoreset(cfg, tables, state, actions, draws)
         torch.cuda.synchronize()
-        err = max(err, compare(got, want, f'{cfg.height}x{cfg.width}x'
-                               f'{cfg.num_snakes} {cfg.done_mode} t={t}'))
+        err = max(err, compare(got, want, f'{describe(cfg)} t={t}'))
         resets += int(got[1].done_all.sum())
         state = got[0]
     if step_kernel.step_autoreset.launches - before != steps:
         raise AssertionError('the launch counter did not move')
     if resets == 0:
         raise AssertionError('no auto-reset happened in the parity run')
-    log(f'parity {cfg.height}x{cfg.width}x{cfg.num_snakes} '
-        f'done_mode={cfg.done_mode} B={num_envs} steps={steps}: equal, '
+    log(f'parity {describe(cfg)} B={num_envs} steps={steps}: equal, '
         f'{resets} auto-resets, max_abs_err={err}')
     return err
 
@@ -245,11 +296,10 @@ def parity_step(cfg, num_envs: int, steps: int, seed: int,
             got = step_kernel.step(cfg, state, actions, fruit_u,
                                    hold=(frozen, out))
         else:
-            stepped_after += int((~state.alive.any(1)).sum())
+            stepped_after += int(frozen.sum())
             got = step_kernel.step(cfg, state, actions, fruit_u)
         torch.cuda.synchronize()
-        err = max(err, compare(got, want, f'step {cfg.height}x{cfg.width}x'
-                               f'{cfg.num_snakes} {cfg.done_mode} t={t}'))
+        err = max(err, compare(got, want, f'step {describe(cfg)} t={t}'))
         state, out, want_out = got[0], got[1], want[1]
         frozen = frozen | out.done_all
         finished = int(frozen.sum()) if hold else int(out.done_all.sum())
@@ -259,8 +309,8 @@ def parity_step(cfg, num_envs: int, steps: int, seed: int,
     if finished == 0 or (held if hold else stepped_after) == 0:
         raise AssertionError('no finished env was stepped or held in the '
                              'run')
-    log(f'parity step (no reset) {cfg.height}x{cfg.width}x{cfg.num_snakes} '
-        f'done_mode={cfg.done_mode} rewards={cfg.rewards} B={num_envs} '
+    log(f'parity step (no reset) {describe(cfg)} '
+        f'rewards={cfg.rewards} B={num_envs} '
         f'steps={steps}: equal, {finished} envs finished at the end, '
         + (f'{held} steps of envs held still, ' if hold else
            f'{stepped_after} steps of finished envs, ')
@@ -271,22 +321,33 @@ def parity_step(cfg, num_envs: int, steps: int, seed: int,
 def kernel_traffic(cfg, state, actions, draws, outputs,
                    autoreset: bool = True) -> tuple:
     """(bytes, ops) one step must move and do: every input read once,
-    every output written once; spawn rows and the base grid only for the
-    envs that reset in this step (none without auto-reset, where
-    ``draws`` is the fruit draws alone)."""
+    every output written once. What only a resetting env reads is counted
+    for the envs that reset in this step (none without auto-reset, where
+    ``draws`` is the fruit draws alone): its pool row and the base grid,
+    or its snakes' four procedural draws. The oldest slot of the frame
+    history is dropped unread."""
     def nbytes(ts):
         return sum(t.numel() * t.element_size() for t in ts)
     new_state, out = outputs
     resets = int(out.done_all.sum()) if autoreset else 0
-    n, k, hw = cfg.num_snakes, cfg.snake_length, cfg.height * cfg.width
-    read = (nbytes([t for _, t in state.fields()])
-            + nbytes([actions.to(torch.int32)]) + nbytes(list(draws))
-            + resets * n * k * 4 + (hw * 4 if resets else 0))
+    b, n, k = state.num_envs, cfg.num_snakes, cfg.snake_length
+    hw = cfg.height * cfg.width
+    draws = list(draws)
+    if autoreset and cfg.spawn_mode == 'procedural':
+        spawn_read = resets * n * 16
+        draws = [draws[0], draws[2]]
+    else:
+        spawn_read = resets * n * k * 4 + (hw * 4 if resets else 0)
+    dropped = (nbytes([state.hist_grid[:, :1], state.obs_stack[:, :1]])
+               if cfg.frame_stack > 1 else 0)
+    read = (nbytes([t for _, t in state.fields()]) - dropped
+            + nbytes([actions.to(torch.int32)]) + nbytes(draws)
+            + spawn_read)
     written = (nbytes([t for _, t in new_state.fields()])
                + nbytes([t for _, t in out.fields()]))
     # integer work: ~2 ops per obs byte (bit extract + store) and ~16 per
     # cell for the grid passes (erase, prefix count, fruit pick, copy)
-    ops = state.num_envs * (2 * n * hw * 8 + 16 * hw)
+    ops = b * (2 * out.obs[0].numel() + 16 * hw)
     return read + written, ops
 
 
@@ -300,11 +361,7 @@ def time_entry(label, kernel_name, step_fn, plain_fn, state, traffic,
     def roll():
         rolling[0], _ = step_fn(rolling[0])
 
-    prof = profile_device(roll, 100)
-    mine = [v for k, v in prof['kernels'].items() if kernel_name in k]
-    if not mine:
-        raise AssertionError(f'the profiler saw no {kernel_name} kernel')
-    device_ms = sum(v[0] for v in mine) / sum(v[1] for v in mine) / 1e3
+    device_ms = kernel_device_us(roll, kernel_name, 100) / 1e3
     host_blocks = host_us(roll)
     wrapper_us = sorted(host_blocks)[len(host_blocks) // 2]
     call_ms = event_ms(lambda: step_fn(state), 200)
@@ -327,6 +384,37 @@ def time_entry(label, kernel_name, step_fn, plain_fn, state, traffic,
             'pct_of_bound': pct_of_bound, 'bytes': nbytes}
 
 
+def pacing_probe(label, kernel_name, step_fn, state, smi) -> dict:
+    """Device microseconds a launch of one entry over the same rolling
+    loop of 100 launches under three pacings: 'host', as the host sends
+    them (what time_entry reports); 'queued', behind a device-side sleep
+    of a few milliseconds, so that all 100 are enqueued before the first
+    runs and they run back to back; 'spaced', the host waiting 100 us
+    after each launch, so that every launch finds the device idle. A
+    kernel that a launch's own stores to the L2 cache can outrun reads
+    lower the more idle time its predecessor's stores had to drain."""
+    rolling = [state]
+
+    def burst(setup, pause):
+        def run():
+            setup()
+            for _ in range(100):
+                rolling[0], _ = step_fn(rolling[0])
+                if pause:
+                    time.sleep(pause)
+        return run
+
+    pacings = {
+        'host': burst(lambda: None, 0.0),
+        'queued': burst(lambda: torch.cuda._sleep(10_000_000), 0.0),
+        'spaced': burst(lambda: None, 1e-4)}
+    out = {k: kernel_device_us(fn, kernel_name, 1)
+           for k, fn in pacings.items()}
+    log(f'{label}: device us a launch by pacing of 100 rolling launches '
+        f'(torch.profiler): {json.dumps(out)} [{smi}]')
+    return out
+
+
 def log_window(title, window, steps, smi, also=()) -> None:
     """The window's totals and its 14 largest kernels, then every kernel
     whose name holds one of ``also``."""
@@ -341,6 +429,166 @@ def log_window(title, window, steps, smi, also=()) -> None:
     for i, (name, (us, count)) in enumerate(table):
         if i < 14 or any(part in name for part in also):
             log(f'  {us:10.1f} us {count:4d}x  {name[:100]}')
+
+
+def drive_rollout(cfg, num_envs: int, steps: int, seed: int) -> int:
+    """``steps`` random-action steps through VectorSnakeEnv (auto-reset),
+    the entry's launch counter set to 0 before and read after; the last
+    step must equal the plain engine's. Returns the launches."""
+    from marlsnake_torch.core import engine
+    from marlsnake_torch.envs.vector import VectorSnakeEnv
+    from marlsnake_torch.ops import step_kernel
+    from marlsnake_torch.rng import step_draws
+
+    env = VectorSnakeEnv(cfg, num_envs, device='cuda', seed=seed)
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed + 1)
+    states, obs = env.reset()
+    step_kernel.step_autoreset.launches = 0
+    for _ in range(steps):
+        actions = torch.randint(0, cfg.num_actions,
+                                (num_envs, cfg.num_snakes), generator=gen,
+                                device='cuda', dtype=torch.int32)
+        last = (states, actions, step_draws(cfg, num_envs, env.generator,
+                                            'cuda'))
+        states, out = env.step(*last)
+    torch.cuda.synchronize()
+    launches = step_kernel.step_autoreset.launches
+    if launches != steps:
+        raise AssertionError(f'{describe(cfg)}: {steps} rollout steps but '
+                             f'{launches} launches of step_autoreset')
+    compare((states, out), engine.step_autoreset(
+        cfg, engine.spawn_tables(cfg, torch.device('cuda')), *last),
+        f'{describe(cfg)} rollout, last step')
+    if out.obs.shape != (num_envs,) + cfg.obs_shape \
+            or out.obs.dtype != torch.uint8:
+        raise AssertionError(f'obs {out.obs.dtype} {tuple(out.obs.shape)}')
+    return launches
+
+
+def drive_steps(cfg, num_envs: int, steps: int, seed: int) -> tuple:
+    """The entry without auto-reset as the trainer drives it: from one
+    reset on, finished envs held still (``build_vector_fns`` with
+    ``autoreset=False``); the counter set to 0 before and read after, the
+    last step held against ``engine.step`` then ``select_envs``. Returns
+    (launches, envs held in the last step)."""
+    from marlsnake_torch.core import engine
+    from marlsnake_torch.envs.vector import build_vector_fns
+    from marlsnake_torch.ops import step_kernel
+    from marlsnake_torch.rng import StepDraws, reset_draws
+
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed)
+    reset_fn, step_fn = build_vector_fns(cfg, autoreset=False, device='cuda')
+    state, _ = reset_fn(reset_draws(cfg, num_envs, gen, 'cuda'))
+    frozen = torch.zeros((num_envs,), dtype=torch.bool, device='cuda')
+    out = None
+    step_kernel.step.launches = 0
+    for t in range(steps):
+        actions = torch.randint(0, cfg.num_actions,
+                                (num_envs, cfg.num_snakes), generator=gen,
+                                device='cuda', dtype=torch.int32)
+        fruit_u = torch.rand((num_envs, cfg.num_snakes), generator=gen,
+                             device='cuda')
+        last = (state, out, frozen)
+        state, out = step_fn(state, actions, StepDraws(fruit_u, None, None),
+                             hold=(frozen, out) if t > 0 else None)
+        frozen = frozen | out.done_all
+    torch.cuda.synchronize()
+    launches = step_kernel.step.launches
+    if launches != steps:
+        raise AssertionError(f'{describe(cfg)}: {steps} steps but '
+                             f'{launches} launches of step')
+    old_state, old_out, keep = last
+    want = step_kernel.select_envs(
+        keep, (old_state, old_out),
+        engine.step(cfg, old_state, actions, fruit_u))
+    compare((state, out), want, f'{describe(cfg)} held steps, last step')
+    return launches, int(keep.sum())
+
+
+def run_variant(name: str, cfg, num_envs: int, parity_envs: int, seed: int,
+                smi: str) -> list:
+    """One config variant through both entries: parity over 64 steps,
+    a driven rollout with its launch count, and times at ``num_envs``.
+    Returns the two rows of the kernels line."""
+    from marlsnake_torch.core import engine
+    from marlsnake_torch.ops import step_kernel
+    from marlsnake_torch.rng import reset_draws, step_draws
+
+    log(f'--- variant {name}: {describe(cfg)} ---')
+    err_auto = parity(cfg, parity_envs, 64, seed)
+    err_step = max(parity_step(cfg, parity_envs, 64, seed + 1),
+                   parity_step(cfg, parity_envs, 64, seed + 2, hold=True))
+    auto_launches = drive_rollout(cfg, num_envs, 16, seed + 3)
+    step_launches, held = drive_steps(cfg, num_envs, 16, seed + 4)
+    log(f'{name}: rollout of 16 steps at B={num_envs}: {auto_launches} '
+        f'launches of step_autoreset; 16 held steps: {step_launches} '
+        f'launches of step, {held} envs held in the last; last steps equal '
+        f'to the plain versions')
+
+    dev = torch.device('cuda')
+    tables = engine.spawn_tables(cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 5)
+    st, _ = engine.reset(cfg, tables, reset_draws(cfg, num_envs, gen, dev))
+    acts = torch.randint(0, cfg.num_actions, (num_envs, cfg.num_snakes),
+                         generator=gen, device=dev, dtype=torch.int32)
+    d = step_draws(cfg, num_envs, gen, dev)
+    # a few steps on, so that the timed state has dead snakes and resets
+    for _ in range(8):
+        st, _ = step_kernel.step_autoreset(cfg, tables, st, acts, d)
+    size = f'B={num_envs} {describe(cfg)}'
+    auto = time_entry(
+        f'step_autoreset [{name}] at {size}', KERNEL_NAME,
+        lambda x: step_kernel.step_autoreset(cfg, tables, x, acts, d),
+        lambda: engine.step_autoreset(cfg, tables, st, acts, d), st,
+        kernel_traffic(cfg, st, acts, d, step_kernel.step_autoreset(
+            cfg, tables, st, acts, d)), smi)
+    plain = time_entry(
+        f'step (no reset) [{name}] at {size}', STEP_KERNEL_NAME,
+        lambda x: step_kernel.step(cfg, x, acts, d.fruit_u),
+        lambda: engine.step(cfg, st, acts, d.fruit_u), st,
+        kernel_traffic(cfg, st, acts, [d.fruit_u], step_kernel.step(
+            cfg, st, acts, d.fruit_u), autoreset=False), smi)
+    common = dict(route='cuda',
+                  source='marlsnake_torch/csrc/step_autoreset.cu',
+                  variant=describe(cfg), num_envs=num_envs)
+    return [dict(auto, **common, name=f'step_autoreset[{name}]',
+                 replaces='marlsnake_tpu/ops/pallas_step.py:54',
+                 launches=auto_launches, max_abs_err=err_auto),
+            dict(plain, **common, name=f'step[{name}]',
+                 replaces='marlsnake_tpu/core/engine.py:987 (step, an XLA '
+                          'path, not a Pallas kernel)',
+                 launches=step_launches, max_abs_err=err_step)]
+
+
+def time_push(obs_shape, rows_n: int, cap: int, gen, smi: str) -> dict:
+    """Device time of one masked replay push of ``rows_n`` rows of
+    ``obs_shape`` uint8 obs into a ring of ``cap``, against the bytes it
+    reads and writes."""
+    from marlsnake_torch.algo import replay
+
+    ring = replay.create(cap, obs_shape, device='cuda')
+    o = torch.randint(0, 2, (rows_n,) + tuple(obs_shape), generator=gen,
+                      device='cuda', dtype=torch.uint8)
+    a_ = torch.randint(0, 3, (rows_n,), generator=gen, device='cuda',
+                       dtype=torch.int32)
+    r_ = torch.rand((rows_n,), generator=gen, device='cuda')
+    mk = torch.rand((rows_n,), generator=gen, device='cuda') < 0.7
+    push = profile_device(
+        lambda: replay.push(ring, o, a_, r_, o, mk, mask=mk), 20)
+    moved = 2 * (2 * rows_n * o[0].numel() + rows_n * 9)
+    device_us = push['busy_us'] / 20
+    bound_us = moved / HBM_BYTES_PER_S * 1e6
+    log(f'replay push of {rows_n} rows of {o[0].numel()} bytes '
+        f'({rows_n // 4} envs) into {cap} slots: device {device_us:.1f} us '
+        f'a push in {sum(v[1] for v in push["kernels"].values()) // 20} '
+        f'kernels, host wall {push["wall_us"] / 20:.1f} us; it reads and '
+        f'writes {moved} bytes -> {bound_us:.2f} us at the memory rate '
+        f'({device_us / bound_us:.1f}x) [{smi}]')
+    return {'rows': rows_n, 'row_bytes': o[0].numel(),
+            'device_us': device_us, 'bound_us': bound_us}
 
 
 def replay_parity(seed: int) -> None:
@@ -401,6 +649,7 @@ def main() -> int:
     from marlsnake_torch.envs.vector import VectorSnakeEnv
     from marlsnake_torch.models.dqn import make_dqn
     from marlsnake_torch.ops import step_kernel
+    from marlsnake_torch.ops.obs_pack import unpack_obs
     from marlsnake_torch.rng import reset_draws, step_draws, train_draws
 
     # --- 1. the card ---
@@ -483,12 +732,16 @@ def main() -> int:
         lambda st: step_kernel.step_autoreset(cfg, tables, st, a, d),
         lambda: engine.step_autoreset(cfg, tables, s, a, d), s,
         kernel_traffic(cfg, s, a, d, outputs), smi)
+    auto['device_us_by_pacing'] = pacing_probe(
+        f'step_autoreset at B={num_envs} 20x20x4', KERNEL_NAME,
+        lambda st: step_kernel.step_autoreset(cfg, tables, st, a, d), s, smi)
     flat_obs = obs.reshape((-1,) + cfg.obs_shape[1:])
     with torch.no_grad():
         forward_ms = event_ms(lambda: net(flat_obs), 10)
     log(f'acting forward ({num_envs * cfg.num_snakes} agents, fp32): '
         f'{forward_ms:.5f} ms [{smi}]')
-    b = bench.run(num_envs=4096, num_steps=256, iters=4, device='cuda')
+    b = bench.run(num_envs=4096, num_steps=256, iters=4, device='cuda',
+                  spawn_mode='pool')
     log(f'bench: {json.dumps(b)} [{smi}]')
 
     bench_env = VectorSnakeEnv(cfg, num_envs, device='cuda', seed=9)
@@ -665,6 +918,9 @@ def main() -> int:
             lambda: engine.step(tenv, st, acts, fruit_u), st,
             kernel_traffic(tenv, st, acts, [fruit_u], (st, outp),
                            autoreset=False), smi)
+        step_rows[b_envs]['device_us_by_pacing'] = pacing_probe(
+            f'step (no reset) at B={b_envs} 20x20x4', STEP_KERNEL_NAME,
+            lambda x: step_kernel.step(tenv, x, acts, fruit_u), st, smi)
         # the same rolling loop while the entry holds envs still
         held_us = {}
         for label, keep in (
@@ -679,35 +935,18 @@ def main() -> int:
                 pair[0] = step_kernel.step(tenv, pair[0][0], acts, fruit_u,
                                            hold=(keep, pair[0][1]))
 
-            prof = profile_device(roll_held, 100)
-            mine = [v for k, v in prof['kernels'].items()
-                    if STEP_KERNEL_NAME in k]
-            held_us[label] = (sum(v[0] for v in mine)
-                              / sum(v[1] for v in mine))
+            held_us[label] = kernel_device_us(roll_held, STEP_KERNEL_NAME,
+                                              100)
         step_rows[b_envs]['device_us_holding'] = held_us
         log(f'step (no reset) at B={b_envs} holding envs still, device us '
             f'a launch by share of envs held (torch.profiler, rolling): '
             f'{json.dumps(held_us)} [{smi}]')
     del st, outp, pair
 
-    for rows_n, cap in ((1024, 10_000), (16384, 32768)):
-        ring = replay.create(cap, tenv.obs_shape[1:], device='cuda')
-        o = torch.randint(0, 2, (rows_n,) + tenv.obs_shape[1:],
-                          generator=gen, device='cuda', dtype=torch.uint8)
-        a_ = torch.randint(0, 3, (rows_n,), generator=gen, device='cuda',
-                           dtype=torch.int32)
-        r_ = torch.rand((rows_n,), generator=gen, device='cuda')
-        mk = torch.rand((rows_n,), generator=gen, device='cuda') < 0.7
-        push = profile_device(
-            lambda: replay.push(ring, o, a_, r_, o, mk, mask=mk), 20)
-        moved = 2 * (2 * rows_n * o[0].numel() + rows_n * 9)
-        log(f'replay push of {rows_n} rows ({rows_n // 4} envs) into '
-            f'{cap} slots: device {push["busy_us"] / 20:.1f} us a push in '
-            f'{sum(v[1] for v in push["kernels"].values()) // 20} kernels, '
-            f'host wall {push["wall_us"] / 20:.1f} us; it reads and writes '
-            f'{moved} bytes -> {moved / HBM_BYTES_PER_S * 1e6:.2f} us at '
-            f'the memory rate [{smi}]')
-    del ring, o
+    packed_env = EnvConfig(**big, obs_format='packed')
+    pushes = [time_push(shape, rows_n, cap, gen, smi)
+              for shape in (tenv.obs_shape[1:], packed_env.obs_shape[1:])
+              for rows_n, cap in ((1024, 10_000), (16384, 32768))]
 
     for n_envs in (32, 256):
         for every in (1, 4):
@@ -768,8 +1007,153 @@ def main() -> int:
             f'events around repeats, so the slower of host and device): '
             f'{json.dumps(times)} [{smi}]')
 
+    del short, held_ts, batch, pairs, parts
+    torch.cuda.empty_cache()
+
+    # --- 12. the rest of the config surface, variant by variant ---
+    both = dict(spawn_mode='procedural', spawn_orientations='both')
+    variants = [
+        ('procedural', EnvConfig(**big, spawn_mode='procedural'), 4096,
+         4096),
+        ('procedural-both', EnvConfig(**dict(big, num_snakes=2), **both),
+         4096, 1024),
+        ('packed', EnvConfig(**big, obs_format='packed'), 4096, 1024),
+        ('procedural-packed', EnvConfig(**big, spawn_mode='procedural',
+                                        obs_format='packed'), 4096, 1024),
+        ('stack4-small', EnvConfig(**small, frame_stack=4), 4096, 256),
+        ('stack4-small-packed', EnvConfig(**small, frame_stack=4,
+                                          obs_format='packed'), 4096, 256),
+        ('stack4', EnvConfig(**big, frame_stack=4), 4096, 1024),
+        ('stack4-packed', EnvConfig(**big, frame_stack=4,
+                                    obs_format='packed'), 4096, 1024),
+        ('vision5', EnvConfig(**big, vision_range=5), 4096, 1024),
+        ('vision5-stack2', EnvConfig(**big, vision_range=5, frame_stack=2),
+         4096, 1024),
+        ('all-wide', EnvConfig(**wide, vision_range=5, frame_stack=2,
+                               obs_format='packed', max_episode_steps=40,
+                               **both), 1024, 1024),
+    ]
+    variant_rows = []
+    for i, (name, vcfg, b_envs, parity_envs) in enumerate(variants):
+        variant_rows += run_variant(name, vcfg, b_envs, parity_envs,
+                                    seed=100 + 10 * i, smi=smi)
+        torch.cuda.empty_cache()
+    by_name = {r['name']: r for r in variant_rows}
+    obs_share = (by_name['step_autoreset[procedural]']['device_ms']
+                 - by_name['step_autoreset[procedural-packed]']['device_ms'])
+    log(f'obs store of step_autoreset at B=4096 20x20x4: uint8 minus '
+        f'packed device time {obs_share * 1e3:.2f} us of '
+        f'{by_name["step_autoreset[procedural]"]["device_ms"] * 1e3:.2f} us '
+        f'(the packed store writes an eighth of the bytes) [{smi}]')
+
+    # --- 13. this slice's paths at full width ---
+    from marlsnake_torch.envs.vector import state_rays
+    bench_rows = {}
+    for label, kwargs in (
+            ('pool', dict(spawn_mode='pool')),
+            ('procedural', {}),
+            ('procedural-packed', dict(obs_format='packed')),
+            ('pool-packed', dict(spawn_mode='pool', obs_format='packed')),
+            ('vision5', dict(vision_range=5)),
+            ('graph', dict(graph=True)),
+            ('graph-vision5', dict(graph=True, vision_range=5)),
+            ('pool-again', dict(spawn_mode='pool'))):
+        step_kernel.step_autoreset.launches = 0
+        row = bench.run(num_envs=4096, num_steps=256, iters=2,
+                        device='cuda', **kwargs)
+        row['launches'] = step_kernel.step_autoreset.launches
+        if row['launches'] != 256 * (1 + 3 * 2):
+            raise AssertionError(f'bench {label}: {row["launches"]} '
+                                 f'launches for {256 * 7} steps')
+        bench_rows[label] = row
+        log(f'bench [{label}]: {json.dumps(row)} [{smi}]')
+
+    slice_windows = {}
+    for label, kwargs in (('procedural-packed', dict(obs_format='packed')),
+                          ('vision5', dict(vision_range=5)),
+                          ('graph', dict(graph=True))):
+        wcfg = EnvConfig(**big, spawn_mode='procedural',
+                         **{k: v for k, v in kwargs.items()
+                            if k != 'graph'})
+        wenv = VectorSnakeEnv(wcfg, 4096, device='cuda', seed=21,
+                              graph=kwargs.get('graph', False))
+        wgen = torch.Generator(device='cuda')
+        wgen.manual_seed(22)
+        wheld = [wenv.reset()[0]]
+
+        def window_steps():
+            wheld[0], _ = bench.rollout(wenv, wheld[0], 16, wgen)
+
+        window = profile_device(window_steps, 1)
+        slice_windows[label] = window
+        log_window(f'profile of 16 bench steps [{label}]', window, 16, smi,
+                   also=(KERNEL_NAME,))
+        if label == 'graph':
+            gstate = wheld[0]
+            rays_prof = profile_device(
+                lambda: state_rays(wcfg, gstate, None), 20)
+            rays_ms = event_ms(lambda: state_rays(wcfg, gstate, None), 50)
+            feats = state_rays(wcfg, gstate, None)
+            if feats.shape != (4096, 4, 5, 8) or feats.dtype \
+                    != torch.float32 or not bool(torch.isfinite(feats).all()):
+                raise AssertionError('ray features of wrong shape or not '
+                                     'finite')
+            if bool(feats[~gstate.alive].any()):
+                raise AssertionError('a dead snake has ray features')
+            log(f'ray features of 4096 envs x 4 snakes from the grid: '
+                f'{rays_ms:.5f} ms a call (CUDA events; the slower of host '
+                f'and device), device busy '
+                f'{rays_prof["busy_us"] / 20:.1f} us in '
+                f'{sum(v[1] for v in rays_prof["kernels"].values()) // 20} '
+                f'kernels, host wall {rays_prof["wall_us"] / 20:.1f} us '
+                f'[{smi}]')
+    del wenv, wheld, gstate, feats
+    torch.cuda.empty_cache()
+
+    # two training episodes at 256 envs with packed obs
+    ptrainer = DQNTrainer(train_config(obs_format='packed'), device='cuda')
+    pts = ptrainer.init_state()
+    if pts.buffer.obs_shape != (20, 20, 1):
+        raise AssertionError(f'packed ring rows {pts.buffer.obs_shape}')
+    pfirst = {k: v.clone() for k, v in pts.params.items()}
+    step_kernel.step.launches = 0
+    p_steps, p_eps = 0, []
+    for _ in range(2):
+        pts, m = ptrainer.train_episode(pts)
+        p_steps += int(m.episode_length)
+        p_eps.append(m)
+    torch.cuda.synchronize()
+    packed_launches = step_kernel.step.launches
+    log(f'packed training path: 2 episodes at 256 envs, '
+        f'{[int(m.episode_length) for m in p_eps]} steps, '
+        f'{[m.updates for m in p_eps]} updates, mean loss '
+        f'{[float(m.mean_loss) for m in p_eps]}, step launches='
+        f'{packed_launches}, ring size {int(pts.buffer.size)} rows of '
+        f'{pts.buffer.obs.shape[1]} bytes')
+    if packed_launches != p_steps:
+        raise AssertionError(f'{p_steps} env steps on the packed training '
+                             f'path but {packed_launches} kernel launches')
+    if p_eps[-1].updates <= 0 or not all(
+            bool(torch.isfinite(m.mean_loss)) for m in p_eps) \
+            or float(p_eps[-1].mean_loss) <= 0.0:
+        raise AssertionError('the packed training made no update or its '
+                             'loss is not finite and positive')
+    if not any(not torch.equal(pts.params[k], pfirst[k]) for k in pfirst) \
+            or not all(bool(torch.isfinite(v).all())
+                       for v in pts.params.values()):
+        raise AssertionError('the packed training left the parameters '
+                             'unchanged or not finite')
+    # the ring's rows unpack to one-hot planes
+    planes = unpack_obs(pts.buffer.obs[:int(pts.buffer.size)])
+    if int(planes.max()) > 1 or int(planes.view(-1, 8).sum(1).max()) > 1:
+        raise AssertionError('packed ring rows do not unpack to one-hot')
+    del ptrainer, pts, planes
+    for kwargs in (dict(), dict(obs_format='packed')):
+        row = bench.run_train(256, 1, episodes=2, device='cuda', **kwargs)
+        log(f'train bench (in turns): {json.dumps(row)} [{smi}]')
+
     step_main = step_rows[256]
-    log(json.dumps({'kernels': [dict(
+    log(json.dumps({'kernels': variant_rows + [dict(
         auto,
         name='step_autoreset',
         route='cuda',
@@ -793,10 +1177,16 @@ def main() -> int:
         num_envs=256,
         at_4096_envs={k: step_rows[4096][k] for k in (
             'device_ms', 'host_us', 'call_ms', 'plain_ms', 'bound_ms',
-            'pct_of_bound', 'bytes', 'device_us_holding')},
+            'pct_of_bound', 'bytes', 'device_us_holding',
+            'device_us_by_pacing')},
         train_idle_share={n: w['idle_share'] for n, w in windows.items()},
         train_dtoh_per_step={n: w['dtoh'] / w['steps']
                              for n, w in windows.items()},
+        packed_training_launches=packed_launches,
+        replay_push=pushes,
+        bench_env_steps_per_s={k: r['value'] for k, r in bench_rows.items()},
+        bench_idle_share={k: w['idle_share']
+                          for k, w in slice_windows.items()},
     )]}))
     log(f'total {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'ok': True, 'device': {

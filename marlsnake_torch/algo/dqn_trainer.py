@@ -48,6 +48,7 @@ from marlsnake_torch.core.types import EnvConfig
 from marlsnake_torch.device import resolve_device
 from marlsnake_torch.envs.vector import build_vector_fns
 from marlsnake_torch.models.dqn import make_dqn
+from marlsnake_torch.ops.obs_pack import unpack_obs
 from marlsnake_torch.rng import (ResetDraws, StepDraws, TrainDraws,
                                  reset_draws, train_draws)
 from marlsnake_torch.utils import checkpoint as ckpt
@@ -106,11 +107,14 @@ class DQNConfig:
     # so such parameters do not fit a consumer that applies the net to raw
     # 8-channel obs; the pad is written beside every checkpoint.
     obs_pad_channels: int = 0
-    # 'packed' (bit-packed env observations) is not ported yet.
+    # 'packed' makes the envs emit one byte a cell a frame (its 8 one-hot
+    # channels as bits): the replay ring stores those bytes, and they are
+    # unpacked to the same uint8 planes where they enter the net.
     obs_format: str = 'uint8'
     # Re-encode the acting forward's obs from the carried env grid instead
     # of reading the carried obs: the same bytes for full-obs
-    # frame_stack=1 uint8 configs. None and False mean off.
+    # frame_stack=1 uint8 configs, and refused for any other. None and
+    # False mean off.
     reencode_acting_obs: Optional[bool] = None
     # Learner pacing. update_every=K runs K env steps between optimizer
     # updates (it must divide max_steps_per_episode); update_batch_size is
@@ -209,8 +213,11 @@ class DQNTrainer:
 
     # ------------------------------------------------------------------
     def _prep(self, flat_obs: torch.Tensor) -> torch.Tensor:
-        """Net-ingress obs transform: zero-pad the obs channels
+        """Net-ingress obs transform: unpack packed bytes to the uint8
+        planes (``obs_format='packed'``), then zero-pad the obs channels
         (``obs_pad_channels``; exact, the widened conv1 sees zeros)."""
+        if self.config.obs_format == 'packed':
+            flat_obs = unpack_obs(flat_obs)
         pad = self.config.obs_pad_channels
         return F.pad(flat_obs, (0, pad)) if pad else flat_obs
 
@@ -219,9 +226,20 @@ class DQNTrainer:
         return torch.func.functional_call(self.net, params,
                                           (self._prep(flat_obs),))
 
+    def _acting_exact(self) -> bool:
+        """True when the obs is a function of the current grid alone, so
+        that re-encoding it gives the carried obs byte for byte."""
+        cfg = self.config
+        return (cfg.frame_stack == 1 and not cfg.vision_range
+                and cfg.obs_format == 'uint8')
+
     def _acting_obs(self, env_states, obs):
         if not self.config.reencode_acting_obs:
             return obs
+        if not self._acting_exact():
+            raise ValueError(
+                'reencode_acting_obs requires full-obs frame_stack=1 '
+                'uint8 configs (obs must be a pure function of the grid)')
         return engine.encode_frame(self.env_cfg, env_states.grid)
 
     def _select_actions(self, params: Params, obs, dones, eps,
@@ -510,13 +528,20 @@ def main(argv=None):
     p.add_argument('--height', type=int, default=20)
     p.add_argument('--width', type=int, default=20)
     p.add_argument('--num-snakes', type=int, default=4)
+    p.add_argument('--vision-range', type=int, default=None)
+    p.add_argument('--frame-stack', type=int, default=1)
+    p.add_argument('--obs-format', choices=('uint8', 'packed'),
+                   default='uint8')
     p.add_argument('--resume', type=str, default=None)
     p.add_argument('--no-log', action='store_true')
     p.add_argument('--device', default='cuda')
     args = p.parse_args(argv)
     cfg = DQNConfig(num_episodes=args.episodes, num_envs=args.num_envs,
                     height=args.height, width=args.width,
-                    num_snakes=args.num_snakes, resume_from=args.resume)
+                    num_snakes=args.num_snakes, resume_from=args.resume,
+                    vision_range=args.vision_range,
+                    frame_stack=args.frame_stack,
+                    obs_format=args.obs_format)
     DQNTrainer(cfg, device=args.device).train(log=not args.no_log)
 
 

@@ -1,18 +1,23 @@
 """Env-steps per second of the auto-reset rollout, the twin of ``bench.py``.
 
-4096 envs of 20x20 with 4 snakes of length 3, pool spawn, uniform random
-actions; each step's obs is consumed by a uint8 checksum, so the whole
-obs pipeline is in the measurement. Prints ONE JSON line:
-``{"metric", "value", "unit", "vs_baseline", "median", "spawn_mode",
-"device"}``; ``value`` is the best of three timed blocks and ``median``
-their median. Run ``python -m marlsnake_torch.bench`` on the GPU; pass
-``--device cpu`` (and small sizes) to run the plain path on the CPU.
+4096 envs of 20x20 with 4 snakes of length 3, procedural spawn (as the
+JAX bench; ``--spawn-mode pool`` for the host-made pool), uniform random
+actions; each step's obs is consumed by a checksum, so the whole obs
+pipeline is in the measurement. ``--obs-format packed``, ``--frame-stack``
+and ``--vision-range`` choose the obs, and ``--graph`` the ray-feature
+env. Prints ONE JSON line: ``{"metric", "value", "unit", "vs_baseline",
+"median", "spawn_mode", "obs_format", "frame_stack", "vision_range",
+"graph", "device"}``; ``value`` is the best of three timed blocks and
+``median`` their median. Run ``python -m marlsnake_torch.bench`` on the
+GPU; pass ``--device cpu`` (and small sizes) to run the plain path on the
+CPU.
 
 ``--mode train`` times DQN training instead: milliseconds per episode and
 env-steps/s of ``DQNTrainer.train_episode`` at 32 and 256 envs (20x20, 4
 snakes of length 3, 256-step episodes, batch 512, ring of 10,000), for
 ``update_every`` 1 and 4, after one warm-up episode; one JSON line per
-row, each with the device.
+row, each with the device. The obs options apply there too; the trainer
+spawns from the pool.
 """
 
 from __future__ import annotations
@@ -35,7 +40,9 @@ def rollout(env: VectorSnakeEnv, states, num_steps: int,
     every reward and obs byte)."""
     cfg = env.cfg
     rew = torch.zeros((), dtype=torch.float32, device=env.device)
-    check = torch.zeros((), dtype=torch.uint8, device=env.device)
+    # uint8 obs sum in uint8 (wrapping); ray features are float32
+    check = torch.zeros((), device=env.device,
+                        dtype=torch.float32 if env.graph else torch.uint8)
     for _ in range(num_steps):
         actions = torch.randint(0, cfg.num_actions,
                                 (env.num_envs, cfg.num_snakes),
@@ -43,7 +50,7 @@ def rollout(env: VectorSnakeEnv, states, num_steps: int,
                                 dtype=torch.int32)
         states, out = env.step(states, actions)
         rew += out.reward.sum()
-        check += out.obs.sum(dtype=torch.uint8)
+        check += out.obs.sum(dtype=check.dtype)
     return states, rew + check.to(torch.float32)
 
 
@@ -53,10 +60,14 @@ def _sync(device: torch.device) -> None:
 
 
 def run(num_envs: int = 4096, num_steps: int = 256, iters: int = 4,
-        device='cuda', seed: int = 0) -> dict:
+        device='cuda', seed: int = 0, spawn_mode: str = 'procedural',
+        obs_format: str = 'uint8', frame_stack: int = 1,
+        vision_range=None, graph: bool = False) -> dict:
     cfg = EnvConfig(height=20, width=20, num_snakes=4, snake_length=3,
-                    spawn_mode='pool')
-    env = VectorSnakeEnv(cfg, num_envs, device=device, seed=seed)
+                    spawn_mode=spawn_mode, obs_format=obs_format,
+                    frame_stack=frame_stack, vision_range=vision_range)
+    env = VectorSnakeEnv(cfg, num_envs, device=device, seed=seed,
+                         graph=graph)
     gen = torch.Generator(device=env.device)
     gen.manual_seed(seed + 1)
     states, _ = env.reset()
@@ -80,6 +91,10 @@ def run(num_envs: int = 4096, num_steps: int = 256, iters: int = 4,
         'vs_baseline': best / BASELINE_STEPS_PER_SEC,
         'median': total / sorted(dts)[1],
         'spawn_mode': cfg.spawn_mode,
+        'obs_format': cfg.obs_format,
+        'frame_stack': cfg.frame_stack,
+        'vision_range': cfg.vision_range,
+        'graph': graph,
         'device': _device_name(env.device),
     }
 
@@ -121,6 +136,8 @@ def run_train(num_envs: int, update_every: int = 1, episodes: int = 3,
         'env_steps_per_s': num_envs * steps / episodes / dt,
         'steps_per_episode': steps / episodes,
         'updates_per_episode': updates / episodes,
+        'obs_format': cfg.obs_format, 'frame_stack': cfg.frame_stack,
+        'vision_range': cfg.vision_range,
         'device': _device_name(trainer.device),
     }
 
@@ -136,15 +153,26 @@ def main(argv=None) -> None:
                     default='rollout')
     ap.add_argument('--episodes', type=int, default=3,
                     help='timed episodes per row (train mode)')
+    ap.add_argument('--spawn-mode', choices=('procedural', 'pool'),
+                    default='procedural', help='rollout mode only')
+    ap.add_argument('--obs-format', choices=('uint8', 'packed'),
+                    default='uint8')
+    ap.add_argument('--frame-stack', type=int, default=1)
+    ap.add_argument('--vision-range', type=int, default=None)
+    ap.add_argument('--graph', action='store_true',
+                    help='ray-feature observations (rollout mode only)')
     a = ap.parse_args(argv)
+    obs = dict(obs_format=a.obs_format, frame_stack=a.frame_stack,
+               vision_range=a.vision_range)
     if a.mode == 'train':
         for num_envs in (32, 256):
             for every in (1, 4):
                 print(json.dumps(run_train(num_envs, every, a.episodes,
-                                           a.device)), flush=True)
+                                           a.device, **obs)), flush=True)
         return
     print(json.dumps(run(a.num_envs, a.num_steps, a.iters, a.device,
-                         a.seed)))
+                         a.seed, spawn_mode=a.spawn_mode, graph=a.graph,
+                         **obs)))
 
 
 if __name__ == '__main__':

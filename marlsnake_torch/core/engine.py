@@ -24,12 +24,26 @@ Phases of a step (same order and arithmetic as the JAX engine):
 7. fruit respawn: ``fruit_taken`` draws over the empty cells, with
    replacement.
 8. episodic stats, timeout, ``done_mode``, competition rank ("1224").
+
+A reset takes its snakes from a row of the host-made spawn pool, or with
+``spawn_mode='procedural'`` computes one straight segment a snake from
+four uniforms, each snake inside its own band of rows (no pool, no
+tables: ``spawn`` is None).
+
+The observation of a step is made from the state it returns: the whole
+grid or, with ``vision_range``, a window around each head; eight one-hot
+uint8 channels a cell or, with ``obs_format='packed'``, the same eight
+bits in one byte. ``frame_stack > 1`` concatenates the last frames'
+channels, oldest first: full-obs configs carry the past raw grids in
+``EnvState.hist_grid`` and re-encode them, vision configs carry the
+encoded window frames in ``EnvState.obs_stack``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -45,7 +59,7 @@ F32 = torch.float32
 
 @dataclasses.dataclass
 class StepOutput:
-    obs: torch.Tensor             # (B, N, H, W, 8) uint8
+    obs: torch.Tensor             # (B, N, Ho, Wo, C) uint8 (cfg.obs_shape)
     reward: torch.Tensor          # (B, N) float32
     done: torch.Tensor            # (B, N) bool
     rank: torch.Tensor            # (B, N) int32
@@ -81,7 +95,18 @@ def make_empty_grid(cfg: T.EnvConfig, device) -> torch.Tensor:
         base_grid_host(cfg.height, cfg.width, cfg.map_layout), device=device)
 
 
-def spawn_tables(cfg: T.EnvConfig, device) -> SpawnTables:
+@functools.lru_cache(maxsize=32)
+def _bordered_grid(height: int, width: int, device: torch.device
+                   ) -> torch.Tensor:
+    return torch.as_tensor(base_grid_host(height, width, None),
+                           device=device)
+
+
+def spawn_tables(cfg: T.EnvConfig, device) -> Optional[SpawnTables]:
+    """The device copies of the spawn pool and the empty board; None for
+    the procedural spawn, which needs neither."""
+    if cfg.spawn_mode == 'procedural':
+        return None
     sd = spawn_data(cfg.height, cfg.width, cfg.snake_length,
                     cfg.num_snakes, pool_size=cfg.spawn_pool_size,
                     map_layout=cfg.map_layout)
@@ -146,25 +171,133 @@ def place_fruits(grid: torch.Tensor, u: torch.Tensor,
     return torch.where(hit & mask, T.FRUIT, flat).to(I32).view(b, h, w)
 
 
-def encode_frame(cfg: T.EnvConfig, grid: torch.Tensor) -> torch.Tensor:
-    """(B, H, W) grid -> (B, N, H, W, 8) uint8 one-hot observation.
-
-    Channels: wall, fruit, other head/body/tail, my head/body/tail. The
-    shared byte (bit c = channel c) is built once per cell, and the
-    owner's bits 2..4 move to 5..7.
-    """
-    n = cfg.num_snakes
-    t = T.cell_type(grid)
-    owner = T.cell_owner(grid)
+def frame_bytes(n: int, cells: torch.Tensor) -> torch.Tensor:
+    """Cell values -> (B, N, Ho, Wo) int32 observation bytes, bit c =
+    channel c: wall, fruit, other head/body/tail, my head/body/tail.
+    ``cells`` is one (B, H, W) grid that every snake sees, or (B, N, Ho,
+    Wo) windows, one a snake. The byte is built once as "other", and the
+    owner's bits 2..4 move to 5..7."""
+    t = T.cell_type(cells)
+    owner = T.cell_owner(cells)
     shift = torch.where(t == T.WALL, 0,
                         torch.where(t == T.FRUIT, 1, 2 + (t - T.HEAD)))
     one = torch.ones_like(t)
     base = torch.where(t > T.EMPTY, one << shift.clamp(min=0), 0)
-    ids = torch.arange(n, dtype=I32, device=grid.device).view(1, n, 1, 1)
-    is_mine = (t >= T.HEAD)[:, None] & (owner[:, None] == ids)
-    byte = torch.where(is_mine, base[:, None] << 3, base[:, None])
-    c = torch.arange(T.FEATURE_CHANNEL, dtype=I32, device=grid.device)
+    if cells.dim() == 3:
+        t, owner, base = t[:, None], owner[:, None], base[:, None]
+    ids = torch.arange(n, dtype=I32, device=cells.device).view(1, n, 1, 1)
+    is_mine = (t >= T.HEAD) & (owner == ids)
+    return torch.where(is_mine, base << 3, base)
+
+
+def bytes_to_planes(byte: torch.Tensor) -> torch.Tensor:
+    c = torch.arange(T.FEATURE_CHANNEL, dtype=I32, device=byte.device)
     return ((byte[..., None] >> c) & 1).to(torch.uint8)
+
+
+def encode_frame(cfg: T.EnvConfig, grid: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) grid -> (B, N, H, W, 8) uint8 one-hot observation."""
+    return bytes_to_planes(frame_bytes(cfg.num_snakes, grid))
+
+
+def encode_frame_packed(cfg: T.EnvConfig, grid: torch.Tensor
+                        ) -> torch.Tensor:
+    """(B, H, W) grid -> (B, N, H, W, 1) uint8: the eight channels of
+    :func:`encode_frame` as the bits of one byte
+    (``ops.obs_pack.pack_frame(encode_frame(...))``)."""
+    return frame_bytes(cfg.num_snakes, grid).to(torch.uint8)[..., None]
+
+
+def _window_cells(cfg: T.EnvConfig, grid: torch.Tensor, head: torch.Tensor,
+                  alive: torch.Tensor) -> torch.Tensor:
+    """The (2v+1)^2 window of raw cells around each snake's head, (B, N,
+    2v+1, 2v+1) int32: a bounds-masked gather. A dead snake's window is
+    centred on (0, 0); cells outside the grid read EMPTY."""
+    h, w, v = cfg.height, cfg.width, cfg.vision_range
+    b, n = alive.shape
+    off = torch.arange(-v, v + 1, dtype=I32, device=grid.device)
+    center = torch.where(alive[..., None], head, 0)
+    ry = center[..., 0, None] + off                     # (B, N, v2)
+    cx = center[..., 1, None] + off
+    inside = (((ry >= 0) & (ry < h))[..., :, None]
+              & ((cx >= 0) & (cx < w))[..., None, :])
+    flat = (ry.clamp(0, h - 1)[..., :, None] * w
+            + cx.clamp(0, w - 1)[..., None, :])         # (B, N, v2, v2)
+    cells = torch.gather(grid.reshape(b, h * w), 1,
+                         flat.reshape(b, -1).long()).view(flat.shape)
+    return torch.where(inside, cells, T.EMPTY)
+
+
+def encode_frame_cropped(cfg: T.EnvConfig, grid: torch.Tensor,
+                         head: torch.Tensor, alive: torch.Tensor
+                         ) -> torch.Tensor:
+    """Vision-range observation, (B, N, 2v+1, 2v+1, 8) uint8: the window
+    of :func:`_window_cells`, channel-encoded like :func:`encode_frame`
+    (out-of-grid cells are all-zero, as in a zero-padded crop)."""
+    return bytes_to_planes(frame_bytes(
+        cfg.num_snakes, _window_cells(cfg, grid, head, alive)))
+
+
+def stack_to_obs(obs_stack: torch.Tensor) -> torch.Tensor:
+    """(B, fs, N, Ho, Wo, C) frames, oldest first -> (B, N, Ho, Wo,
+    fs * C): channel f * C + c is channel c of frame f."""
+    b, fs, n, h, w, c = obs_stack.shape
+    return obs_stack.movedim(1, 4).reshape(b, n, h, w, fs * c)
+
+
+def _current_frame(cfg: T.EnvConfig, state: EnvState) -> torch.Tensor:
+    """The frame of the state's own grid, (B, N, Ho, Wo, C) uint8."""
+    cells = (_window_cells(cfg, state.grid, state.head, state.alive)
+             if cfg.vision_range else state.grid)
+    byte = frame_bytes(cfg.num_snakes, cells)
+    if cfg.obs_format == 'packed':
+        return byte.to(torch.uint8)[..., None]
+    return bytes_to_planes(byte)
+
+
+def _encode_and_stack(cfg: T.EnvConfig, state: EnvState, old_stack,
+                      reset_mode):
+    """(obs, obs_stack or None) of ``state``. ``reset_mode`` is True
+    (every env is fresh), False (none is) or a (B,) bool tensor; it
+    matters only to the stored-frame stack of vision configs, which a
+    fresh env fills with its first frame and every other env rolls. With
+    raw-grid history the state's ``hist_grid`` already says it: a fresh
+    env carries its own grid in every slot."""
+    frame = _current_frame(cfg, state)
+    fs = cfg.frame_stack
+    if fs == 1:
+        return frame, None
+    if cfg.hist_mode:
+        enc = (encode_frame_packed if cfg.obs_format == 'packed'
+               else encode_frame)
+        hists = [enc(cfg, state.hist_grid[:, i]) for i in range(fs - 1)]
+        return stack_to_obs(torch.stack(hists + [frame], 1)), None
+    fresh = frame[:, None].expand((-1, fs) + frame.shape[1:])
+    if reset_mode is True:
+        stack = fresh.contiguous()
+    else:
+        stack = torch.cat([old_stack[:, 1:], frame[:, None]], 1)
+        if reset_mode is not False:
+            stack = _select(reset_mode, fresh, stack)
+    return stack_to_obs(stack), stack
+
+
+def _roll_hist(cfg: T.EnvConfig, new_state: EnvState,
+               prev: EnvState) -> EnvState:
+    """After a step the raw-grid history drops its oldest grid and takes
+    the PRE-step grid as its newest."""
+    if not cfg.hist_mode:
+        return new_state
+    return new_state.replace(hist_grid=torch.cat(
+        [prev.hist_grid[:, 1:], prev.grid[:, None]], 1))
+
+
+def _with_obs(cfg: T.EnvConfig, state: EnvState, old_stack, reset_mode):
+    """``state`` with its frame stack brought up to date, and its obs."""
+    obs, stack = _encode_and_stack(cfg, state, old_stack, reset_mode)
+    if stack is not None:
+        state = state.replace(obs_stack=stack)
+    return state, obs
 
 
 def _set_cells(flat: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
@@ -188,31 +321,79 @@ def _select(done: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
 # reset
 # ---------------------------------------------------------------------------
 
-def _reset_core(cfg: T.EnvConfig, spawn: SpawnTables,
+def _procedural_spawn(cfg: T.EnvConfig, u: torch.Tensor) -> torch.Tensor:
+    """Head-first flat cells (B, N, k) int32 of the procedural spawn, from
+    ``u`` (B, N, 4) uniforms: position in band, column, head side,
+    orientation.
+
+    Snake i owns the interior rows ``[1 + i*b, 1 + (i+1)*b)`` with ``b =
+    (height - 2) // num_snakes`` and lies in them as one straight segment,
+    so segments of different snakes never meet. Horizontal: row ``u0`` of
+    the band, column start ``u1`` among those that keep the segment off
+    the walls. Vertical (``spawn_orientations='both'``, only where ``b >=
+    k``, chosen by ``u3 < 0.5``): row start ``u0`` among those that keep
+    the segment inside the band, any interior column ``u1``. ``u2 < 0.5``
+    puts the head at the left (top) end. Each pick is the float32 product
+    truncated and clamped, ``min(int(u * m), m - 1)``.
+    """
+    n, k, h, w = cfg.num_snakes, cfg.snake_length, cfg.height, cfg.width
+    band = (h - 2) // n
+    starts = w - 1 - k
+
+    def pick(ui, m):
+        return (ui * m).to(I32).clamp(max=m - 1)
+
+    band0 = 1 + torch.arange(n, dtype=I32, device=u.device) * band
+    rows = band0 + pick(u[..., 0], band)
+    c0 = 1 + pick(u[..., 1], starts)
+    side = u[..., 2] < 0.5
+    j = torch.arange(k, dtype=I32, device=u.device)
+    jj = torch.where(side[..., None], j, (k - 1) - j)        # (B, N, k)
+    cells = rows[..., None] * w + c0[..., None] + jj
+    if cfg.spawn_vertical:
+        vert = u[..., 3] < 0.5
+        r0 = band0 + pick(u[..., 0], band - k + 1)
+        cv = 1 + pick(u[..., 1], w - 2)
+        cells = torch.where(vert[..., None],
+                            (r0[..., None] + jj) * w + cv[..., None], cells)
+    return cells
+
+
+def _reset_core(cfg: T.EnvConfig, spawn: Optional[SpawnTables],
                 spawn_u: torch.Tensor) -> EnvState:
-    """Reset WITHOUT fruits: pool row ``min(int(u * P), P - 1)``, painted
-    body, then head, then tail; rings from the spawn paths."""
+    """Reset WITHOUT fruits and without obs: the snakes' cells (pool row
+    ``min(int(u * P), P - 1)``, or the procedural spawn), painted body,
+    then head, then tail; rings from the paths. A raw-grid history holds
+    this fruitless grid in every slot, and the stored-frame stack is
+    left empty: the caller fills both."""
     n, k = cfg.num_snakes, cfg.snake_length
     h, w = cfg.height, cfg.width
     dev = spawn_u.device
     b = spawn_u.shape[0]
-    num_pool = spawn.cells.shape[0]
-    row = (spawn_u * num_pool).to(I32).clamp(max=num_pool - 1)
-    cells = spawn.cells[row.long()].view(b, n, k)
+    if cfg.spawn_mode == 'procedural':
+        cells = _procedural_spawn(cfg, spawn_u)
+        base_grid = _bordered_grid(h, w, dev)
+    else:
+        num_pool = spawn.cells.shape[0]
+        row = (spawn_u * num_pool).to(I32).clamp(max=num_pool - 1)
+        cells = spawn.cells[row.long()].view(b, n, k)
+        base_grid = spawn.base_grid
 
     ids = torch.arange(n, dtype=I32, device=dev) << T.OWNER_SHIFT
-    flat = spawn.base_grid.reshape(1, h * w).repeat(b, 1)
+    flat = base_grid.reshape(1, h * w).repeat(b, 1)
     flat.scatter_(1, cells.reshape(b, n * k).long(),
                   (T.BODY + ids).repeat_interleave(k).expand(b, n * k))
     flat.scatter_(1, cells[:, :, 0].long(), (T.HEAD + ids).expand(b, n))
     flat.scatter_(1, cells[:, :, -1].long(), (T.TAIL + ids).expand(b, n))
+    grid = flat.view(b, h, w)
 
     # link j points from cell j+1 to cell j, newest (head) link first
     dirs = flat_delta_to_dir(cells[:, :, :-1] - cells[:, :, 1:], w)
     hf, tf = cells[:, :, 0], cells[:, :, -1]
     zeros_f = torch.zeros((b, n), dtype=F32, device=dev)
+    hist_len = cfg.frame_stack - 1 if cfg.hist_mode else 0
     return EnvState(
-        grid=flat.view(b, h, w),
+        grid=grid,
         direction=dirs[:, :, 0].contiguous(),
         head=torch.stack([hf // w, hf % w], -1),
         tail=torch.stack([tf // w, tf % w], -1),
@@ -224,12 +405,22 @@ def _reset_core(cfg: T.EnvConfig, spawn: SpawnTables,
         epi_scores=zeros_f, epi_steps=zeros_f.clone(),
         epi_fruits=zeros_f.clone(), epi_kills=zeros_f.clone(),
         episode_length=torch.zeros((b,), dtype=I32, device=dev),
+        hist_grid=grid[:, None].repeat(1, hist_len, 1, 1),
+        obs_stack=torch.zeros(
+            (b, 0, n, cfg.obs_height, cfg.obs_width, cfg.frame_channels),
+            dtype=torch.uint8, device=dev),
     )
 
 
-def reset(cfg: T.EnvConfig, spawn: SpawnTables,
+def _fill_hist(state: EnvState) -> torch.Tensor:
+    """A raw-grid history with the state's own grid in every slot."""
+    return state.grid[:, None].expand_as(state.hist_grid)
+
+
+def reset(cfg: T.EnvConfig, spawn: Optional[SpawnTables],
           draws: ResetDraws) -> Tuple[EnvState, torch.Tensor]:
-    """Reset a batch of envs; returns (state, obs)."""
+    """Reset a batch of envs; returns (state, obs). ``spawn`` is None for
+    the procedural spawn."""
     state = _reset_core(cfg, spawn, draws.spawn_u)
     nf = cfg.resolved_num_fruits
     if nf > 0:
@@ -237,7 +428,8 @@ def reset(cfg: T.EnvConfig, spawn: SpawnTables,
                            device=state.device)
         state = state.replace(
             grid=place_fruits(state.grid, draws.fruit_u, count))
-    return state, encode_frame(cfg, state.grid)
+        state = state.replace(hist_grid=_fill_hist(state).contiguous())
+    return _with_obs(cfg, state, None, True)
 
 
 # ---------------------------------------------------------------------------
@@ -374,7 +566,7 @@ def _step_core(cfg: T.EnvConfig, state: EnvState, actions: torch.Tensor):
         episode_fruits=epi_fruits, episode_kills=epi_kills,
         done_all=done_all)
     zero = torch.zeros_like(epi_scores)
-    new_state = EnvState(
+    new_state = state.replace(
         grid=flat.view(b, h, w), direction=new_dir, head=new_head,
         tail=new_tail, ring=ring, ring_head=ring_head, ring_len=ring_len,
         alive=alive1, alive_count=alive_count,
@@ -391,22 +583,26 @@ def step(cfg: T.EnvConfig, state: EnvState, actions: torch.Tensor,
     """One simultaneous move of every snake, without auto-reset.
     ``fruit_u`` (B, N) are the fruit-respawn draws."""
     new_state, out, fruit_taken = _step_core(cfg, state, actions)
-    grid = place_fruits(new_state.grid, fruit_u, fruit_taken)
-    return (new_state.replace(grid=grid),
-            out.replace(obs=encode_frame(cfg, grid)))
+    new_state = _roll_hist(cfg, new_state, state).replace(
+        grid=place_fruits(new_state.grid, fruit_u, fruit_taken))
+    new_state, obs = _with_obs(cfg, new_state, state.obs_stack, False)
+    return new_state, out.replace(obs=obs)
 
 
-def step_autoreset(cfg: T.EnvConfig, spawn: SpawnTables, state: EnvState,
-                   actions: torch.Tensor, draws: StepDraws
+def step_autoreset(cfg: T.EnvConfig, spawn: Optional[SpawnTables],
+                   state: EnvState, actions: torch.Tensor, draws: StepDraws
                    ) -> Tuple[EnvState, StepOutput]:
     """Step with fused auto-reset: where the episode-done predicate fires,
     the returned state and obs are those of a fresh reset, while reward,
     done and the stats describe the finished step. Fruits are placed
     once, on the done-selected grid, with the done-selected draws and
-    count."""
+    count; only then does a fresh env's raw-grid history take its grid,
+    and its stored-frame stack its first frame."""
     n, nf = cfg.num_snakes, cfg.resolved_num_fruits
     new_state, out, fruit_taken = _step_core(cfg, state, actions)
-    r_state = _reset_core(cfg, spawn, draws.reset_spawn_u)
+    new_state = _roll_hist(cfg, new_state, state)
+    r_state = _reset_core(cfg, spawn, draws.reset_spawn_u).replace(
+        obs_stack=new_state.obs_stack)
     done = out.done_all
     sel = EnvState(**{name: _select(done, r, s) for (name, r), (_, s) in
                       zip(r_state.fields(), new_state.fields())})
@@ -417,6 +613,10 @@ def step_autoreset(cfg: T.EnvConfig, spawn: SpawnTables, state: EnvState,
     u_reset = torch.zeros((b, m), dtype=F32, device=state.device)
     u_reset[:, :nf] = draws.reset_fruit_u
     count = torch.where(done, nf, fruit_taken).to(I32)
-    grid = place_fruits(sel.grid, _select(done, u_reset, u_step), count)
-    return (sel.replace(grid=grid),
-            out.replace(obs=encode_frame(cfg, grid)))
+    sel = sel.replace(
+        grid=place_fruits(sel.grid, _select(done, u_reset, u_step), count))
+    if cfg.hist_mode:
+        sel = sel.replace(
+            hist_grid=_select(done, _fill_hist(sel), sel.hist_grid))
+    sel, obs = _with_obs(cfg, sel, state.obs_stack, done)
+    return sel, out.replace(obs=obs)

@@ -37,6 +37,12 @@ class EnvState:
     epi_fruits: torch.Tensor
     epi_kills: torch.Tensor
     episode_length: torch.Tensor  # (B,) int32
+    # Frame-stack history. Full-obs configs with frame_stack > 1 carry
+    # the frame_stack - 1 past raw grids, oldest first, and re-encode
+    # them for every obs; vision configs carry the encoded window frames,
+    # oldest first. Each axis has length 0 where its mechanism is off.
+    hist_grid: torch.Tensor       # (B, fs - 1, H, W) int32
+    obs_stack: torch.Tensor       # (B, fs, N, Ho, Wo, C) uint8
 
     def replace(self, **changes) -> 'EnvState':
         return dataclasses.replace(self, **changes)

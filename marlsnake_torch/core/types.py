@@ -85,10 +85,9 @@ REWARD_KEYS = ('fruit', 'kill', 'lose', 'win', 'time')
 class EnvConfig:
     """Static environment configuration (hashable).
 
-    Field names and defaults are those of the JAX package's ``EnvConfig``.
-    The port runs ``spawn_mode='pool'``, ``frame_stack=1``, no
-    ``vision_range`` and ``obs_format='uint8'``; the env constructors raise
-    ``NotImplementedError`` for the other values (see ROADMAP.md).
+    Field names, defaults and checks are those of the JAX package's
+    ``EnvConfig``; every option runs in the plain engine and in the CUDA
+    step kernel.
     """
 
     height: int = 20
@@ -137,6 +136,20 @@ class EnvConfig:
                 f'unknown spawn_orientations {self.spawn_orientations!r}')
         if self.obs_format not in ('uint8', 'packed'):
             raise ValueError(f'unknown obs_format {self.obs_format!r}')
+        if self.spawn_mode == 'procedural':
+            if self.map_layout is not None:
+                raise ValueError('procedural spawn supports plain '
+                                 'bordered boards only (no map_layout)')
+            if self.height - 2 < self.num_snakes:
+                raise ValueError(
+                    f'procedural spawn needs >= 1 interior row per '
+                    f'snake: height={self.height} num_snakes='
+                    f'{self.num_snakes}')
+            if self.width - 2 < self.snake_length:
+                raise ValueError(
+                    f'procedural spawn needs snake_length <= width-2: '
+                    f'snake_length={self.snake_length} '
+                    f'width={self.width}')
         if len(self.rewards) != 5:
             raise ValueError('rewards must be a 5-tuple '
                              '(fruit, kill, lose, win, time)')
@@ -188,27 +201,22 @@ class EnvConfig:
                 self.obs_channels)
 
     @property
+    def hist_mode(self) -> bool:
+        """True when the frame stack is carried as ``frame_stack - 1`` raw
+        grids that are re-encoded for every obs (full-obs configs). Vision
+        configs carry their encoded window frames instead."""
+        return self.frame_stack > 1 and not self.vision_range
+
+    @property
+    def spawn_vertical(self) -> bool:
+        """True when the procedural spawn also draws vertical segments:
+        asked for, and a band of rows is tall enough for one."""
+        return (self.spawn_orientations == 'both'
+                and (self.height - 2) // self.num_snakes
+                >= self.snake_length)
+
+    @property
     def body_capacity(self) -> int:
         """Max body length: a snake can never exceed the interior area."""
         return (self.height - 2) * (self.width - 2)
 
-
-def check_port_scope(cfg: EnvConfig) -> None:
-    """Raise ``NotImplementedError`` for config options the port does not
-    cover yet, naming the ROADMAP.md item that adds each."""
-    if cfg.spawn_mode != 'pool':
-        raise NotImplementedError(
-            "spawn_mode='procedural' is not ported yet "
-            "(ROADMAP.md §1, 'Procedural spawn')")
-    if cfg.obs_format != 'uint8':
-        raise NotImplementedError(
-            "obs_format='packed' is not ported yet "
-            "(ROADMAP.md §1, 'Packed obs')")
-    if cfg.frame_stack != 1:
-        raise NotImplementedError(
-            'frame_stack > 1 is not ported yet '
-            "(ROADMAP.md §1, 'Frame stack')")
-    if cfg.vision_range:
-        raise NotImplementedError(
-            'vision_range is not ported yet '
-            "(ROADMAP.md §1, 'Vision and graph')")

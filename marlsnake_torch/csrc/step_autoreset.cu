@@ -15,11 +15,30 @@
 // Kernel and plain version take every random number as an input, so they
 // agree bit for bit, floats included.
 //
+// Both entries cover every EnvConfig option, each uniform over a launch and
+// so a warp-uniform branch on a field of StepArgs:
+// - spawn_mode 'procedural': a resetting env paints the bordered board and
+//   one straight segment a snake, computed from the snake's four uniforms
+//   (engine.py::_procedural_spawn); no pool row and no base grid is read.
+// - obs_format 'packed': one byte a cell a snake (bit c = channel c) in
+//   place of eight one-hot bytes.
+// - frame_stack > 1, full obs: the state carries the frame_stack - 1 past
+//   grids (hist_grid). The launch shifts them (drop the oldest, append the
+//   PRE-step grid; a reset env's history is its own new grid in every slot)
+//   and encodes every frame into the obs, frame-major, oldest first. The
+//   past grids are read from the input arena in global memory, so shared
+//   memory holds one grid an env whatever the stack.
+// - vision_range: the obs is the (2v+1)^2 window of the shared-memory grid
+//   around each snake's head ((0, 0) for a dead snake), cells outside the
+//   grid EMPTY. With frame_stack > 1 the state carries the encoded window
+//   frames (obs_stack), which the launch rolls (a reset env's stack is its
+//   first frame in every slot).
+//
 // What bounds it on an H100: bytes. Per env-step the kernel reads the state
 // (grid H*W int32, the 2-bit rings, ~50 bytes per snake, the draws) and
-// writes the new state plus the (N, H, W, 8) uint8 observation. At 4096 envs
-// of 20x20 with 4 snakes that is about 70 MB (12.8 KB of each env's 17.2 KB
-// is the obs), 21 us at 3.35 TB/s. Its arithmetic is a few integer
+// writes the new state plus the observation, (N, H, W, 8) uint8 by default.
+// At 4096 envs of 20x20 with 4 snakes that is about 70 MB (12.8 KB of each
+// env's 17.2 KB is the obs), 21 us at 3.35 TB/s. Its arithmetic is a few integer
 // operations per byte, far below the card's rates. Tensor cores and wgmma
 // play no part: this is integer control flow and byte movement.
 //
@@ -40,7 +59,13 @@
 // - The obs is stored 16 bytes per lane (two cells of one snake), 512
 //   contiguous bytes per warp store. A lane encodes its two cells once and
 //   stores them in every snake's plane, with the streaming hint (st.global.cs):
-//   both measured faster than a snake-outer loop with plain stores.
+//   both measured faster than a snake-outer loop with plain stores. The
+//   packed obs does the same with 16 cells a lane (store_planes). A full-obs
+//   frame stack takes the same path: a snake's plane is then the run of every
+//   grid cell's FS frames. A vision window differs from snake to snake and
+//   goes through store_units: the destination is a run of units (8 one-hot
+//   bytes, or 1 packed byte), 16 bytes a lane, each unit computed from its
+//   (frame, snake, cell) index.
 // - Cell writes that may overlap (old head, tail erase, new head, new tail)
 //   run on lane 0 in the engine's last-writer-wins order.
 //
@@ -69,16 +94,16 @@ constexpr int UP = 0, RIGHT = 1, DOWN = 2, LEFT = 3;
 struct StepArgs {
   // The state comes in as one arena and goes out in another, with the step
   // output behind it; the o_* byte offsets (16-byte aligned) hold for both.
-  const uint8_t* state;            // the first 14 fields of the layout, or
-                                   // all 23 where `keep` is given
-  uint8_t* out;                    // all 23 fields
+  const uint8_t* state;            // the first 16 fields of the layout, or
+                                   // all 25 where `keep` is given
+  uint8_t* out;                    // all 25 fields
   const int32_t* actions;          // (B, N)
   const float* fruit_u;            // (B, N)
   // read by the auto-reset entry only; null for the plain step
-  const float* reset_spawn_u;      // (B,)
+  const float* reset_spawn_u;      // (B,), or (B, N, 4) where procedural
   const float* reset_fruit_u;      // (B, NF)
-  const int32_t* pool_cells;       // (P, N*K)
-  const int32_t* base_grid;        // (HW,)
+  const int32_t* pool_cells;       // (P, N*K); null where procedural
+  const int32_t* base_grid;        // (HW,); null where procedural
   // read by the plain step only: envs to hold still (see hold_env), or null
   const uint8_t* keep;             // (B,) bool
   int64_t o_grid;                  // (B, HW) int32
@@ -95,7 +120,13 @@ struct StepArgs {
   int64_t o_epi_fruits;            // (B, N) float32
   int64_t o_epi_kills;             // (B, N) float32
   int64_t o_episode_length;        // (B,) int32
-  int64_t o_obs;                   // (B, N, HW, 8) uint8
+  int64_t o_hist_grid;             // (B, FS-1, HW) int32; empty unless
+                                   // FS > 1 and V == 0
+  int64_t o_obs_stack;             // (B, FS, N, P, U) uint8; empty unless
+                                   // FS > 1 and V > 0
+  int64_t o_obs;                   // (B, N, P, FS*U) uint8: P = HW cells, or
+                                   // (2V+1)^2 with vision; U = 8 bytes a
+                                   // cell a frame, or 1 where packed
   int64_t o_reward;                // (B, N) float32
   int64_t o_done;                  // (B, N) bool
   int64_t o_rank;                  // (B, N) int32
@@ -117,6 +148,11 @@ struct StepArgs {
   int human;
   int any_mode;
   int max_steps;
+  int FS;                          // frame_stack
+  int V;                           // vision_range, 0 for the whole grid
+  int packed;                      // obs_format == 'packed'
+  int procedural;                  // spawn_mode == 'procedural'
+  int vertical;                    // ... with vertical segments too
   float r_fruit;
   float r_kill;
   float r_lose;
@@ -159,6 +195,11 @@ __device__ __forceinline__ int next_dir(int d, int a, int human) {
   return (d + (a == 2) - (a == 1) + 4) & 3;
 }
 
+// A draw's pick among m choices: the float32 product truncated and clamped.
+__device__ __forceinline__ int pick(float u, int m) {
+  return min(static_cast<int>(__fmul_rn(u, static_cast<float>(m))), m - 1);
+}
+
 __device__ __forceinline__ int flat_delta_to_dir(int d, int w) {
   return d == -w ? UP : (d == 1 ? RIGHT : (d == w ? DOWN : LEFT));
 }
@@ -184,6 +225,40 @@ __device__ __forceinline__ ObsCell obs_cell(int v) {
   const uint2 w = t == WALL || t == FRUIT ? channel_word(t - WALL)
                                           : make_uint2(0u, 0u);
   return {w, w, -1};
+}
+
+// The same cell as one byte, bit c = channel c, as snake s sees it.
+__device__ __forceinline__ unsigned cell_byte(int v, int s) {
+  const int t = v & 15;
+  if (t >= HEAD) return (4u << (t - HEAD)) << ((v >> OWNER_SHIFT) == s ? 3 : 0);
+  return t == WALL ? 1u : (t == FRUIT ? 2u : 0u);
+}
+
+// A byte's bits as 8 one-hot bytes (bit c -> byte c).
+__device__ __forceinline__ uint2 spread(unsigned byte) {
+  return make_uint2(((byte & 15u) * 0x00204081u) & 0x01010101u,
+                    ((byte >> 4) * 0x00204081u) & 0x01010101u);
+}
+
+// Sizes of one env's obs and history rows.
+struct ObsRows {
+  int P;         // cells of one snake's frame
+  int U;         // bytes of a cell in one frame
+  size_t obs;    // bytes of the obs
+  size_t hist;   // bytes of hist_grid (0 unless the raw-grid history is on)
+  size_t stack;  // bytes of obs_stack (0 unless the stored-frame stack is on)
+};
+
+__device__ __forceinline__ ObsRows obs_rows(const StepArgs& a) {
+  ObsRows r;
+  const int HW = a.H * a.W, v2 = 2 * a.V + 1;
+  r.P = a.V ? v2 * v2 : HW;
+  r.U = a.packed ? 1 : 8;
+  const size_t frame = static_cast<size_t>(a.N) * r.P * r.U;
+  r.obs = frame * a.FS;
+  r.hist = (a.FS > 1 && !a.V) ? static_cast<size_t>(a.FS - 1) * HW * 4 : 0;
+  r.stack = (a.FS > 1 && a.V) ? frame * a.FS : 0;
+  return r;
 }
 
 __device__ __forceinline__ bool aligned16(const void* p) {
@@ -218,7 +293,7 @@ __device__ __forceinline__ void copy_in(int* dst, const int32_t* src, int n,
 
 __device__ __forceinline__ void copy_out(int32_t* dst, const int* src, int n,
                                          int lane) {
-  if ((n & 3) == 0 && aligned16(dst)) {
+  if ((n & 3) == 0 && aligned16(dst) && aligned16(src)) {
     for (int x = 4 * lane; x < n; x += 128)
       *reinterpret_cast<int4*>(dst + x) = *reinterpret_cast<const int4*>(src + x);
   } else {
@@ -226,9 +301,9 @@ __device__ __forceinline__ void copy_out(int32_t* dst, const int* src, int n,
   }
 }
 
-// The warp copies one env's row of a field (a multiple of 4 bytes at a
-// 4-byte-aligned address) from the input arena to the output arena, 16 bytes
-// a lane where size and address allow, else 4. The loads are read-only
+// The warp copies one env's row of a field from the input arena to the
+// output arena, 16 bytes a lane where size and address allow, else 4, else
+// (a packed obs of odd size) 1. The loads are read-only
 // (ld.global.nc) and the loops unrolled, so that a lane has several loads in
 // flight before its first store.
 __device__ __forceinline__ void copy_row(const StepArgs& a, int64_t offset,
@@ -240,19 +315,198 @@ __device__ __forceinline__ void copy_row(const StepArgs& a, int64_t offset,
 #pragma unroll 4
     for (int x = 16 * lane; x < n; x += 512)
       *reinterpret_cast<int4*>(dst + x) = __ldg(reinterpret_cast<const int4*>(src + x));
-  } else {
+  } else if ((n & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 3) == 0) {
 #pragma unroll 4
     for (int x = 4 * lane; x < n; x += 128)
       *reinterpret_cast<int32_t*>(dst + x) =
           __ldg(reinterpret_cast<const int32_t*>(src + x));
+  } else {
+    for (int x = lane; x < n; x += 32) dst[x] = __ldg(src + x);
   }
 }
 
-// An env that is held still leaves the step as it came in: all 23 fields of
+// store_units writes a run of units at dst: a (d0, d1, d2) array in row-major
+// order whose unit (i0, i1, i2) is unit_fn(i0, i1, i2). A lane stores 16 bytes
+// (streaming stores, 512 contiguous bytes a warp) where dst is 16-byte aligned
+// and the units fill whole 16-byte words: it decodes the index of its first
+// unit and steps through the rest. Else it stores unit by unit. Every lane
+// calls unit_fn equally often, with an index inside the array, so unit_fn may
+// use warp intrinsics.
+__device__ __forceinline__ void put_unit(unsigned (&w)[4], int i, uint2 u) {
+  w[2 * i] = u.x;
+  w[2 * i + 1] = u.y;
+}
+
+__device__ __forceinline__ void put_unit(unsigned (&w)[4], int i, uint8_t u) {
+  w[i >> 2] |= static_cast<unsigned>(u) << (8 * (i & 3));
+}
+
+template <typename Unit, typename F>
+__device__ __forceinline__ void store_units(uint8_t* dst, int d0, int d1, int d2,
+                                            int lane, F unit_fn) {
+  constexpr int kGroup = 16 / static_cast<int>(sizeof(Unit));
+  const int total = d0 * d1 * d2;
+  const bool wide = aligned16(dst) && total % kGroup == 0;
+  const int group = wide ? kGroup : 1;
+  const int words = total / group;
+  for (int base = 0; base < words; base += 32) {
+    const int x = base + lane;
+    const bool ok = x < words;
+    const int q = ok ? x * group : 0, r = q / d2;
+    int i2 = q - r * d2, i0 = r / d1, i1 = r - i0 * d1;
+    if (wide) {
+      unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        put_unit(w, i, unit_fn(i0, i1, i2));
+        if (++i2 == d2) {
+          i2 = 0;
+          if (++i1 == d1) {
+            i1 = 0;
+            ++i0;
+          }
+        }
+      }
+      // a lane's last step may leave the array; that index is not used
+      if (ok) __stcs(reinterpret_cast<uint4*>(dst) + x, make_uint4(w[0], w[1], w[2], w[3]));
+    } else {
+      const Unit u = unit_fn(i0, i1, i2);
+      if (ok) reinterpret_cast<Unit*>(dst)[x] = u;
+    }
+  }
+}
+
+// The obs of a vision config, and the stored frames behind it. Unit (f, s, p)
+// is frame f (oldest first) of cell p of the window around snake s's head
+// (`anchor`: each lane's own snake's, row << 16 | col). Frame FS-1 is cut from
+// the state's own grid g (shared memory), as is every frame of an env that
+// has just been reset; an older frame f is the stored encoded frame f+1 of
+// obs_stack in the input arena.
+template <typename Unit>
+__device__ __forceinline__ void store_windows(const StepArgs& a, const int* g,
+                                              int b, int lane, bool fresh,
+                                              unsigned anchor) {
+  const int H = a.H, W = a.W, N = a.N, FS = a.FS, V = a.V;
+  const ObsRows rows = obs_rows(a);
+  const int P = rows.P, NP = N * P, v2 = 2 * V + 1;
+  const Unit* in_stack =
+      reinterpret_cast<const Unit*>(a.state + a.o_obs_stack + b * rows.stack);
+  auto unit = [&](int f, int s, int p) -> Unit {
+    const unsigned anc = __shfl_sync(kFull, anchor, s);  // before any branch
+    if (!fresh && f != FS - 1)
+      return __ldg(in_stack + static_cast<size_t>(f + 1) * NP + s * P + p);
+    const int y = p / v2, x = p - y * v2;
+    const int r = static_cast<int>(anc >> 16) - V + y;
+    const int c = static_cast<int>(anc & 0xffffu) - V + x;
+    const bool inside = r >= 0 && r < H && c >= 0 && c < W;
+    const unsigned byte = cell_byte(inside ? g[r * W + c] : EMPTY, s);
+    if constexpr (sizeof(Unit) == 1) return static_cast<Unit>(byte);
+    else return spread(byte);
+  };
+  store_units<Unit>(a.out + a.o_obs + b * rows.obs, N, P, FS, lane,
+                    [&](int s, int p, int f) { return unit(f, s, p); });
+  if (rows.stack)
+    store_units<Unit>(a.out + a.o_obs_stack + b * rows.stack, FS, N, P, lane, unit);
+}
+
+// The obs of a full-obs config: every snake's plane is the same run of
+// `cells` cells (the grid, or with a frame stack each grid cell's FS frames
+// side by side) and differs only where the snake owns a cell. fetch(j0, v)
+// fills v with the sizeof(v)/4 cells from j0 on. A lane encodes its cells once
+// and stores their 16 bytes in every snake's plane (a warp store is 512
+// contiguous bytes): two cells of eight one-hot bytes, or 16 packed cells
+// (their bytes as another snake sees them and their owners + 1; the owner's
+// bits 2..4 move to 5..7).
+template <typename Fetch>
+__device__ __forceinline__ void store_planes(const StepArgs& a, int b, int lane,
+                                             int cells, Fetch fetch) {
+  const int N = a.N;
+  if (a.packed) {
+    uint8_t* obs = at<uint8_t>(a, a.o_obs) + static_cast<size_t>(b) * N * cells;
+    if ((cells & 15) == 0 && aligned16(obs)) {
+      uint4* dst = reinterpret_cast<uint4*>(obs);
+      const int plane = cells / 16;  // 16-byte words per snake
+      for (int p = lane; p < plane; p += 32) {
+        unsigned other[4], owner[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          int v[4];
+          fetch(16 * p + 4 * i, v);
+          other[i] = owner[i] = 0u;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            other[i] |= cell_byte(v[j], -1) << (8 * j);
+            if ((v[j] & 15) >= HEAD)
+              owner[i] |= static_cast<unsigned>((v[j] >> OWNER_SHIFT) + 1) << (8 * j);
+          }
+        }
+        for (int s = 0; s < N; ++s) {
+          unsigned w[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const unsigned m = __vcmpeq4(owner[i], 0x01010101u * (s + 1));
+            w[i] = (other[i] & ~m) | ((other[i] << 3) & m);
+          }
+          __stcs(dst + s * plane + p, make_uint4(w[0], w[1], w[2], w[3]));
+        }
+      }
+    } else {
+      for (int c = lane; c < cells; c += 32) {
+        int v[1];
+        fetch(c, v);
+        for (int s = 0; s < N; ++s)
+          obs[s * cells + c] = static_cast<uint8_t>(cell_byte(v[0], s));
+      }
+    }
+    return;
+  }
+  uint8_t* obs = at<uint8_t>(a, a.o_obs) + static_cast<size_t>(b) * N * cells * 8;
+  if ((cells & 1) == 0 && aligned16(obs)) {
+    uint4* dst = reinterpret_cast<uint4*>(obs);
+    const int plane = cells / 2;  // 16-byte words per snake
+    for (int p = lane; p < plane; p += 32) {
+      int v[2];
+      fetch(2 * p, v);
+      const ObsCell c0 = obs_cell(v[0]), c1 = obs_cell(v[1]);
+      for (int s = 0; s < N; ++s) {
+        const uint2 w0 = c0.owner == s ? c0.mine : c0.other;
+        const uint2 w1 = c1.owner == s ? c1.mine : c1.other;
+        __stcs(dst + s * plane + p, make_uint4(w0.x, w0.y, w1.x, w1.y));
+      }
+    }
+  } else {
+    uint2* dst = reinterpret_cast<uint2*>(obs);
+    for (int c = lane; c < cells; c += 32) {
+      int v[1];
+      fetch(c, v);
+      const ObsCell c0 = obs_cell(v[0]);
+      for (int s = 0; s < N; ++s) dst[s * cells + c] = c0.owner == s ? c0.mine : c0.other;
+    }
+  }
+}
+
+// The raw-grid history after the step: slot i takes past grid i+1, the last
+// slot the PRE-step grid, all from the input arena; a fresh env's slots all
+// take its new grid g.
+__device__ __forceinline__ void store_hist(const StepArgs& a, const int* g,
+                                           int b, int lane, bool fresh) {
+  const int HW = a.H * a.W, slots = a.FS - 1;
+  const int32_t* in_grid = in<int32_t>(a, a.o_grid) + static_cast<size_t>(b) * HW;
+  const int32_t* in_hist =
+      in<int32_t>(a, a.o_hist_grid) + static_cast<size_t>(b) * slots * HW;
+  int32_t* out_hist =
+      at<int32_t>(a, a.o_hist_grid) + static_cast<size_t>(b) * slots * HW;
+  for (int i = 0; i < slots; ++i) {
+    const int* src = fresh ? g : (i == slots - 1 ? in_grid : in_hist + (i + 1) * HW);
+    copy_out(out_hist + i * HW, src, HW, lane);
+  }
+}
+
+// An env that is held still leaves the step as it came in: all 25 fields of
 // its row, state and step output, are copied from the input arena, which must
 // then be a whole arena (the output of the step before). As in the step
 // itself, the per-snake and per-env values are all loaded before any is
-// stored; the grid, the rings and the obs are copied in between.
+// stored; the grid, the rings, the history and the obs are copied in between.
 __device__ __forceinline__ void hold_env(const StepArgs& a, int b, int lane) {
   const int N = a.N, HW = a.H * a.W;
   const int e = b * N + lane;
@@ -286,7 +540,10 @@ __device__ __forceinline__ void hold_env(const StepArgs& a, int b, int lane) {
   }
   copy_row(a, a.o_grid, static_cast<size_t>(HW) * 4, b, lane);
   copy_row(a, a.o_ring, static_cast<size_t>(N) * a.CW * 4, b, lane);
-  copy_row(a, a.o_obs, static_cast<size_t>(N) * HW * 8, b, lane);
+  const ObsRows rows = obs_rows(a);
+  copy_row(a, a.o_obs, rows.obs, b, lane);
+  if (rows.hist) copy_row(a, a.o_hist_grid, rows.hist, b, lane);
+  if (rows.stack) copy_row(a, a.o_obs_stack, rows.stack, b, lane);
   if (snake) {
 #pragma unroll
     for (int i = 0; i < kWords; ++i) at<int32_t>(a, words[i])[e] = w[i];
@@ -354,7 +611,7 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
   if constexpr (kReset) {
     if (lane < a.NF)
       ru = __ldg(a.reset_fruit_u + static_cast<size_t>(b) * a.NF + lane);
-    spawn_u = __ldg(a.reset_spawn_u + b);
+    if (!a.procedural) spawn_u = __ldg(a.reset_spawn_u + b);
   }
   const int acount0 = __ldg(in<int32_t>(a, a.o_alive_count) + b);
   const int elen = __ldg(in<int32_t>(a, a.o_episode_length) + b) + 1;
@@ -485,24 +742,49 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
       }
     }
   } else {
-    // --- fused auto-reset: pool row, painted paths, rings ---
-    const int P = a.P;
-    const int row = min(static_cast<int>(__fmul_rn(spawn_u, static_cast<float>(P))),
-                        P - 1);
-    copy_in(g, a.base_grid, HW, lane);
+    // --- fused auto-reset: the snakes' paths, painted, and their rings ---
+    // Path cell j of my snake, head first: row `row` of the pool, or the
+    // procedural spawn's straight segment start + j * stride.
+    const int32_t* mine = nullptr;
+    int start = 0, stride = 0;
+    if (a.procedural) {
+      for (int c = lane; c < HW; c += 32) {
+        const int r = c / W, col = c - r * W;
+        g[c] = (r == 0 || r == H - 1 || col == 0 || col == W - 1) ? WALL : EMPTY;
+      }
+      if (snake) {
+        const float* u = a.reset_spawn_u + static_cast<size_t>(e) * 4;
+        const float u_pos = __ldg(u), u_col = __ldg(u + 1);
+        const bool head_first = __ldg(u + 2) < 0.5f;  // head left, or on top
+        const int band = (H - 2) / N, band0 = 1 + lane * band;
+        if (a.vertical && __ldg(u + 3) < 0.5f) {
+          const int r0 = band0 + pick(u_pos, band - K + 1);
+          const int cv = 1 + pick(u_col, W - 2);
+          start = (head_first ? r0 : r0 + K - 1) * W + cv;
+          stride = head_first ? W : -W;
+        } else {
+          const int c0 = 1 + pick(u_col, W - 1 - K);
+          start = (band0 + pick(u_pos, band)) * W + (head_first ? c0 : c0 + K - 1);
+          stride = head_first ? 1 : -1;
+        }
+      }
+    } else {
+      const int row = pick(spawn_u, a.P);
+      mine = a.pool_cells + (static_cast<size_t>(row) * N + lane) * K;
+      copy_in(g, a.base_grid, HW, lane);
+    }
     if (snake)
       for (int x = 0; x < CW; ++x) myr[x] = 0u;
     cp_async_wait_all();
     __syncwarp();
     if (snake) {
       // paths are disjoint across snakes: body, then head, then tail
-      const int32_t* mine = a.pool_cells + (static_cast<size_t>(row) * N + lane) * K;
       const int id = lane << OWNER_SHIFT;
-      const int first = __ldg(mine);
+      const int first = mine ? __ldg(mine) : start;
       int prev = first;
       g[first] = BODY + id;
       for (int j = 1; j < K; ++j) {
-        const int c = __ldg(mine + j);
+        const int c = mine ? __ldg(mine + j) : start + j * stride;
         g[c] = BODY + id;
         const uint32_t dj = static_cast<uint32_t>(flat_delta_to_dir(prev - c, W));
         myr[(j - 1) >> 4] |= dj << (2 * ((j - 1) & 15));
@@ -582,29 +864,53 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
     at<uint8_t>(a, a.o_done_all)[b] = static_cast<uint8_t>(done_all);
   }
 
-  // observation: a lane encodes two cells once, then stores their 16 bytes
-  // in every snake's plane (a warp store is 512 contiguous bytes)
-  uint8_t* obs = at<uint8_t>(a, a.o_obs) + static_cast<size_t>(b) * N * HW * 8;
-  if ((HW & 1) == 0 && aligned16(obs)) {
-    const int2* pairs = reinterpret_cast<const int2*>(g);
-    uint4* dst = reinterpret_cast<uint4*>(obs);
-    const int plane = HW / 2;  // 16-byte words per snake
-    for (int p = lane; p < plane; p += 32) {
-      const int2 v = pairs[p];
-      const ObsCell c0 = obs_cell(v.x), c1 = obs_cell(v.y);
-      for (int s = 0; s < N; ++s) {
-        const uint2 w0 = c0.owner == s ? c0.mine : c0.other;
-        const uint2 w1 = c1.owner == s ? c1.mine : c1.other;
-        __stcs(dst + s * plane + p, make_uint4(w0.x, w0.y, w1.x, w1.y));
+  // the observation: the window around each head, or the whole grid (with
+  // a frame stack its history first, then every cell's frames side by side)
+  if (a.V) {
+    const unsigned anchor = (snake && al_out) ? pack(nhr, nhc) : 0u;
+    if (a.packed) store_windows<uint8_t>(a, g, b, lane, reset_now, anchor);
+    else store_windows<uint2>(a, g, b, lane, reset_now, anchor);
+    return;
+  }
+  if (a.FS == 1) {
+    // v is 1, 2 or 4 cells of the shared-memory grid, aligned to its size
+    store_planes(a, b, lane, HW, [&](int j0, auto& v) {
+      constexpr int n = sizeof(v) / sizeof(int);
+      if constexpr (n == 4) {
+        const int4 t = *reinterpret_cast<const int4*>(g + j0);
+        v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+      } else if constexpr (n == 2) {
+        const int2 t = *reinterpret_cast<const int2*>(g + j0);
+        v[0] = t.x, v[1] = t.y;
+      } else {
+        v[0] = g[j0];
+      }
+    });
+    return;
+  }
+  store_hist(a, g, b, lane, reset_now);
+  // Cell j of the run is frame j % FS (oldest first) of grid cell j / FS: the
+  // newest frame, and every frame of an env just reset, is the state's own
+  // grid g; frame FS-2 is the PRE-step grid and an older frame f past grid
+  // f+1 of hist_grid, both in the input arena.
+  const int FS = a.FS;
+  const int32_t* in_grid = in<int32_t>(a, a.o_grid) + static_cast<size_t>(b) * HW;
+  const int32_t* in_hist =
+      in<int32_t>(a, a.o_hist_grid) + static_cast<size_t>(b) * (FS - 1) * HW;
+  store_planes(a, b, lane, HW * FS, [&](int j0, auto& v) {
+    constexpr int n = sizeof(v) / sizeof(int);
+    int p = j0 / FS, f = j0 - p * FS;
+#pragma unroll
+    for (int i = 0; i < n; ++i) {
+      v[i] = (reset_now || f == FS - 1) ? g[p]
+             : f == FS - 2              ? __ldg(in_grid + p)
+                                        : __ldg(in_hist + (f + 1) * HW + p);
+      if (++f == FS) {
+        f = 0;
+        ++p;
       }
     }
-  } else {
-    uint2* dst = reinterpret_cast<uint2*>(obs);
-    for (int c = lane; c < HW; c += 32) {
-      const ObsCell c0 = obs_cell(g[c]);
-      for (int s = 0; s < N; ++s) dst[s * HW + c] = c0.owner == s ? c0.mine : c0.other;
-    }
-  }
+  });
 }
 
 __global__ void __launch_bounds__(kMaxWarps * 32, 4)

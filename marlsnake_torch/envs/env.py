@@ -14,7 +14,7 @@ import torch
 from marlsnake_torch.core import engine
 from marlsnake_torch.core.spawn import spawn_candidates
 from marlsnake_torch.core.state import EnvState
-from marlsnake_torch.core.types import EnvConfig, check_port_scope
+from marlsnake_torch.core.types import EnvConfig
 from marlsnake_torch.device import resolve_device
 from marlsnake_torch.rng import reset_draws, step_draws
 
@@ -23,12 +23,11 @@ class SnakeEnv:
     """Usage::
 
         env = make_env(EnvConfig(height=20, width=20, num_snakes=4))
-        state, obs = env.reset(seed=0)       # obs (N, H, W, 8) uint8
+        state, obs = env.reset(seed=0)       # obs cfg.obs_shape, uint8
         state, out = env.step(state, torch.zeros(4, dtype=torch.int32))
     """
 
     def __init__(self, cfg: EnvConfig, device='cuda', seed: int = 0):
-        check_port_scope(cfg)
         if cfg.map_layout is not None:
             from marlsnake_torch.core.maps import parse_layout
             interior = int((~parse_layout(cfg.map_layout)).sum())
@@ -39,8 +38,9 @@ class SnakeEnv:
                 f'{cfg.num_snakes} snakes of length {cfg.snake_length} '
                 f'cannot fit on a {cfg.height}x{cfg.width} board '
                 f'({interior} interior cells)')
-        if spawn_candidates(cfg.height, cfg.width, cfg.snake_length,
-                            cfg.map_layout).shape[0] == 0:
+        if cfg.spawn_mode != 'procedural' and spawn_candidates(
+                cfg.height, cfg.width, cfg.snake_length,
+                cfg.map_layout).shape[0] == 0:
             raise ValueError('no valid spawn positions for this config')
         self.cfg = cfg
         self.device = resolve_device(device)

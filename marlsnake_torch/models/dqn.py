@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from marlsnake_torch.core.types import EnvConfig
+from marlsnake_torch.core.types import FEATURE_CHANNEL, EnvConfig
 from marlsnake_torch.device import resolve_device
 
 
@@ -74,14 +74,17 @@ class DQN(nn.Module):
 def make_dqn(cfg: EnvConfig, seed: int = 0, device='cuda',
              assume_binary_obs: bool = True, pad_channels: int = 0,
              compute_dtype: torch.dtype = torch.float32) -> DQN:
-    """A DQN for ``cfg``'s observations (with ``pad_channels`` zero
-    channels behind them), initialised from ``seed`` (on the CPU, then
-    moved, so the weights do not depend on the device)."""
+    """A DQN for ``cfg``'s observations as uint8 planes, 8 channels a
+    stacked frame (packed obs are unpacked before the net,
+    ``ops.obs_pack.unpack_obs``), with ``pad_channels`` zero channels
+    behind them; initialised from ``seed`` (on the CPU, then moved, so
+    the weights do not depend on the device)."""
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         net = DQN((cfg.obs_height, cfg.obs_width),
-                  cfg.obs_channels + pad_channels, cfg.num_actions,
+                  FEATURE_CHANNEL * cfg.frame_stack + pad_channels,
+                  cfg.num_actions,
                   assume_binary_obs, device='cpu',
                   compute_dtype=compute_dtype)
     return net.to(dev)

@@ -1,7 +1,7 @@
 """The env step on the GPU: a hand-written CUDA kernel with two entries.
 
 ``step_autoreset`` computes ``engine.step_autoreset`` (state, reward,
-done, rank, episodic stats and the uint8 obs) for a batch of envs in one
+done, rank, episodic stats and the obs) for a batch of envs in one
 launch of ``csrc/step_autoreset.cu``, the port of the Pallas kernel
 ``marlsnake_tpu/ops/pallas_step.py::_step_block`` and its launcher. The
 random numbers come in as ``StepDraws``, as the Pallas launcher
@@ -13,6 +13,10 @@ body with the reset compiled out, the same arena and launch plan. It can
 hold chosen envs still inside the same launch (``hold``): such an env
 leaves the step with the state and the step output it came in with.
 
+Both entries cover every ``EnvConfig`` option: pool and procedural spawn,
+uint8 and packed obs, the frame stack (raw-grid history and stored window
+frames, both part of the state arena) and the vision window.
+
 On CPU tensors a wrapper runs its plain version (``engine.step_autoreset``
 or ``engine.step``). On CUDA tensors it launches the kernel or raises; it
 never falls back. ``step_autoreset.launches`` and ``step.launches`` count
@@ -21,7 +25,7 @@ each entry's launches.
 The launch path is built to cost the host less than the kernel costs the
 device. A launch plan, made once per (cfg, num_envs, device), holds the
 checks, the output layout and a reusable argument struct. Each step
-allocates one byte arena for all 23 outputs (``output_layout``); the
+allocates one byte arena for all 25 outputs (``output_layout``); the
 returned ``EnvState`` and ``StepOutput`` cut their typed views from it on
 first read, since the main path reads two or three of them and making a
 tensor view is host work on the order of a kernel launch. A state this
@@ -49,8 +53,8 @@ import torch
 
 from marlsnake_torch.core import engine
 from marlsnake_torch.core.state import EnvState, ring_num_words
-from marlsnake_torch.core.types import EnvConfig, check_port_scope
-from marlsnake_torch.rng import StepDraws
+from marlsnake_torch.core.types import EnvConfig
+from marlsnake_torch.rng import StepDraws, spawn_draw_shape
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, 'csrc', 'step_autoreset.cu')
@@ -82,7 +86,8 @@ class _StepArgs(ctypes.Structure):
            for name in STATE_FIELDS + OUTPUT_FIELDS]
         + [(name, ctypes.c_int) for name in (
             'B', 'H', 'W', 'N', 'K', 'NF', 'P', 'CW', 'cap', 'human',
-            'any_mode', 'max_steps')]
+            'any_mode', 'max_steps', 'FS', 'V', 'packed', 'procedural',
+            'vertical')]
         + [(name, ctypes.c_float) for name in (
             'r_fruit', 'r_kill', 'r_lose', 'r_win', 'r_time')])
 
@@ -106,13 +111,18 @@ def output_layout(cfg: EnvConfig, num_envs: int
     cw = ring_num_words(cfg.body_capacity)
     i32, f32, flag = torch.int32, torch.float32, torch.bool
     bn = (b, n)
+    fs = cfg.frame_stack
+    frame = (n, cfg.obs_height, cfg.obs_width, cfg.frame_channels)
     spec = dict(
         grid=(i32, (b, h, w)), direction=(i32, bn), head=(i32, (b, n, 2)),
         tail=(i32, (b, n, 2)), ring=(i32, (b, n, cw)), ring_head=(i32, bn),
         ring_len=(i32, bn), alive=(flag, bn), alive_count=(i32, (b,)),
         epi_scores=(f32, bn), epi_steps=(f32, bn), epi_fruits=(f32, bn),
         epi_kills=(f32, bn), episode_length=(i32, (b,)),
-        obs=(torch.uint8, (b, n, h, w, 8)), reward=(f32, bn),
+        hist_grid=(i32, (b, fs - 1 if cfg.hist_mode else 0, h, w)),
+        obs_stack=(torch.uint8,
+                   (b, fs if fs > 1 and cfg.vision_range else 0) + frame),
+        obs=(torch.uint8, (b,) + cfg.obs_shape), reward=(f32, bn),
         done=(flag, bn), rank=(i32, bn), episode_scores=(f32, bn),
         episode_steps=(f32, bn), episode_fruits=(f32, bn),
         episode_kills=(f32, bn), done_all=(flag, (b,)))
@@ -215,8 +225,12 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def _check_scope(cfg: EnvConfig, spawn: engine.SpawnTables) -> None:
-    check_port_scope(cfg)
+def _check_scope(cfg: EnvConfig, spawn: Optional[engine.SpawnTables]
+                 ) -> None:
+    if cfg.spawn_mode == 'procedural':
+        if spawn is not None:
+            raise ValueError('the procedural spawn takes no spawn tables')
+        return
     if spawn.cells.shape[0] != cfg.spawn_pool_size:
         # the row pick maps u -> int(u * P): a pool of another size would
         # silently give other resets than the config promises
@@ -263,7 +277,6 @@ class _LaunchPlan:
     plan serves one thread at a time)."""
 
     def __init__(self, cfg: EnvConfig, num_envs: int, device: torch.device):
-        check_port_scope(cfg)
         _check_kernel_limits(cfg)
         self.lib = load_library()
         self.cfg, self.device, self.index = cfg, device, device.index
@@ -273,7 +286,7 @@ class _LaunchPlan:
         b, n, nf = num_envs, cfg.num_snakes, cfg.resolved_num_fruits
         f32 = torch.float32
         self.draw_specs = (('fruit_u', f32, (b, n)),
-                           ('reset_spawn_u', f32, (b,)),
+                           ('reset_spawn_u', f32, spawn_draw_shape(cfg, b)),
                            ('reset_fruit_u', f32, (b, nf)))
         self.actions_shape = (b, n)
         self.spawn = None
@@ -283,7 +296,11 @@ class _LaunchPlan:
             P=cfg.spawn_pool_size, CW=ring_num_words(cfg.body_capacity),
             cap=cfg.body_capacity, human=int(cfg.observer == 'human'),
             any_mode=int(cfg.done_mode == 'any'),
-            max_steps=cfg.max_episode_steps, r_fruit=r_fruit,
+            max_steps=cfg.max_episode_steps, FS=cfg.frame_stack,
+            V=cfg.vision_range or 0, packed=int(cfg.obs_format == 'packed'),
+            procedural=int(cfg.spawn_mode == 'procedural'),
+            vertical=int(cfg.spawn_mode == 'procedural'
+                         and cfg.spawn_vertical), r_fruit=r_fruit,
             r_kill=r_kill, r_lose=r_lose, r_win=r_win, r_time=r_time)
         for f in self.fields:
             setattr(self.args, f'o_{f.name}', f.offset)
@@ -306,8 +323,10 @@ class _LaunchPlan:
         return arena
 
     def _set_spawn(self, spawn: engine.SpawnTables) -> None:
-        # the pool must have cfg.spawn_pool_size rows (see _check_scope)
+        # the pool must have cfg.spawn_pool_size rows, and the procedural
+        # spawn takes none (see _check_scope)
         cfg, i32 = self.cfg, torch.int32
+        _check_scope(cfg, spawn)
         self.args.pool_cells = _check(
             spawn.cells, 'spawn.cells', i32,
             (cfg.spawn_pool_size, cfg.num_snakes * cfg.snake_length),
@@ -317,7 +336,8 @@ class _LaunchPlan:
                                      self.index)
         self.spawn = spawn
 
-    def launch(self, state_arena: torch.Tensor, spawn: engine.SpawnTables,
+    def launch(self, state_arena: torch.Tensor,
+               spawn: Optional[engine.SpawnTables],
                actions: torch.Tensor, draws: StepDraws
                ) -> Tuple[EnvState, engine.StepOutput]:
         """One launch of the auto-reset entry."""
@@ -387,11 +407,12 @@ def _plan(cfg: EnvConfig, num_envs: int, device: torch.device
     return _LaunchPlan(cfg, num_envs, device)
 
 
-def step_autoreset(cfg: EnvConfig, spawn: engine.SpawnTables,
+def step_autoreset(cfg: EnvConfig, spawn: Optional[engine.SpawnTables],
                    state: EnvState, actions: torch.Tensor,
                    draws: StepDraws) -> Tuple[EnvState, engine.StepOutput]:
     """``engine.step_autoreset`` for a batch of envs: the plain version
-    for CPU tensors, the CUDA kernel for CUDA tensors."""
+    for CPU tensors, the CUDA kernel for CUDA tensors. ``spawn`` is None
+    for the procedural spawn."""
     plan = getattr(state, '_plan', None)
     if plan is not None and (plan.cfg is cfg or plan.cfg == cfg):
         return plan.launch(state._arena, spawn, actions, draws)
@@ -426,7 +447,6 @@ def step(cfg: EnvConfig, state: EnvState, actions: torch.Tensor,
     if plan is not None and (plan.cfg is cfg or plan.cfg == cfg) and (
             out is None or getattr(out, '_arena', None) is state._arena):
         return plan.launch_step(state._arena, actions, fruit_u, keep)
-    check_port_scope(cfg)
     if state.device.type == 'cpu':
         new = engine.step(cfg, state, actions, fruit_u)
         return new if hold is None else select_envs(keep, (state, out), new)

@@ -1,11 +1,14 @@
 """The random numbers a reset or a step consumes, drawn up front.
 
 The engine and the CUDA step kernel take every random number as an input
-tensor instead of deriving it inside: a reset needs one uniform to pick
-its spawn-pool row and ``nf`` uniforms for its fruits; a step needs ``N``
-uniforms for fruit respawn plus one reset's worth, used by the envs whose
-episode ends. Draws come from an explicit ``torch.Generator``, so a run
-is reproducible from its seed. They are not the JAX package's numbers (a
+tensor instead of deriving it inside: a reset needs its spawn draws (one
+uniform to pick its spawn-pool row, or with ``spawn_mode='procedural'``
+four uniforms a snake: position in its band of rows, column, head side,
+orientation; always four, whatever the board consumes) and ``nf``
+uniforms for its fruits; a step needs ``N`` uniforms for fruit respawn
+plus one reset's worth, used by the envs whose episode ends. Draws come
+from an explicit ``torch.Generator``, so a run is reproducible from its
+seed. They are not the JAX package's numbers (a
 threefry key schedule); tests hand both packages the same draws.
 
 A DQN training episode takes ``TrainDraws``: for each of its env steps
@@ -24,13 +27,15 @@ from marlsnake_torch.core.types import EnvConfig
 
 
 class ResetDraws(NamedTuple):
-    spawn_u: torch.Tensor  # (B,) float32: spawn-pool row
+    # (B,) float32: spawn-pool row; (B, N, 4) for the procedural spawn
+    spawn_u: torch.Tensor
     fruit_u: torch.Tensor  # (B, nf) float32: fruit cells
 
 
 class StepDraws(NamedTuple):
     fruit_u: torch.Tensor        # (B, N) float32: fruit respawn
-    reset_spawn_u: torch.Tensor  # (B,) float32: auto-reset pool row
+    # (B,) float32: auto-reset pool row; (B, N, 4) procedural
+    reset_spawn_u: torch.Tensor
     reset_fruit_u: torch.Tensor  # (B, nf) float32: auto-reset fruits
 
 
@@ -39,10 +44,18 @@ def _rand(shape, generator, device) -> torch.Tensor:
                       dtype=torch.float32)
 
 
+def spawn_draw_shape(cfg: EnvConfig, num_envs: int) -> tuple:
+    """Shape of a reset's spawn draws for ``num_envs`` envs."""
+    if cfg.spawn_mode == 'procedural':
+        return (num_envs, cfg.num_snakes, 4)
+    return (num_envs,)
+
+
 def reset_draws(cfg: EnvConfig, num_envs: int, generator: torch.Generator,
                 device) -> ResetDraws:
     nf = cfg.resolved_num_fruits
-    return ResetDraws(_rand((num_envs,), generator, device),
+    return ResetDraws(_rand(spawn_draw_shape(cfg, num_envs), generator,
+                            device),
                       _rand((num_envs, nf), generator, device))
 
 
@@ -50,7 +63,8 @@ def step_draws(cfg: EnvConfig, num_envs: int, generator: torch.Generator,
                device) -> StepDraws:
     n, nf = cfg.num_snakes, cfg.resolved_num_fruits
     return StepDraws(_rand((num_envs, n), generator, device),
-                     _rand((num_envs,), generator, device),
+                     _rand(spawn_draw_shape(cfg, num_envs), generator,
+                           device),
                      _rand((num_envs, nf), generator, device))
 
 

@@ -274,13 +274,21 @@ def test_clip_and_adam_match_optax_on_the_same_gradients():
 
 @pytest.mark.parametrize('mode', [
     dict(update_every=1), dict(update_every=2),
-    dict(fused_act_update=True)], ids=['every-1', 'every-2', 'fused'])
+    dict(fused_act_update=True), dict(obs_format='packed'),
+    dict(obs_format='packed', frame_stack=2),
+    dict(vision_range=2, frame_stack=2)],
+    ids=['every-1', 'every-2', 'fused', 'packed', 'packed-stack2',
+         'vision2-stack2'])
 def test_episode_matches_jax(mode):
     """Two episodes of 8x8 with 2 snakes, 2 envs, 12 steps, batch 8, a
-    ring of 24 (the second starts with a warm ring and wraps it)."""
-    hw = (8, 8)
+    ring of 24 (the second starts with a warm ring and wraps it). With
+    packed obs the ring holds the packed bytes in both packages; the
+    frame stack and the vision window pass through the trainer's hold of
+    finished envs."""
     jtr, tr = trainers(**SMALL, **mode)
+    hw = (tr.env_cfg.obs_height, tr.env_cfg.obs_width)
     jts = jtr.init_state()
+    assert jts.buffer.obs_shape == tr.env_cfg.obs_shape[1:]
     ts = train_state_from_flax(numpy_state(jts), hw, 'cpu')
     total_updates = 0
     for ep in range(2):
@@ -387,11 +395,46 @@ def test_config_defaults_and_checks_match_jax():
     with pytest.raises(ValueError):
         DQNTrainer(DQNConfig(fused_act_update=True, update_every=4,
                              max_steps_per_episode=16), device='cpu')
+    # re-encoding the acting obs is exact only for the plain full obs:
+    # both packages refuse it for the same configs, with the same words
     for kwargs in (dict(obs_format='packed'), dict(frame_stack=2),
                    dict(vision_range=3)):
-        with pytest.raises(NotImplementedError):
-            DQNTrainer(DQNConfig(height=8, width=8, num_snakes=2, **kwargs),
-                       device='cpu')
+        messages = []
+        for cls, trainer, extra in ((JConfig, JTrainer, {}),
+                                    (DQNConfig, DQNTrainer,
+                                     dict(device='cpu'))):
+            tr = trainer(cls(height=8, width=8, num_snakes=2,
+                             reencode_acting_obs=True, **kwargs), **extra)
+            assert tr.env_cfg.obs_format == kwargs.get('obs_format', 'uint8')
+            with pytest.raises(ValueError, match='pure function') as info:
+                tr._acting_obs(None, None)
+            messages.append(str(info.value))
+        assert messages[0] == messages[1]
+
+
+@pytest.mark.parametrize('kwargs', [
+    dict(obs_format='packed'), dict(obs_format='packed', frame_stack=4),
+    dict(vision_range=3, frame_stack=2, obs_format='packed')])
+def test_prep_unpacks_packed_obs_before_the_pad(kwargs):
+    """``_prep`` against the JAX trainer's: the unpacked planes first, the
+    pad channels behind them; the net and the ring take their shapes from
+    the config."""
+    jtr, tr = trainers(**SMALL, obs_pad_channels=4, **kwargs)
+    ecfg = tr.env_cfg
+    shape = ecfg.obs_shape[1:]
+    obs = np.random.default_rng(0).integers(0, 256, size=(5,) + shape,
+                                            dtype=np.uint8)
+    got = tr._prep(_t(obs))
+    assert got.dtype == torch.uint8
+    assert got.shape == (5,) + shape[:2] + (8 * ecfg.frame_stack + 4,)
+    np.testing.assert_array_equal(np.asarray(jtr._prep(jnp.asarray(obs))),
+                                  got.numpy())
+    ts = tr.init_state()
+    assert ts.buffer.obs_shape == shape
+    assert ts.params['conv1.weight'].shape[1] == 8 * ecfg.frame_stack + 4
+    assert ts.params['fc1.weight'].shape[1] == 64 * shape[0] * shape[1]
+    q = tr._q(ts.params, _t(obs))
+    assert q.shape == (5, 3) and bool(torch.isfinite(q).all())
 
 
 # --- (f) compute_dtype and channel padding ----------------------------------

@@ -79,6 +79,41 @@ def test_dqn_from_flax_agrees_with_dqn_params_to_torch(hw):
                                       err_msg=k)
 
 
+@pytest.mark.parametrize('hw,channels', [((11, 11), 8), ((10, 10), 32),
+                                         ((7, 7), 16)],
+                         ids=['vision5', 'stack4', 'vision3-stack2'])
+def test_weights_round_trip_for_stacked_and_windowed_obs(hw, channels):
+    """fc1 is 64 * Ho * Wo wide and conv1 takes 8 * frame_stack channels:
+    flax parameters of those shapes carry over, give the flax Q-values,
+    and go back unchanged; ``make_dqn`` has the same shapes."""
+    from marlsnake_torch.models.weights import dqn_to_flax
+    params = FlaxDQN(num_actions=3).init(
+        jax.random.key(2), jnp.zeros((1,) + hw + (channels,), jnp.float32))
+    state = dqn_from_flax(params, hw)
+    assert state['conv1.weight'].shape == (32, channels, 3, 3)
+    assert state['fc1.weight'].shape == (256, 64 * hw[0] * hw[1])
+    net = DQN(hw, channels, 3, assume_binary_obs=True, device='cpu')
+    net.load_state_dict(state)
+    obs = (np.random.default_rng(2).random((6,) + hw + (channels,)) < 0.2
+           ).astype(np.uint8)
+    with torch.no_grad():
+        q = net(torch.as_tensor(obs)).numpy()
+    want = FlaxDQN(num_actions=3, assume_binary_obs=True).apply(params, obs)
+    np.testing.assert_allclose(q, np.asarray(want), rtol=0, atol=1e-4)
+    back = dqn_to_flax(state, hw)['params']
+    for layer, leaves in params['params'].items():
+        for name, leaf in leaves.items():
+            np.testing.assert_array_equal(back[layer][name],
+                                          np.asarray(leaf))
+    vision = hw[0] if hw[0] != 10 else None
+    cfg = EnvConfig(height=10, width=10, num_snakes=2,
+                    vision_range=None if vision is None else vision // 2,
+                    frame_stack=channels // 8, obs_format='packed')
+    made = make_dqn(cfg, seed=0, device='cpu').state_dict()
+    assert {k: v.shape for k, v in made.items()} == {
+        k: v.shape for k, v in state.items()}
+
+
 def test_reference_checkpoint_reader(tmp_path):
     """A reference-layout state_dict (DataParallel 'module.' keys) loads
     into the port and gives the Q-values flax gives after the JAX

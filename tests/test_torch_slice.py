@@ -83,6 +83,8 @@ def test_port_imports_no_jax():
             'marlsnake_torch.envs.env, marlsnake_torch.models.dqn, '
             'marlsnake_torch.models.weights, marlsnake_torch.algo.acting, '
             'marlsnake_torch.ops.step_kernel, marlsnake_torch.bench, '
+            'marlsnake_torch.ops.obs_pack, marlsnake_torch.ops.rays, '
+            'marlsnake_torch.envs.graph, '
             'marlsnake_torch.algo.replay, marlsnake_torch.algo.optim, '
             'marlsnake_torch.algo.dqn_trainer, '
             'marlsnake_torch.utils.checkpoint, marlsnake_torch.utils.metrics; '
@@ -131,7 +133,61 @@ def test_bench_cpu_smoke(capsys):
     line = capsys.readouterr().out.strip().splitlines()[-1]
     rec = json.loads(line)
     assert rec['device'] == 'cpu' and rec['unit'] == 'env-steps/s'
-    assert rec['value'] > 0 and rec['spawn_mode'] == 'pool'
+    # the JAX bench's default configuration
+    assert rec['value'] > 0 and rec['spawn_mode'] == 'procedural'
+    assert rec['obs_format'] == 'uint8' and not rec['graph']
+
+
+@pytest.mark.parametrize('flags,want', [
+    (['--spawn-mode', 'pool'], dict(spawn_mode='pool')),
+    (['--obs-format', 'packed', '--frame-stack', '2'],
+     dict(obs_format='packed', frame_stack=2)),
+    (['--vision-range', '3'], dict(vision_range=3)),
+    (['--graph'], dict(graph=True))],
+    ids=['pool', 'packed-stack2', 'vision3', 'graph'])
+def test_bench_options_cpu_smoke(capsys, flags, want):
+    bench.main(['--device', 'cpu', '--num-envs', '4', '--num-steps', '3',
+                '--iters', '1'] + flags)
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec['value'] > 0 and rec['device'] == 'cpu'
+    assert {k: rec[k] for k in want} == want
+
+
+def test_graph_rollout_on_the_cpu_through_the_step_wrapper():
+    """The graph env's step is the step wrapper, then the rays of the
+    state it returned: on CPU tensors no launch, and obs of (B, N, 5, C)."""
+    from marlsnake_torch.ops import rays, step_kernel
+    cfg = EnvConfig(height=10, width=10, num_snakes=2, snake_length=3,
+                    spawn_mode='procedural', vision_range=3)
+    env = VectorSnakeEnv(cfg, 5, device='cpu', seed=4, graph=True)
+    plain = VectorSnakeEnv(cfg, 5, device='cpu', seed=4)
+    state, obs = env.reset()
+    pstate, _ = plain.reset()
+    before = step_kernel.step_autoreset.launches
+    gen = torch.Generator().manual_seed(4)
+    for _ in range(12):
+        actions = torch.randint(0, 3, (5, 2), generator=gen)
+        state, out = env.step(state, actions)
+        pstate, pout = plain.step(pstate, actions)
+        assert torch.equal(out.obs, rays.ray_features(
+            cfg, pout.obs, pstate.head, pstate.direction, pstate.alive))
+        assert torch.equal(out.reward, pout.reward)
+    assert out.obs.shape == (5, 2, 5, 8) and out.obs.dtype == torch.float32
+    assert step_kernel.step_autoreset.launches == before
+
+
+def test_packed_training_run_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """The trainer's command line with packed, stacked obs: two episodes,
+    and the checkpoint's meta file names the obs format."""
+    monkeypatch.chdir(tmp_path)
+    dqn_trainer_main(['--device', 'cpu', '--episodes', '2', '--no-log',
+                      '--height', '8', '--width', '8', '--num-snakes', '2',
+                      '--num-envs', '2', '--obs-format', 'packed',
+                      '--frame-stack', '2'])
+    assert 'Ep     2 | Mean Reward' in capsys.readouterr().out
+    meta = json.loads((tmp_path / 'checkpoints'
+                       / 'shared_model_final.meta.json').read_text())
+    assert meta == {'obs_pad_channels': 0, 'obs_format': 'packed'}
 
 
 def test_train_bench_cpu_smoke():

@@ -50,10 +50,21 @@ def test_struct_mirror_matches_the_cuda_source():
                        + step_kernel.OUTPUT_FIELDS]
 
 
-@pytest.mark.parametrize('h,w,n,b', [(10, 10, 2, 7), (20, 20, 4, 4096),
-                                     (11, 9, 3, 5)])
-def test_output_layout(h, w, n, b):
-    cfg = EnvConfig(height=h, width=w, num_snakes=n, snake_length=3)
+# the options that add fields to the arena or change the obs' shape
+HIST = dict(frame_stack=3, obs_format='packed', spawn_mode='procedural',
+            spawn_orientations='both')
+STACK = dict(vision_range=2, frame_stack=2)
+
+
+@pytest.mark.parametrize('h,w,n,b,options', [
+    (10, 10, 2, 7, {}), (20, 20, 4, 4096, {}), (11, 9, 3, 5, {}),
+    (10, 10, 2, 7, HIST), (11, 9, 3, 5, STACK),
+    (20, 20, 4, 4096, dict(vision_range=5, obs_format='packed'))],
+    ids=['10-10-2-7', '20-20-4-4096', '11-9-3-5', 'hist', 'stack',
+         'vision5-packed'])
+def test_output_layout(h, w, n, b, options):
+    cfg = EnvConfig(height=h, width=w, num_snakes=n, snake_length=3,
+                    **options)
     fields, nbytes = step_kernel.output_layout(cfg, b)
     assert tuple(f.name for f in fields) == (step_kernel.STATE_FIELDS
                                              + step_kernel.OUTPUT_FIELDS)
@@ -76,17 +87,35 @@ def test_output_layout(h, w, n, b):
         assert f.offset % 16 == 0 and f.offset >= end
         end = f.offset + size
     assert end <= nbytes and nbytes % 16 == 0 and nbytes - end < 16
+    by_name = {f.name: f for f in fields}
+    assert by_name['obs'].shape == (b,) + cfg.obs_shape
+    fs = cfg.frame_stack
+    assert by_name['hist_grid'].shape == (
+        b, fs - 1 if fs > 1 and not cfg.vision_range else 0, h, w)
+    assert by_name['obs_stack'].shape[:2] == (
+        b, fs if fs > 1 and cfg.vision_range else 0)
 
 
 def test_field_views_cover_their_bytes():
-    cfg = EnvConfig(height=10, width=10, num_snakes=2, snake_length=3)
+    _field_views_cover_their_bytes({})
+
+
+@pytest.mark.parametrize('options', [HIST, STACK], ids=['hist', 'stack'])
+def test_field_views_cover_the_history_fields(options):
+    _field_views_cover_their_bytes(options)
+
+
+def _field_views_cover_their_bytes(options):
+    cfg = EnvConfig(height=10, width=10, num_snakes=2, snake_length=3,
+                    **options)
     fields, nbytes = step_kernel.output_layout(cfg, 5)
     arena = torch.zeros(nbytes, dtype=torch.uint8)
     for i, f in enumerate(fields):
         v = step_kernel.field_view(arena, f)
         assert v.dtype == f.dtype and tuple(v.shape) == f.shape
         assert v.is_contiguous()
-        assert v.data_ptr() == arena.data_ptr() + f.offset
+        if v.numel():            # an empty view has no address
+            assert v.data_ptr() == arena.data_ptr() + f.offset
         v.view(torch.uint8).fill_(i + 1)
     for i, f in enumerate(fields):
         size = int(np.prod(f.shape)) * f.dtype.itemsize
@@ -135,9 +164,13 @@ class _PlainLibrary:
         fruit_u = typed(a.fruit_u, torch.float32, (b, n))
         if autoreset:
             draws = StepDraws(fruit_u,
-                              typed(a.reset_spawn_u, torch.float32, (b,)),
+                              typed(a.reset_spawn_u, torch.float32,
+                                    (b, n, 4) if a.procedural else (b,)),
                               typed(a.reset_fruit_u, torch.float32, (b, nf)))
-            spawn = engine.SpawnTables(
+            # the procedural spawn hands over no table
+            assert bool(a.procedural) == (not a.pool_cells
+                                          and not a.base_grid)
+            spawn = None if a.procedural else engine.SpawnTables(
                 typed(a.pool_cells, torch.int32,
                       tuple(plan.spawn.cells.shape)),
                 typed(a.base_grid, torch.int32, (a.H, a.W)))
@@ -184,7 +217,12 @@ def plain_library(monkeypatch):
 @pytest.mark.parametrize('kwargs', [
     dict(height=10, width=10, num_snakes=2, snake_length=3),
     dict(height=11, width=9, num_snakes=3, snake_length=3,
-         done_mode='any', max_episode_steps=7)], ids=['10x10x2', '11x9x3'])
+         done_mode='any', max_episode_steps=7),
+    dict(height=10, width=10, num_snakes=2, snake_length=3,
+         max_episode_steps=9, **HIST),
+    dict(height=11, width=9, num_snakes=3, snake_length=3,
+         max_episode_steps=7, **STACK)],
+    ids=['10x10x2', '11x9x3', 'hist-packed-procedural', 'vision-stack'])
 def test_launch_path_feeds_its_arenas_back(plain_library, kwargs):
     """A reset state is packed into an arena once; each returned state
     then goes back as its arena, and every output equals the plain
@@ -279,7 +317,11 @@ def _assert_pairs_equal(got, want, where):
 @pytest.mark.parametrize('kwargs', [
     dict(height=8, width=8, num_snakes=2, snake_length=3),
     dict(height=11, width=9, num_snakes=3, snake_length=3,
-         done_mode='any', max_episode_steps=7)], ids=['8x8x2', '11x9x3'])
+         done_mode='any', max_episode_steps=7),
+    dict(height=8, width=8, num_snakes=2, snake_length=3, **HIST),
+    dict(height=11, width=9, num_snakes=3, snake_length=3,
+         max_episode_steps=7, **STACK)],
+    ids=['8x8x2', '11x9x3', 'hist-packed-procedural', 'vision-stack'])
 def test_step_launch_path_feeds_its_arenas_back(plain_library, kwargs):
     """``step`` packs a reset state once, then takes its own arenas back;
     finished envs go on being stepped, and every field equals
@@ -334,16 +376,6 @@ def test_step_on_cpu_tensors_is_the_plain_version():
     assert step_kernel.step.launches == before
 
 
-@pytest.mark.parametrize('kwargs', [
-    dict(frame_stack=2), dict(vision_range=3), dict(obs_format='packed'),
-    dict(spawn_mode='procedural')])
-def test_step_raises_for_unported_scopes(kwargs):
-    cfg = EnvConfig(height=10, width=10, num_snakes=2, snake_length=3,
-                    **kwargs)
-    with pytest.raises(NotImplementedError):
-        step_kernel.step(cfg, None, None, None)
-
-
 def test_select_envs_takes_kept_envs_from_the_older_pair():
     cfg = EnvConfig(height=8, width=8, num_snakes=2, snake_length=3)
     b = 6
@@ -370,7 +402,11 @@ def test_select_envs_takes_kept_envs_from_the_older_pair():
 @pytest.mark.parametrize('kwargs', [
     dict(height=8, width=8, num_snakes=2, snake_length=3),
     dict(height=11, width=9, num_snakes=3, snake_length=3,
-         done_mode='any', max_episode_steps=7)], ids=['8x8x2', '11x9x3'])
+         done_mode='any', max_episode_steps=7),
+    dict(height=8, width=8, num_snakes=2, snake_length=3, **HIST),
+    dict(height=11, width=9, num_snakes=3, snake_length=3,
+         max_episode_steps=7, **STACK)],
+    ids=['8x8x2', '11x9x3', 'hist-packed-procedural', 'vision-stack'])
 def test_step_holds_finished_envs_inside_the_launch(plain_library, kwargs):
     """Envs whose episode is over are held from the next step on, as the
     DQN trainer holds them: through the launch path the held rows come
