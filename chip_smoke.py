@@ -87,14 +87,35 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    packed rows beside uint8 rows; two training episodes at 256 envs with
    packed obs (launches equal env steps, updates made, loss finite) and
    its train-bench row;
-14. one JSON line of kernels (every entry and variant), then, as the last
-   line, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
-   ...}}.
+14. PPO and the batched evaluator at full width (``ppo_phase``,
+   ``evaluator_phase``): three PPO updates at the showcase width (256 envs
+   of 20x20x4, length 5, 128 rollout steps) through PPOTrainer.update,
+   the auto-reset entry launched once a rollout step (the counters set to
+   0 before and read after), losses finite, the first update's entropy
+   within 0.1 of ln 3, the parameters moved; update 1's trajectory
+   replayed through the plain engine on the CPU with the recorded actions
+   and the same draws (every obs, reward and done flag and the final
+   states EQUAL); one minibatch of 2,048 rows card against CPU (loss
+   within 1e-5 relative, gradients within 1e-5 + 1e-4 x max|g|); a full
+   checkpoint round trip (cuDNN deterministic; the next update equal from
+   both); the `--mode ppo` bench rows at 64 and 256 envs; profiler windows
+   over 16 rollout steps and one minibatch update of 32,768 rows. Then
+   evaluate_batch's loop (build_evaluate_batch) with the port's DQN at 256
+   envs of 20x20x4 for up to 512 steps, the step entry launched once a
+   step taken (auto-reset entry never); masked_actions on the card EQUAL
+   to the CPU on 16 recorded steps; ms per step, a profiler window of 16
+   evaluation steps and the flood fill's own device time, launches and
+   bound;
+15. one JSON line of kernels (every entry and variant; the auto-reset
+   entry's row carries the PPO numbers, the step entry's the
+   evaluator's), then, as the last line, {"ok": true, "device":
+   {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Exits non-zero without a result when CUDA is not available.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -633,6 +654,334 @@ def replay_parity(seed: int) -> None:
         f'{int(rings["cuda"].size)}), a sample of 512 equal')
 
 
+def replay_ppo_rollout(trainer, start, draws, traj, end) -> int:
+    """A PPO rollout recorded on the card, replayed through the plain
+    engine on the CPU: from ``start`` (env states, obs, agent_done on the
+    CPU) the recorded actions and the same step draws must give, step by
+    step, the recorded obs, valid flags, rewards and done flags, and at
+    the end the env states, obs and agent_done of ``end``, all EQUAL.
+    Returns the envs that auto-reset in the rollout."""
+    from marlsnake_torch.core import engine
+    from marlsnake_torch.rng import StepDraws
+
+    cfg = trainer.env_cfg
+    tables = engine.spawn_tables(cfg, torch.device('cpu'))
+    state, obs, agent_done = start
+    e, n = agent_done.shape
+    resets = 0
+
+    def equal(what, got, want, t):
+        if not torch.equal(got, want):
+            raise AssertionError(f'PPO replay: {what} differs at step {t}')
+
+    for t in range(traj['action'].shape[0]):
+        action = traj['action'][t]
+        equal('obs', traj['obs'][t], obs.reshape(e * n, -1), t)
+        equal('valid', traj['valid'][t], ~agent_done, t)
+        if bool((action[agent_done] != 0).any()) or int(action.min()) < 0 \
+                or int(action.max()) >= cfg.num_actions:
+            raise AssertionError(f'PPO replay: actions out of range or a '
+                                 f'dead agent acted at step {t}')
+        state, out = engine.step_autoreset(
+            cfg, tables, state, action,
+            StepDraws(*(x[t].cpu() for x in draws.step)))
+        equal('reward', traj['reward'][t],
+              torch.where(~agent_done, out.reward, 0.0), t)
+        ep_done = out.done_all
+        resets += int(ep_done.sum())
+        equal('next_done', traj['next_done'][t], out.done | ep_done[:, None],
+              t)
+        agent_done = out.done & ~ep_done[:, None]
+        obs = out.obs
+    end_state, end_obs, end_done = end
+    for (name, a), (_, b) in zip(state.fields(), end_state.fields()):
+        equal(f'final state {name}', a, b, 'end')
+    equal('final obs', obs, end_obs, 'end')
+    equal('final agent_done', agent_done, end_done, 'end')
+    return resets
+
+
+def ppo_phase(smi: str) -> dict:
+    """PPO at the showcase width (PPOConfig's defaults at 256 envs: 20x20,
+    4 snakes of length 5, 128 rollout steps, 4 epochs of 4 minibatches of
+    32,768): three updates through PPOTrainer.update with the counters set
+    to 0 before and read after; update 1's trajectory replayed on the CPU;
+    one minibatch of 2,048 rows on the card against the CPU; a full
+    checkpoint round trip; the bench rows and two profiler windows."""
+    from marlsnake_torch import bench
+    from marlsnake_torch.algo.ppo_trainer import (Minibatch, PPOConfig,
+                                                  PPOTrainer)
+    from marlsnake_torch.core.state import EnvState
+    from marlsnake_torch.ops import step_kernel
+    from marlsnake_torch.rng import ppo_draws
+
+    def to_cpu(x):
+        return x.to('cpu', copy=True)   # a copy, whatever the device
+
+    def state_to_cpu(ts):
+        return (EnvState(**{k: to_cpu(v) for k, v in ts.env_states.fields()}),
+                to_cpu(ts.obs), to_cpu(ts.agent_done))
+
+    def config(**kwargs):
+        return PPOConfig(**{**dict(num_envs=256, save_final=False),
+                            **kwargs})
+
+    cfg = config()
+    if (cfg.height, cfg.width, cfg.num_snakes, cfg.snake_length,
+            cfg.rollout_steps, cfg.update_epochs, cfg.num_minibatches) != (
+            20, 20, 4, 5, 128, 4, 4):
+        raise AssertionError('the PPO defaults moved')
+    trainer = PPOTrainer(cfg, device='cuda')
+    ts = trainer.init_state()
+    first = {k: v.clone() for k, v in ts.params.items()}
+    start = state_to_cpu(ts)
+    draws = ppo_draws(trainer.env_cfg, cfg.num_envs, cfg.rollout_steps,
+                      cfg.update_epochs, trainer.generator, trainer.device)
+    metrics = []
+    step_kernel.step_autoreset.launches = 0
+    step_kernel.step.launches = 0
+    t0 = time.perf_counter()
+    ts, m = trainer.update(ts, draws)
+    traj = {k: to_cpu(getattr(trainer.trajectory, k))
+            for k in ('obs', 'action', 'reward', 'valid', 'next_done')}
+    end1 = state_to_cpu(ts)
+    metrics.append(m)
+    for _ in range(2):
+        ts, m = trainer.update(ts)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = step_kernel.step_autoreset.launches
+    step_launches = step_kernel.step.launches
+    losses = [[float(getattr(m, k)) for k in (
+        'loss_actor', 'loss_value', 'entropy', 'approx_kl')] for m in metrics]
+    log(f'PPO path: 3 updates at {cfg.num_envs} envs x {cfg.rollout_steps} '
+        f'steps in {wall:.2f} s (first with the warm-up), step_autoreset '
+        f'launches={launches}, step launches={step_launches}; (actor, value, '
+        f'entropy, kl) {losses}; episodes '
+        f'{[int(m.episodes_collected) for m in metrics]}, mean return '
+        f'{[float(m.mean_episode_return) for m in metrics]}')
+    if launches != 3 * cfg.rollout_steps or step_launches != 0:
+        raise AssertionError(f'{3 * cfg.rollout_steps} PPO rollout steps but '
+                             f'{launches} launches of step_autoreset and '
+                             f'{step_launches} of step')
+    if not all(math.isfinite(x) for row in losses for x in row):
+        raise AssertionError('a PPO loss is not finite')
+    if abs(losses[0][2] - math.log(3)) > 0.1:
+        raise AssertionError(f'entropy of the first update {losses[0][2]} '
+                             f'is not within 0.1 of ln 3')
+    if not any(not torch.equal(ts.params[k], first[k]) for k in first) \
+            or not all(bool(torch.isfinite(v).all())
+                       for v in ts.params.values()):
+        raise AssertionError('the PPO parameters did not move or are not '
+                             'finite')
+    resets = replay_ppo_rollout(trainer, start, draws, traj, end1)
+    log(f'PPO update 1 replayed through the plain engine on the CPU: every '
+        f'obs, valid flag, reward and done flag of {cfg.rollout_steps} steps '
+        f'and the final states equal ({resets} auto-resets)')
+    del traj, start, end1
+
+    # one minibatch of 2,048 rows, card against CPU
+    perm = torch.randperm(cfg.rollout_steps * cfg.num_envs * cfg.num_snakes,
+                          device=trainer.device)
+    full_mb = next(trainer.minibatches(perm))
+    mb = Minibatch(*(x[:2048] for x in full_mb))
+    total, _, grads = trainer.loss_and_grads(ts.params, mb)
+    cpu_trainer = PPOTrainer(config(num_envs=1, rollout_steps=1),
+                             device='cpu')
+    cpu_total, _, cpu_grads = cpu_trainer.loss_and_grads(
+        {k: v.cpu() for k, v in ts.params.items()},
+        Minibatch(*(x.cpu() for x in mb)))
+    loss_rel = abs(float(total) - float(cpu_total)) / abs(float(cpu_total))
+    worst = 0.0
+    for name, g, c in zip(ts.params, grads, cpu_grads):
+        scale = float(c.abs().max())
+        diff = float((g.cpu() - c).abs().max())
+        worst = max(worst, diff / (1e-5 + 1e-4 * scale))
+        if diff > 1e-5 + 1e-4 * scale:
+            raise AssertionError(f'PPO minibatch: gradient of {name} differs '
+                                 f'by {diff} (largest magnitude {scale})')
+    if loss_rel > 1e-5:
+        raise AssertionError(f'PPO minibatch: loss {float(total)} on the '
+                             f'card, {float(cpu_total)} on the CPU')
+    log(f'one PPO minibatch (2,048 rows) card against CPU: loss '
+        f'{float(total)} vs {float(cpu_total)} (relative difference '
+        f'{loss_rel:.3g}, limit 1e-5); the gradients use at most '
+        f'{worst:.3g} of their tolerance 1e-5 + 1e-4 x max|g|')
+    del cpu_trainer, cpu_grads
+
+    # a full checkpoint round trip: one more update from each copy
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as save_dir:
+        trainer.config.save_dir = save_dir
+        trainer.save_checkpoint(ts, 'smoke', full=True)
+        other = PPOTrainer(config(save_dir=save_dir, seed=99), device='cuda')
+        ts_other = other.load_checkpoint('smoke', other.init_state(),
+                                         full=True)
+    ts_a, m_a = trainer.update(ts)
+    ts_b, m_b = other.update(ts_other)
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = deterministic
+    got_a = [float(getattr(m_a, f)) for f in m_a.__dataclass_fields__]
+    got_b = [float(getattr(m_b, f)) for f in m_b.__dataclass_fields__]
+    if got_a != got_b or not all(torch.equal(ts_a.params[k], ts_b.params[k])
+                                 for k in ts_a.params):
+        raise AssertionError(f'after a full PPO checkpoint round trip the '
+                             f'next update differs: {got_a} vs {got_b}')
+    log(f'PPO checkpoint round trip (full) on the card: the next update is '
+        f'equal from both, metrics {got_a}')
+    del other, ts_other, ts_b
+
+    # times: the bench rows, then profiler windows over 16 rollout steps
+    # and over one minibatch update of 32,768 rows
+    rows = {}
+    for n_envs in (64, 256):
+        rows[n_envs] = bench.run_ppo(n_envs, updates=3, device='cuda')
+        log(f'ppo bench: {json.dumps(rows[n_envs])} [{smi}]')
+    short = PPOTrainer(config(rollout_steps=16), device='cuda')
+    held = [short.init_state()]
+    short_draws = ppo_draws(short.env_cfg, 256, 16, 4, short.generator,
+                            'cuda')
+
+    def rollout_steps():
+        held[0] = short.collect(held[0], short_draws)
+
+    rollout_window = profile_device(rollout_steps, 1)
+    log_window('profile of 16 PPO rollout steps at 256 envs (and their '
+               'GAE)', rollout_window, 16, smi, also=(KERNEL_NAME,))
+    state = [ts_a.params, ts_a.opt_state]
+
+    def minibatch_update():
+        _, _, g = trainer.loss_and_grads(state[0], full_mb)
+        state[0], state[1] = trainer.apply_gradients(state[0], state[1], g)
+
+    mb_window = profile_device(minibatch_update, 1)
+    log_window('profile of one PPO minibatch update (32,768 rows, forward, '
+               'backward, clip, Adam)', mb_window, 1, smi)
+    return {'ppo_launches': launches,
+            'ppo_ms_per_update': {n: r['ms_per_update']
+                                  for n, r in rows.items()},
+            'ppo_rollout_ms': {n: r['rollout_ms'] for n, r in rows.items()},
+            'ppo_minibatch_ms': {n: r['minibatch_ms']
+                                 for n, r in rows.items()},
+            'ppo_env_steps_per_s': {n: r['env_steps_per_s']
+                                    for n, r in rows.items()},
+            'ppo_rollout_idle_share': rollout_window['idle_share'],
+            'ppo_rollout_dtoh_per_step': rollout_window['dtoh'] / 16,
+            'ppo_minibatch_idle_share': mb_window['idle_share']}
+
+
+def evaluator_phase(smi: str) -> dict:
+    """The batched, safety-masked evaluator with the port's DQN at 20x20x4
+    (the DQN trainer's env config), 256 envs, 512 steps (the JAX
+    defaults): the step entry's launches equal the steps taken; then
+    masked_actions on the card against the CPU over 16 recorded steps;
+    then times: ms per step, a profiler window of 16 evaluation steps, and
+    the flood fill alone at the shape the main path gives it."""
+    from marlsnake_torch.algo.dqn_trainer import DQNConfig
+    from marlsnake_torch.algo.evaluator import (build_evaluate_batch,
+                                                masked_actions)
+    from marlsnake_torch.envs.vector import VectorSnakeEnv
+    from marlsnake_torch.models.dqn import make_dqn
+    from marlsnake_torch.ops import step_kernel
+    from marlsnake_torch.ops.floodfill import reachable_count
+
+    cfg = DQNConfig().env_config()
+    num_envs, max_steps, n = 256, 512, cfg.num_snakes
+    net = make_dqn(cfg, seed=0, device='cuda')
+    run = build_evaluate_batch(net, cfg, num_envs, max_steps, 60,
+                               device='cuda')
+    step_kernel.step.launches = 0
+    step_kernel.step_autoreset.launches = 0
+    t0 = time.perf_counter()
+    res = run(seed=31)
+    reward, lifetime = float(res.mean_reward), float(res.mean_lifetime)
+    first_s = time.perf_counter() - t0
+    launches = step_kernel.step.launches
+    auto = step_kernel.step_autoreset.launches
+    log(f'evaluator path: {num_envs} envs of {cfg.height}x{cfg.width}x{n}, '
+        f'{res.steps} of {max_steps} steps in {first_s:.2f} s (with the '
+        f'warm-up), step launches={launches}, step_autoreset launches='
+        f'{auto}; mean reward {reward}, mean lifetime {lifetime}')
+    if launches != res.steps or auto != 0:
+        raise AssertionError(f'{res.steps} evaluation steps but {launches} '
+                             f'launches of step and {auto} of '
+                             f'step_autoreset')
+    if not (math.isfinite(reward) and math.isfinite(lifetime)
+            and 0 < lifetime <= max_steps):
+        raise AssertionError('evaluation result not finite or out of range')
+
+    # masked_actions, card against CPU, on 16 steps of recorded inputs
+    env = VectorSnakeEnv(cfg, num_envs, autoreset=False, device='cuda',
+                         seed=33)
+    states, obs = env.reset()
+    dirs = torch.zeros((num_envs, n, 2), dtype=torch.int32, device='cuda')
+    dones = torch.zeros((num_envs, n), dtype=torch.bool, device='cuda')
+    vetoed = 0
+    for t in range(16):
+        with torch.no_grad():
+            q = net(obs.reshape((-1,) + obs.shape[2:])).view(num_envs, n, -1)
+        acts, new_dirs = masked_actions(obs, q, dirs, ~dones)
+        cpu_acts, cpu_dirs = masked_actions(obs.cpu(), q.cpu(), dirs.cpu(),
+                                            ~dones.cpu())
+        if not (torch.equal(acts.cpu(), cpu_acts)
+                and torch.equal(new_dirs.cpu(), cpu_dirs)):
+            raise AssertionError(f'masked_actions on the card differs from '
+                                 f'the CPU at step {t}')
+        vetoed += int((acts.cpu() != q.argmax(-1).cpu().int()).sum())
+        states, out = env.step(states, acts)
+        obs, dirs, dones = out.obs, new_dirs, dones | out.done
+    log(f'masked_actions on the card equals the CPU on 16 steps of '
+        f'{num_envs} envs x {n} snakes ({vetoed} choices differ from the '
+        f'unmasked argmax)')
+
+    # times
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = run(seed=32)
+    float(timed.mean_reward)
+    ms_per_step = (time.perf_counter() - t0) / timed.steps * 1e3
+    log(f'evaluator: {ms_per_step:.3f} ms per step over {timed.steps} steps '
+        f'of {num_envs} envs (host clock, one read-back a step) [{smi}]')
+    short = build_evaluate_batch(net, cfg, num_envs, 16, 60, device='cuda')
+    window = profile_device(lambda: short(seed=34), 1)
+    log_window('profile of 16 evaluation steps at 256 envs', window, 16, smi,
+               also=(STEP_KERNEL_NAME,))
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(35)
+    boards = torch.rand((num_envs * n, 3, cfg.height, cfg.width),
+                        generator=gen, device='cuda') > 0.3
+    starts = torch.randint(0, cfg.height, (num_envs * n, 3, 2),
+                           generator=gen, device='cuda')
+    fill = profile_device(lambda: reachable_count(boards, starts, 60), 10)
+    fill_us = fill['busy_us'] / 10
+    fill_kernels = sum(v[1] for v in fill['kernels'].values()) // 10
+    fill_ms = event_ms(lambda: reachable_count(boards, starts, 60), 10)
+    cells = boards.numel()
+    nbytes = cells + starts.numel() * starts.element_size() \
+        + num_envs * n * 3 * 4
+    ops = 60 * cells * 6
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    log(f'flood fill (plain torch) of {num_envs * n * 3} boards of '
+        f'{cfg.height}x{cfg.width}, limit 60, once a step: device '
+        f'{fill_us:.1f} us in {fill_kernels} kernels, call {fill_ms:.5f} ms '
+        f'(CUDA events), host wall {fill["wall_us"] / 10:.1f} us; bound '
+        f'{max(bytes_ms, ops_ms):.5f} ms ({nbytes} bytes -> {bytes_ms:.5f} '
+        f'ms; {ops} bool ops -> {ops_ms:.5f} ms), '
+        f'{fill_us / 1e3 / ms_per_step * 100:.1f}% of an evaluation step '
+        f'[{smi}]')
+    return {'evaluator_launches': launches,
+            'evaluator_steps': res.steps,
+            'evaluator_ms_per_step': ms_per_step,
+            'evaluator_idle_share': window['idle_share'],
+            'floodfill_device_us': fill_us,
+            'floodfill_kernels_per_step': fill_kernels,
+            'floodfill_call_ms': fill_ms,
+            'floodfill_bound_ms': max(bytes_ms, ops_ms)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -1152,6 +1501,12 @@ def main() -> int:
         row = bench.run_train(256, 1, episodes=2, device='cuda', **kwargs)
         log(f'train bench (in turns): {json.dumps(row)} [{smi}]')
 
+    # --- 14. PPO training and the batched evaluator at full width ---
+    ppo = ppo_phase(smi)
+    torch.cuda.empty_cache()
+    evaluation = evaluator_phase(smi)
+    torch.cuda.empty_cache()
+
     step_main = step_rows[256]
     log(json.dumps({'kernels': variant_rows + [dict(
         auto,
@@ -1164,6 +1519,7 @@ def main() -> int:
         acting_forward_ms=forward_ms,
         bench_env_steps_per_s=b['value'],
         bench_idle_share=bench_idle,
+        **ppo,
     ), dict(
         step_main,
         name='step',
@@ -1187,6 +1543,7 @@ def main() -> int:
         bench_env_steps_per_s={k: r['value'] for k, r in bench_rows.items()},
         bench_idle_share={k: w['idle_share']
                           for k, w in slice_windows.items()},
+        **evaluation,
     )]}))
     log(f'total {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'ok': True, 'device': {

@@ -18,6 +18,14 @@ snakes of length 3, 256-step episodes, batch 512, ring of 10,000), for
 ``update_every`` 1 and 4, after one warm-up episode; one JSON line per
 row, each with the device. The obs options apply there too; the trainer
 spawns from the pool.
+
+``--mode ppo`` times PPO updates: milliseconds per update of
+``PPOTrainer`` with the rollout (and its GAE) and the minibatch epochs
+apart, and env-steps/s, at the JAX package's default configuration (64
+envs of 20x20 with 4 snakes of length 5, 128 rollout steps, 4 epochs of 4
+minibatches) and the showcase run's (the same at 256 envs: 131,072 samples
+an update, minibatches of 32,768), three timed updates after one
+warm-up update.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 
 from marlsnake_torch.core.types import EnvConfig
 from marlsnake_torch.envs.vector import VectorSnakeEnv
+from marlsnake_torch.rng import ppo_draws
 
 BASELINE_STEPS_PER_SEC = 783.0  # reference single env on one CPU core
 
@@ -142,6 +151,48 @@ def run_train(num_envs: int, update_every: int = 1, episodes: int = 3,
     }
 
 
+def run_ppo(num_envs: int, updates: int = 3, device='cuda',
+            **config) -> dict:
+    """Mean wall times of ``updates`` PPO updates after one warm-up
+    update, each split at a synchronisation into the rollout with its GAE
+    (``collect``) and the minibatch epochs (``learn``). ``config``
+    overrides fields of the ``PPOConfig``."""
+    from marlsnake_torch.algo.ppo_trainer import PPOConfig, PPOTrainer
+    cfg = PPOConfig(**{**dict(num_envs=num_envs), **config})
+    trainer = PPOTrainer(cfg, device=device)
+    ts, m = trainer.update(trainer.init_state())
+    float(m.loss_value)
+    rollout_s = learn_s = 0.0
+    for _ in range(updates):
+        draws = ppo_draws(trainer.env_cfg, cfg.num_envs, cfg.rollout_steps,
+                          cfg.update_epochs, trainer.generator,
+                          trainer.device)
+        _sync(trainer.device)
+        t0 = time.perf_counter()
+        ts = trainer.collect(ts, draws)
+        _sync(trainer.device)
+        t1 = time.perf_counter()
+        ts, m = trainer.learn(ts, draws.perm)
+        float(m.loss_value)
+        t2 = time.perf_counter()
+        rollout_s += t1 - t0
+        learn_s += t2 - t1
+    samples = cfg.rollout_steps * num_envs * cfg.num_snakes
+    per_update = (rollout_s + learn_s) / updates
+    return {
+        'metric': f'PPO update ({cfg.height}x{cfg.width}, {cfg.num_snakes} '
+                  f'snakes of length {cfg.snake_length})',
+        'num_envs': num_envs, 'rollout_steps': cfg.rollout_steps,
+        'samples': samples, 'minibatch': samples // cfg.num_minibatches,
+        'update_epochs': cfg.update_epochs,
+        'ms_per_update': per_update * 1e3,
+        'rollout_ms': rollout_s / updates * 1e3,
+        'minibatch_ms': learn_s / updates * 1e3,
+        'env_steps_per_s': num_envs * cfg.rollout_steps / per_update,
+        'obs_format': cfg.obs_format, 'device': _device_name(trainer.device),
+    }
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--num-envs', type=int, default=4096)
@@ -149,7 +200,7 @@ def main(argv=None) -> None:
     ap.add_argument('--iters', type=int, default=4)
     ap.add_argument('--device', default='cuda')
     ap.add_argument('--seed', type=int, default=0)
-    ap.add_argument('--mode', choices=('rollout', 'train'),
+    ap.add_argument('--mode', choices=('rollout', 'train', 'ppo'),
                     default='rollout')
     ap.add_argument('--episodes', type=int, default=3,
                     help='timed episodes per row (train mode)')
@@ -164,6 +215,11 @@ def main(argv=None) -> None:
     a = ap.parse_args(argv)
     obs = dict(obs_format=a.obs_format, frame_stack=a.frame_stack,
                vision_range=a.vision_range)
+    if a.mode == 'ppo':
+        for num_envs in (64, 256):
+            print(json.dumps(run_ppo(num_envs, device=a.device, **obs)),
+                  flush=True)
+        return
     if a.mode == 'train':
         for num_envs in (32, 256):
             for every in (1, 4):

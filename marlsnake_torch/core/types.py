@@ -42,6 +42,14 @@ def cell_owner(cell):
 # Observation: 8 one-hot channels per cell: wall, fruit, other
 # head/body/tail, my head/body/tail.
 FEATURE_CHANNEL = 8
+CH_WALL = 0
+CH_FRUIT = 1
+CH_OTHER_HEAD = 2
+CH_OTHER_BODY = 3
+CH_OTHER_TAIL = 4
+CH_MY_HEAD = 5
+CH_MY_BODY = 6
+CH_MY_TAIL = 7
 
 # --- direction model ---
 UP, RIGHT, DOWN, LEFT = 0, 1, 2, 3

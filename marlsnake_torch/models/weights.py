@@ -1,4 +1,5 @@
-"""DQN weights from flax parameters and from reference checkpoints.
+"""DQN and ActorCritic weights from flax parameters and from reference
+checkpoints.
 
 The port's DQN flattens its conv activations in NCHW order, as the
 reference's torch model does, so a reference ``state_dict`` loads as it
@@ -7,11 +8,15 @@ here, and conv kernels (kH, kW, I, O) and dense kernels (in, out) are
 transposed to torch's (O, I, kH, kW) and (out, in). ``dqn_to_flax`` is the
 inverse, and ``train_state_from_flax`` carries a whole JAX training state
 (parameters, Adam moments in the same layouts, replay ring, counters)
-into the port's ``TrainState``.
+into the port's ``TrainState``. The ActorCritic flattens NHWC in both
+packages, so its kernels are transposed only
+(``actor_critic_from_flax``, ``actor_critic_to_flax``), and
+``ppo_train_state_from_flax`` carries a JAX ``PPOTrainState`` across.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Mapping
 
 import numpy as np
@@ -87,7 +92,7 @@ def train_state_from_flax(ts, grid_hw, device='cuda'):
     The ring's ``capacity`` rows are copied into the port's ring, which
     has one spare row more.
     """
-    from marlsnake_torch.algo import optim, replay
+    from marlsnake_torch.algo import replay
     from marlsnake_torch.algo.dqn_trainer import TrainState
     from marlsnake_torch.device import resolve_device
     dev = resolve_device(device)
@@ -95,12 +100,7 @@ def train_state_from_flax(ts, grid_hw, device='cuda'):
     def params(tree):
         return {k: v.to(dev) for k, v in dqn_from_flax(tree, grid_hw).items()}
 
-    adam = _get(ts, 'opt_state')[1][0]
-    opt_state = optim.AdamState(
-        torch.as_tensor(np.array(_get(adam, 'count'), np.int32),
-                        device=dev),
-        list(params(_get(adam, 'mu')).values()),
-        list(params(_get(adam, 'nu')).values()))
+    opt_state = _adam_from_flax(_get(ts, 'opt_state'), params)
     jbuf = _get(ts, 'buffer')
     cap = np.asarray(_get(jbuf, 'obs')).shape[0]
     buf = replay.create(cap, tuple(_get(jbuf, 'obs_shape')), device=dev)
@@ -118,6 +118,109 @@ def train_state_from_flax(ts, grid_hw, device='cuda'):
                                 device=dev),
         episode=int(_get(ts, 'episode')),
         global_step=int(_get(ts, 'global_step')))
+
+
+_AC_CONVS = ('conv1', 'conv2')
+_AC_DENSES = ('actor_fc1', 'actor_fc2', 'critic_fc1', 'critic_fc2')
+
+
+def actor_critic_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ActorCritic params (with or without the top-level
+    ``'params'``) -> the port's ``ActorCritic`` state_dict. Both flatten
+    the pooled features in NHWC order, so every kernel is a transpose."""
+    p = params['params'] if 'params' in params else params
+
+    def t(a):
+        return torch.as_tensor(np.array(a))
+
+    out = {}
+    for name in _AC_CONVS:
+        out[f'{name}.weight'] = t(np.transpose(np.asarray(p[name]['kernel']),
+                                               (3, 2, 0, 1)))
+        out[f'{name}.bias'] = t(p[name]['bias'])
+    for name in _AC_DENSES:
+        out[f'{name}.weight'] = t(np.asarray(p[name]['kernel']).T)
+        out[f'{name}.bias'] = t(p[name]['bias'])
+    return out
+
+
+def actor_critic_to_flax(state_dict: Mapping) -> Dict[str, dict]:
+    """The inverse of ``actor_critic_from_flax``, for a state_dict or any
+    dict of its layout (gradients, Adam moments)."""
+    def a(t):
+        return np.asarray(torch.as_tensor(t).detach().cpu())
+
+    out = {}
+    for name in _AC_CONVS:
+        out[name] = {'kernel': np.transpose(a(state_dict[f'{name}.weight']),
+                                            (2, 3, 1, 0)),
+                     'bias': a(state_dict[f'{name}.bias'])}
+    for name in _AC_DENSES:
+        out[name] = {'kernel': a(state_dict[f'{name}.weight']).T,
+                     'bias': a(state_dict[f'{name}.bias'])}
+    return {'params': out}
+
+
+def _adam_from_flax(opt_state, to_params):
+    """optax ``chain(clip_by_global_norm, adam)`` state -> ``AdamState``:
+    ``(ClipByGlobalNormState, (ScaleByAdamState(count, mu, nu), ...))``;
+    the moments take the parameters' layouts through ``to_params``."""
+    from marlsnake_torch.algo import optim
+    adam = opt_state[1][0]
+    params = to_params(_get(adam, 'mu'))
+    dev = next(iter(params.values())).device
+    return optim.AdamState(
+        torch.as_tensor(np.array(_get(adam, 'count'), np.int32), device=dev),
+        list(params.values()), list(to_params(_get(adam, 'nu')).values()))
+
+
+def ppo_train_state_from_flax(ts, device='cuda'):
+    """A JAX ``ppo_trainer.PPOTrainState`` whose leaves are numpy arrays
+    (an object or a mapping; its ``key`` is not read: the trainer's
+    generator takes its place) -> the port's ``PPOTrainState`` on
+    ``device``: parameters and Adam moments, every field of the env
+    states the port has, obs, ``agent_done``, the counters and the
+    episode-return accumulators."""
+    from marlsnake_torch.algo.ppo_trainer import PPOTrainState
+    from marlsnake_torch.core.state import EnvState
+    from marlsnake_torch.device import resolve_device
+    dev = resolve_device(device)
+
+    def params(tree):
+        return {k: v.to(dev) for k, v in actor_critic_from_flax(tree).items()}
+
+    def t(name, obj=ts):
+        return torch.as_tensor(np.array(_get(obj, name)), device=dev)
+
+    env = _get(ts, 'env_states')
+    return PPOTrainState(
+        params=params(_get(ts, 'params')),
+        opt_state=_adam_from_flax(_get(ts, 'opt_state'), params),
+        env_states=EnvState(**{f.name: t(f.name, env)
+                               for f in dataclasses.fields(EnvState)}),
+        obs=t('obs'), agent_done=t('agent_done'),
+        update=int(_get(ts, 'update')), episodes=t('episodes'),
+        ep_return_acc=t('ep_return_acc'),
+        finished_return_sum=t('finished_return_sum'),
+        finished_count=t('finished_count'))
+
+
+def actor_critic_from_reference(state_dict: Mapping
+                                ) -> Dict[str, torch.Tensor]:
+    """The reference's PPO checkpoint (``CNN_feature.0/.3`` convolutions,
+    ``actor.0/.2`` and ``critic.0/.2`` linears; keys possibly prefixed
+    ``module.``) -> the port's ``ActorCritic`` state_dict. Both use
+    torch's layouts, so the tensors are renamed, not transposed. The heads
+    map exactly; the reference's pooling between its convolutions left the
+    repository with its source module, so the trunk computes the same
+    function only as far as the port's pooling is the reference's."""
+    names = {'CNN_feature.0': 'conv1', 'CNN_feature.3': 'conv2',
+             'actor.0': 'actor_fc1', 'actor.2': 'actor_fc2',
+             'critic.0': 'critic_fc1', 'critic.2': 'critic_fc2'}
+    sd = {k.replace('module.', ''): v for k, v in state_dict.items()}
+    return {f'{ours}.{leaf}': torch.as_tensor(sd[f'{theirs}.{leaf}'])
+            .detach().clone()
+            for theirs, ours in names.items() for leaf in ('weight', 'bias')}
 
 
 def dqn_from_reference(state_dict: Mapping) -> Dict[str, torch.Tensor]:

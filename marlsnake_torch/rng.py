@@ -15,6 +15,12 @@ A DQN training episode takes ``TrainDraws``: for each of its env steps
 the acting draws, the env's fruit draws and the replay sampling draw, all
 drawn before the episode starts and read by step index, so that an
 episode that stops early leaves the generator where a full one does.
+
+A PPO update takes ``PPODraws``, drawn up front the same way: the step
+draws of every rollout step, the Gumbel noise of the action sample
+(``argmax(logits + gumbel)`` is a sample of ``softmax(logits)``, the very
+computation of JAX's ``random.categorical``) and one permutation of the
+rollout's samples for each epoch of minibatches.
 """
 
 from __future__ import annotations
@@ -97,3 +103,38 @@ def train_draws(cfg: EnvConfig, num_envs: int, num_steps: int,
     return TrainDraws(rand, _rand(shape, generator, device),
                       _rand(shape, generator, device),
                       _rand((num_steps, width), generator, device))
+
+
+class PPODraws(NamedTuple):
+    """The draws of one PPO update of ``T`` rollout steps of ``E`` envs."""
+    # the step draws of every rollout step, step axis first
+    step: StepDraws
+    gumbel: torch.Tensor  # (T, E, N, A) float32: the action sample's noise
+    perm: torch.Tensor    # (update_epochs, T * E * N) int64: minibatch order
+
+    def step_at(self, t: int) -> StepDraws:
+        return StepDraws(*(x[t] for x in self.step))
+
+
+def _gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Standard Gumbel noise, ``-log(-log(u))`` of uniforms kept above the
+    smallest normal float32 (as JAX's ``random.gumbel`` keeps them)."""
+    u = _rand(shape, generator, device).clamp_min_(
+        torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def ppo_draws(cfg: EnvConfig, num_envs: int, rollout_steps: int,
+              update_epochs: int, generator: torch.Generator,
+              device) -> PPODraws:
+    t, n, nf = rollout_steps, cfg.num_snakes, cfg.resolved_num_fruits
+    step = StepDraws(_rand((t, num_envs, n), generator, device),
+                     _rand((t,) + spawn_draw_shape(cfg, num_envs),
+                           generator, device),
+                     _rand((t, num_envs, nf), generator, device))
+    noise = _gumbel((t, num_envs, n, cfg.num_actions), generator, device)
+    samples = t * num_envs * n
+    perm = torch.stack([torch.randperm(samples, generator=generator,
+                                       device=device)
+                        for _ in range(update_epochs)])
+    return PPODraws(step, noise, perm)

@@ -1,14 +1,18 @@
-"""The port's checkpoints (utils/checkpoint.py and the DQN trainer's
-save, load, delete and resume), on the CPU.
+"""The port's checkpoints (utils/checkpoint.py and the DQN and PPO
+trainers' save, load, delete and resume), on the CPU.
 
 A round trip returns every field as it was saved (equal, not close). A
 ``full=True`` checkpoint also holds the replay ring and the generator's
 state, so an episode run after loading it equals the episode the
 uninterrupted run takes next. A JAX training state carried across by
 ``train_state_from_flax`` gives the next update the JAX trainer gives,
-within the tolerance of test_torch_dqn_trainer.py's one-update test.
+within the tolerance of test_torch_dqn_trainer.py's one-update test. A
+PPO checkpoint holds ``{params, opt_state, update}``, and with
+``full=True`` every field of the training state and the generator's, so
+that the next update from it equals the uninterrupted run's.
 """
 
+import dataclasses
 import json
 import os
 
@@ -18,6 +22,7 @@ import pytest
 import torch
 
 from marlsnake_torch.algo.dqn_trainer import DQNConfig, DQNTrainer
+from marlsnake_torch.algo.ppo_trainer import PPOConfig, PPOTrainer
 from marlsnake_torch.models.weights import train_state_from_flax
 from marlsnake_torch.utils import checkpoint as ckpt
 from marlsnake_torch.utils.metrics import MetricWriter, Throughput
@@ -225,3 +230,86 @@ def test_metric_writer_and_throughput(tmp_path):
     t = Throughput()
     assert t.update(0) == 0.0
     assert t.update(100) > 0.0
+
+
+# --- PPO checkpoints (the mirror of tests/test_checkpoint.py's PPO cases) ---
+
+PPO_SMALL = dict(height=8, width=8, num_snakes=2, snake_length=2,
+                 num_envs=4, rollout_steps=8, num_minibatches=2)
+
+def small_ppo_trainer(tmp_path, **kwargs):
+    cfg = PPOConfig(**dict(PPO_SMALL, update_epochs=1,
+                           save_dir=str(tmp_path / 'ckpt'),
+                           log_dir=str(tmp_path / 'runs'), **kwargs))
+    return PPOTrainer(cfg, device='cpu')
+
+
+def assert_train_states_equal(a, b, full=True):
+    assert list(a.params) == list(b.params)
+    assert all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+    assert torch.equal(a.opt_state.count, b.opt_state.count)
+    for x, y in zip(a.opt_state.mu + a.opt_state.nu,
+                    b.opt_state.mu + b.opt_state.nu):
+        assert torch.equal(x, y)
+    assert a.update == b.update
+    if full:
+        for (name, x), (_, y) in zip(a.env_states.fields(),
+                                     b.env_states.fields()):
+            assert torch.equal(x, y), name
+        for name in ('obs', 'agent_done', 'episodes', 'ep_return_acc',
+                     'finished_return_sum', 'finished_count'):
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+def test_ppo_partial_and_full_checkpoint_round_trip(tmp_path):
+    tr = small_ppo_trainer(tmp_path)
+    ts, _ = tr.update(tr.init_state())
+    tr.save_checkpoint(ts, 'p')
+    tr.save_checkpoint(ts, 'f', full=True)
+    assert os.path.exists(tmp_path / 'ckpt' / 'ppo_p')
+    other = small_ppo_trainer(tmp_path, seed=5)
+    fresh = other.init_state()
+    part = other.load_checkpoint('p', fresh)
+    assert_train_states_equal(part, ts, full=False)
+    assert part.env_states is fresh.env_states    # the rest stays as given
+    full = other.load_checkpoint('f', other.init_state(), full=True)
+    assert_train_states_equal(full, ts)
+    assert torch.equal(other.generator.get_state(), tr.generator.get_state())
+    with pytest.raises(KeyError):                 # a partial file lacks it
+        other.load_checkpoint('p', fresh, full=True)
+
+
+def test_ppo_kill_and_resume_matches_uninterrupted(tmp_path):
+    """A full checkpoint mid-run: the next update from the loaded state,
+    in a second trainer, equals the one the first trainer makes."""
+    tr = small_ppo_trainer(tmp_path)
+    ts, _ = tr.update(tr.init_state())
+    tr.save_checkpoint(ts, 'mid', full=True)
+    ts_a, m_a = tr.update(ts)
+    tr2 = small_ppo_trainer(tmp_path, seed=3)
+    ts_b = tr2.load_checkpoint('mid', tr2.init_state(), full=True)
+    ts_b, m_b = tr2.update(ts_b)
+    for f in dataclasses.fields(m_a):
+        assert float(getattr(m_a, f.name)) == float(getattr(m_b, f.name))
+    assert_train_states_equal(ts_a, ts_b)
+
+
+def test_ppo_resume_from_config_routes(tmp_path):
+    """``resume_from`` continues from a saved tag with warm optimizer
+    state and the update counter advanced; ``train`` logs the seven
+    scalars."""
+    tr = small_ppo_trainer(tmp_path, num_updates=2, rollout_steps=4)
+    ts = tr.train(log=True)
+    assert ts.update == 2
+    (run,) = os.listdir(tmp_path / 'runs')
+    with open(tmp_path / 'runs' / run / 'metrics.jsonl') as f:
+        tags = {json.loads(line)['tag'] for line in f}
+    assert tags == {'loss/actor', 'loss/value', 'policy/entropy',
+                    'policy/approx_kl', 'env/mean_reward_per_step_per_agent',
+                    'env/mean_episode_return', 'env/episodes_collected'}
+    tr2 = small_ppo_trainer(tmp_path, num_updates=3, rollout_steps=4,
+                        resume_from='final')
+    ts2 = tr2.train(log=False)
+    assert ts2.update == 3                 # resumed at 3, ran one update
+    # warm moments: two minibatches an update, three updates in all
+    assert int(ts2.opt_state.count) == 6

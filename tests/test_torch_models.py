@@ -176,3 +176,125 @@ def test_make_dqn_is_seeded():
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a['fc1.weight'], c['fc1.weight'])
     assert a['fc1.weight'].shape == (256, 64 * 10 * 10)
+
+
+# --- the PPO ActorCritic -----------------------------------------------------
+
+def flax_actor_critic(seed, hw, channels=8):
+    from marlsnake_tpu.models.ppo import ActorCritic as FlaxAC
+    return FlaxAC(num_actions=3).init(
+        jax.random.key(seed), jnp.zeros((1,) + hw + (channels,), jnp.float32))
+
+
+@pytest.mark.parametrize('hw,channels,feats', [
+    ((8, 8), 8, 128), ((10, 10), 16, 128), ((20, 20), 8, 128),
+    ((11, 11), 8, 128), ((6, 6), 8, 32), ((20, 12), 8, 128)],
+    ids=['8x8', '10x10-stack2', '20x20', 'vision-11x11', '6x6-pool-1x1',
+         '20x12'])
+def test_actor_critic_matches_flax(hw, channels, feats):
+    """Logits, value and features of the same weights: float32 within
+    1e-5; the weights go flax -> torch -> flax unchanged."""
+    from marlsnake_tpu.models.ppo import ActorCritic as FlaxAC
+    from marlsnake_torch.models.ppo import ActorCritic, feature_size
+    from marlsnake_torch.models.weights import (actor_critic_from_flax,
+                                                actor_critic_to_flax)
+    params = flax_actor_critic(2, hw, channels)
+    net = ActorCritic(hw, channels, 3, assume_binary_obs=True, device='cpu')
+    net.load_state_dict(actor_critic_from_flax(params))
+    assert feature_size(hw) == feats == net.actor_fc1.in_features
+    obs = (np.random.default_rng(2).random((12,) + hw + (channels,)) < 0.2
+           ).astype(np.uint8)
+    fnet = FlaxAC(num_actions=3, assume_binary_obs=True)
+    want_logits, want_value = fnet.apply(params, obs)
+    with torch.no_grad():
+        logits, value = net(torch.as_tensor(obs))
+        f = net.features(torch.as_tensor(obs))
+    assert logits.dtype == value.dtype == torch.float32
+    assert logits.shape == (12, 3) and value.shape == (12,)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(value.numpy(), np.asarray(want_value),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(
+        f.numpy(), np.asarray(fnet.apply(params, obs,
+                                         method=FlaxAC.features)),
+        rtol=0, atol=1e-5)
+    back = actor_critic_to_flax(net.state_dict())['params']
+    for layer, leaves in params['params'].items():
+        for name, leaf in leaves.items():
+            np.testing.assert_array_equal(back[layer][name],
+                                          np.asarray(leaf))
+
+
+def test_actor_critic_scaling_bfloat16_and_make():
+    """Byte inputs are scaled like flax's; bfloat16 is close to float32
+    and to flax's bfloat16; make_actor_critic sizes the net by the config
+    and is seeded."""
+    from marlsnake_tpu.models.ppo import ActorCritic as FlaxAC
+    from marlsnake_torch.models.ppo import ActorCritic, make_actor_critic
+    from marlsnake_torch.models.weights import actor_critic_from_flax
+    hw = (10, 10)
+    params = flax_actor_critic(3, hw)
+    rng = np.random.default_rng(3)
+    obs = (rng.random((8,) + hw + (8,)) < 0.2).astype(np.uint8)
+    wide = obs * np.uint8(255)
+    nets = {}
+    for dt in (torch.float32, torch.bfloat16):
+        nets[dt] = ActorCritic(hw, 8, 3, device='cpu', compute_dtype=dt)
+        nets[dt].load_state_dict(actor_critic_from_flax(params))
+    with torch.no_grad():
+        l32, v32 = nets[torch.float32](torch.as_tensor(wide))
+        l16, v16 = nets[torch.bfloat16](torch.as_tensor(obs))
+    jl, jv = FlaxAC(num_actions=3).apply(params, wide)
+    np.testing.assert_allclose(l32.numpy(), np.asarray(jl), atol=1e-5)
+    np.testing.assert_allclose(v32.numpy(), np.asarray(jv), atol=1e-5)
+    assert l16.dtype == v16.dtype == torch.float32
+    assert nets[torch.bfloat16].conv1.weight.dtype == torch.float32
+    jl16, jv16 = FlaxAC(num_actions=3, compute_dtype=jnp.bfloat16,
+                        assume_binary_obs=True).apply(params, obs)
+    for got, want in ((l16, l32), (v16, v32), (l16, jl16), (v16, jv16)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=5e-2)
+    cfg = EnvConfig(height=10, width=10, num_snakes=2, vision_range=3,
+                    frame_stack=2, obs_format='packed')
+    a = make_actor_critic(cfg, seed=1, device='cpu').state_dict()
+    b = make_actor_critic(cfg, seed=1, device='cpu').state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert a['conv1.weight'].shape == (32, 16, 3, 3)
+    # a 7x7 window pools to 3x3, then 1x1: 32 features
+    assert a['actor_fc1.weight'].shape == (256, 32)
+    with pytest.raises(ValueError, match='4x4'):
+        ActorCritic((3, 3), device='cpu')
+
+
+def test_actor_critic_reference_checkpoint_reader():
+    """A synthetic state_dict in the reference's PPO layout
+    (``CNN_feature.0/.3``, ``actor.0/.2``, ``critic.0/.2``, DataParallel
+    'module.' keys) loads into the port, and gives the outputs flax gives
+    after the JAX package's own reader converts it."""
+    from marlsnake_tpu.models.ppo import ActorCritic as FlaxAC
+    from marlsnake_tpu.models.torch_interop import ppo_params_from_torch
+    from marlsnake_torch.models.ppo import ActorCritic
+    from marlsnake_torch.models.weights import actor_critic_from_reference
+    hw = (20, 20)
+    source = ActorCritic(hw, 8, 3, device='cpu').state_dict()
+    names = {'conv1': 'CNN_feature.0', 'conv2': 'CNN_feature.3',
+             'actor_fc1': 'actor.0', 'actor_fc2': 'actor.2',
+             'critic_fc1': 'critic.0', 'critic_fc2': 'critic.2'}
+    ref = {f'module.{names[k.split(".")[0]]}.{k.split(".")[1]}': v.clone()
+           for k, v in source.items()}
+    state = actor_critic_from_reference(ref)
+    assert list(state) == list(source)
+    assert all(torch.equal(state[k], source[k]) for k in source)
+    net = ActorCritic(hw, 8, 3, device='cpu')
+    net.load_state_dict(state)
+    obs = (np.random.default_rng(9).random((5,) + hw + (8,)) < 0.2
+           ).astype(np.uint8)
+    with torch.no_grad():
+        logits, value = net(torch.as_tensor(obs))
+    want_logits, want_value = FlaxAC(num_actions=3).apply(
+        ppo_params_from_torch(ref), obs)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(value.numpy(), np.asarray(want_value),
+                               rtol=0, atol=1e-5)

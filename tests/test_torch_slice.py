@@ -87,6 +87,9 @@ def test_port_imports_no_jax():
             'marlsnake_torch.envs.graph, '
             'marlsnake_torch.algo.replay, marlsnake_torch.algo.optim, '
             'marlsnake_torch.algo.dqn_trainer, '
+            'marlsnake_torch.models.ppo, marlsnake_torch.algo.ppo_trainer, '
+            'marlsnake_torch.ops.floodfill, marlsnake_torch.algo.evaluator, '
+            'marlsnake_torch.rng, '
             'marlsnake_torch.utils.checkpoint, marlsnake_torch.utils.metrics; '
             'import sys; bad = [m for m in sys.modules if m.split(".")[0] '
             'in ("jax", "jaxlib", "flax", "optax", "orbax", "marlsnake_tpu")]; '
@@ -98,8 +101,19 @@ def test_port_imports_no_jax():
 def test_default_device_needs_cuda():
     if torch.cuda.is_available():
         pytest.skip('a CUDA device is present: the default is valid here')
+    from marlsnake_torch.algo.evaluator import evaluate_batch
+    from marlsnake_torch.algo.ppo_trainer import PPOConfig, PPOTrainer
+    from marlsnake_torch.algo.ppo_trainer import main as ppo_trainer_main
+    from marlsnake_torch.models.ppo import make_actor_critic
     cfg = EnvConfig(height=10, width=10, num_snakes=2)
-    for build in (lambda: VectorSnakeEnv(cfg, 2), lambda: make_env(cfg),
+    net = make_dqn(cfg, device='cpu')
+    for build in (lambda: PPOTrainer(PPOConfig()),
+                  lambda: make_actor_critic(cfg),
+                  lambda: evaluate_batch(net, None, cfg, 2, 2),
+                  lambda: bench.main(['--mode', 'ppo']),
+                  lambda: bench.run_ppo(2, updates=1),
+                  lambda: ppo_trainer_main(['--updates', '1', '--no-log']),
+                  lambda: VectorSnakeEnv(cfg, 2), lambda: make_env(cfg),
                   lambda: make_dqn(cfg), lambda: bench.run(4, 2, 1),
                   lambda: DQNTrainer(DQNConfig()),
                   lambda: replay.create(16, (4, 4, 8)),
@@ -201,3 +215,52 @@ def test_train_bench_cpu_smoke():
     assert rec['episode_ms'] > 0 and rec['env_steps_per_s'] > 0
     assert 1 <= rec['steps_per_episode'] <= 8
     json.dumps(rec)
+
+
+def test_ppo_bench_cpu_smoke():
+    """The ``--mode ppo`` row at a toy size on the CPU: it times the
+    rollout and the minibatch epochs apart and names the device."""
+    rec = bench.run_ppo(2, updates=1, device='cpu', height=8, width=8,
+                        num_snakes=2, snake_length=2, rollout_steps=4)
+    assert rec['device'] == 'cpu' and rec['num_envs'] == 2
+    assert rec['samples'] == 16 and rec['minibatch'] == 4
+    assert rec['rollout_ms'] > 0 and rec['minibatch_ms'] > 0
+    assert rec['ms_per_update'] == pytest.approx(rec['rollout_ms']
+                                                 + rec['minibatch_ms'])
+    assert rec['env_steps_per_s'] > 0
+    json.dumps(rec)
+
+
+def test_ppo_and_evaluator_on_cpu_go_through_the_step_wrappers(monkeypatch):
+    """On CPU tensors the PPO rollout steps through the auto-reset
+    wrapper once a step and the evaluator through the step wrapper with
+    its hold, each running its plain version: no launch."""
+    from marlsnake_torch.algo.evaluator import build_evaluate_batch
+    from marlsnake_torch.algo.ppo_trainer import PPOConfig, PPOTrainer
+    from marlsnake_torch.ops import step_kernel
+    calls = {'auto': 0, 'step': 0, 'held': 0}
+    auto, step = step_kernel.step_autoreset, step_kernel.step
+
+    def counting_auto(*args):
+        calls['auto'] += 1
+        return auto(*args)
+
+    def counting_step(cfg, state, actions, fruit_u, hold=None):
+        calls['step'] += 1
+        calls['held'] += hold is not None
+        return step(cfg, state, actions, fruit_u, hold)
+
+    monkeypatch.setattr(step_kernel, 'step_autoreset', counting_auto)
+    monkeypatch.setattr(step_kernel, 'step', counting_step)
+    before = (auto.launches, step.launches)
+    tr = PPOTrainer(PPOConfig(height=8, width=8, num_snakes=2,
+                              snake_length=2, num_envs=3, rollout_steps=5,
+                              update_epochs=1, num_minibatches=2),
+                    device='cpu')
+    tr.update(tr.init_state())
+    assert calls['auto'] == 5
+    cfg = EnvConfig(height=8, width=8, num_snakes=2)
+    result = build_evaluate_batch(make_dqn(cfg, device='cpu'), cfg, 3, 6,
+                                  device='cpu')()
+    assert calls['step'] == result.steps and calls['held'] == result.steps - 1
+    assert (auto.launches, step.launches) == before
