@@ -106,10 +106,43 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    to the CPU on 16 recorded steps; ms per step, a profiler window of 16
    evaluation steps and the flood fill's own device time, launches and
    bound;
-15. one JSON line of kernels (every entry and variant; the auto-reset
-   entry's row carries the PPO numbers, the step entry's the
-   evaluator's), then, as the last line, {"ok": true, "device":
-   {"platform": "gpu", "kind": ..., "count": ...}}.
+15. NEAT and ES evolution at full width (``evolution_phase``):
+   HybridNEATTrainer with NeatConfig()'s pop 100 over the reference-width
+   DQN (20x20x4, length 5, DEFAULT_REWARD, 512-step episodes) for 3
+   generations (the first speciation puts each genome in a species of its
+   own, so generation 1 is all elites; generation 2 has mutated
+   topologies), and
+   HeadESTrainer at pop 128 with 4 fitness and 8 validation episodes for
+   2 generations: the step entry launched once an env step (its counter
+   set to 0 before each run and read after; the auto-reset entry never);
+   four clones of the seed genome score the same; the result pickle loads
+   and its net equals its genome; one fitness episode of 8 genomes (seed
+   and mutants with hidden sigmoid/tanh nodes) card against CPU with the
+   same weights and draws (decisions more than 1e-4 from a tie equal,
+   returns equal where every decision agreed); sweep_values at pop 100
+   within 1e-5 + 1e-5 x |value| of the CPU (float32 products summed in
+   another order); holdout_compare(seed, seed) exactly 0; two ES
+   trainers of one seed give equal theta_fitness; each generation's time
+   split into fitness episodes and host work (PaddedNetBatch builds,
+   checkpoint writes, reproduction); profiler windows of 16 fitness steps;
+   then the wrapper layer (``adapter_phase``): make('Snake-v1') plays a
+   random episode to its end (one launch of the step entry at B=1 a step,
+   no call of the plain engine, the last step EQUAL to it, a rank at the
+   end), make_snake(num_envs=8) (one auto-reset launch a step, and the
+   auto-reset entry against the plain engine at its B=8),
+   DQNEvaluator over 2 episodes (ms per step), render_winner(render=False)
+   on the NEAT checkpoint, and the step entry against engine.step at B=1,
+   B=100 and B=129, the widths of the adapter, NEAT and ES (tolerance 0);
+16. one JSON line of kernels (every entry and variant; the auto-reset
+   entry's row carries the PPO numbers, the step entry's the evaluator's,
+   the evolution's and the adapters', with its launches on every path),
+   then, as the last line, {"ok": true, "device": {"platform": "gpu",
+   "kind": ..., "count": ...}}.
+
+Run one phase alone: ``python3 -c "import chip_smoke as cs, tempfile, torch;
+torch.backends.cudnn.allow_tf32 = False;
+torch.backends.cuda.matmul.allow_tf32 = False; d = tempfile.mkdtemp();
+cs.evolution_phase('', d); cs.adapter_phase('', d)"``.
 
 Exits non-zero without a result when CUDA is not available.
 """
@@ -122,6 +155,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
@@ -982,6 +1016,534 @@ def evaluator_phase(smi: str) -> dict:
             'floodfill_bound_ms': max(bytes_ms, ops_ms)}
 
 
+class Stopwatch:
+    """Seconds and calls of wrapped functions, by label, each call ended
+    by a synchronisation so that device work is counted where it ran.
+    ``patch(obj, name, label)`` wraps an attribute until ``restore()``."""
+
+    def __init__(self):
+        self.seconds, self.calls, self._saved = {}, {}, []
+
+    def wrap(self, label, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                self.seconds[label] = (self.seconds.get(label, 0.0)
+                                       + time.perf_counter() - t0)
+                self.calls[label] = self.calls.get(label, 0) + 1
+        return timed
+
+    def patch(self, obj, name, label):
+        self._saved.append((obj, name, obj.__dict__.get(name)))
+        setattr(obj, name, self.wrap(label, getattr(obj, name)))
+
+    def restore(self):
+        for obj, name, old in reversed(self._saved):
+            if old is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, old)
+        self._saved = []
+
+    def snapshot(self):
+        return dict(self.seconds)
+
+
+def top_block(values: torch.Tensor):
+    """(where each decision's values equal its maximum, the gap from that
+    maximum to the largest value below it): argmax takes the block's first
+    index, so two sides take the same action where their blocks agree and
+    the gap exceeds their difference. Exact ties (the relu head's zeros, a
+    saturated sigmoid) form one block."""
+    top = values.max(-1, keepdim=True).values
+    block = values == top
+    below = values.masked_fill(block, float('-inf')).max(-1).values
+    return block, top[..., 0] - below
+
+
+def mutated_genomes(N, cfg, seed_genome, size: int, seed: int):
+    """The seed genome and ``size - 1`` mutants: hidden nodes and
+    connections added, activations flipped to sigmoid or tanh, weights
+    perturbed (NEAT's own operators)."""
+    import random
+    genomes = [seed_genome]
+    next_key = [cfg.num_outputs + 1000]
+    rng = random.Random(seed)
+    for gi in range(1, size):
+        g = seed_genome.copy(gi)
+        for _ in range(1 + gi % 4):
+            g._mutate_add_node(cfg, rng, next_key)
+            g._mutate_add_conn(cfg, rng)
+        for nk in list(g.nodes):
+            if rng.random() < 0.4:
+                g.nodes[nk].activation = rng.choice(('sigmoid', 'tanh',
+                                                     'relu'))
+        g.mutate(cfg, rng, next_key)
+        genomes.append(g)
+    return genomes
+
+
+def episode_card_vs_cpu(trainer, cpu_trainer, genomes, draws) -> dict:
+    """One fitness episode of ``genomes`` through the trainers' own
+    episode loop on the card and on the CPU, with the same weights and
+    draws (``draws`` on the CPU, one env). Per genome, while its
+    trajectory has not parted: every decision more than 1e-4 from a tie
+    must be equal on both sides; a near-tie that flips parts it. Returns
+    of genomes never parted must be EQUAL."""
+    from marlsnake_torch.algo.neat_hybrid import PaddedNetBatch
+    from marlsnake_torch.rng import EpisodeDraws, ResetDraws
+
+    cfg = trainer.neat_cfg
+    pop = len(genomes)
+    rows = torch.zeros(pop, dtype=torch.long)
+    sides = {}
+    for tr, dev in ((trainer, 'cuda'), (cpu_trainer, 'cpu')):
+        batch = PaddedNetBatch(genomes, cfg, device=dev)
+        values = []
+
+        def head(emb, batch=batch, values=values):
+            v = batch.logits(emb)
+            values.append(v.cpu())
+            return v.argmax(-1).to(torch.int32)
+
+        d = draws.take(rows)
+        d = EpisodeDraws(ResetDraws(*(x.to(dev) for x in d.reset)),
+                         d.fruit_u.to(dev))
+        ret = tr._episode(head, d)
+        sides[dev] = (ret, values)
+    (ret_g, val_g), (ret_c, val_c) = sides['cuda'], sides['cpu']
+    parted = torch.zeros(pop, dtype=torch.bool)
+    compared = near = 0
+    for t in range(min(len(val_g), len(val_c))):
+        block_c, margin = top_block(val_c[t])
+        block_g, _ = top_block(val_g[t])
+        act_g, act_c = val_g[t].argmax(-1), val_c[t].argmax(-1)
+        clear = (margin > 1e-4) & (block_c == block_g).all(-1)
+        live = ~parted[:, None].expand_as(clear)
+        if bool((live & clear & (act_g != act_c)).any()):
+            raise AssertionError(f'fitness episode: a decision more than '
+                                 f'1e-4 from a tie differs at step {t}')
+        compared += int((live & clear).sum())
+        near += int((live & ~clear).sum())
+        parted |= (live & ~clear & (act_g != act_c)).any(-1)
+    if len(val_g) != len(val_c) and not bool(parted.any()):
+        raise AssertionError('fitness episode: lengths differ but no '
+                             'decision flipped')
+    kept = ~parted
+    if not np.array_equal(ret_g[kept.numpy()], ret_c[kept.numpy()]):
+        raise AssertionError('fitness episode: returns of genomes whose '
+                             'every decision agreed differ')
+    return {'steps': [len(val_g), len(val_c)], 'decisions_compared': compared,
+            'near_ties': near, 'genomes_parted': int(parted.sum())}
+
+
+def evolution_phase(smi: str, tmp: str) -> dict:
+    """NEAT and ES over the reference-width DQN at full width (20x20,
+    4 snakes of length 5, DEFAULT_REWARD, 512-step episodes; float32, TF32
+    off): HybridNEATTrainer at NeatConfig()'s pop 100 for 3 generations
+    (the first speciation gives every genome a species of its own, so
+    generation 1 is 100 elites and generation 2 the first with mutants),
+    HeadESTrainer at pop 128 with 4 fitness and 8 validation episodes for
+    2 generations; the step entry's launches equal the env steps taken
+    (the counters set to 0 before each run, read after); common random
+    numbers, checkpoints, a fitness episode and the sweeps card against
+    CPU; times of each generation's parts and a profiler window of 16
+    fitness steps of each trainer."""
+    import copy
+    from marlsnake_torch.algo import neat as N
+    from marlsnake_torch.algo import neat_hybrid as H
+    from marlsnake_torch.models.dqn import make_dqn
+    from marlsnake_torch.ops import step_kernel
+    from marlsnake_torch.rng import episode_draws
+
+    env_cfg = H._default_env_cfg()
+    net = make_dqn(env_cfg, seed=0, device='cuda')
+    neat_cfg = N.NeatConfig()
+    if (neat_cfg.pop_size, neat_cfg.num_inputs, env_cfg.height,
+            env_cfg.num_snakes, env_cfg.snake_length) != (100, 128, 20, 4, 5):
+        raise AssertionError('the NEAT defaults moved')
+    tr = H.HybridNEATTrainer(net, env_cfg, neat_cfg, episode_steps=512,
+                             result_file=os.path.join(tmp, 'neat.pkl'),
+                             seed=0, device='cuda')
+    sw = Stopwatch()
+    gens = []
+    inner = tr.eval_genomes
+
+    def eval_genomes(genomes, cfg, *args):
+        before, steps = sw.snapshot(), tr.env_steps
+        t0 = time.perf_counter()
+        inner(genomes, cfg, *args)
+        torch.cuda.synchronize()
+        gens.append({'eval_s': time.perf_counter() - t0,
+                     'steps': tr.env_steps - steps,
+                     'genomes': [g for _, g in genomes],
+                     **{k: v - before.get(k, 0.0)
+                        for k, v in sw.snapshot().items()}})
+
+    tr.eval_genomes = eval_genomes
+    sw.patch(H, 'PaddedNetBatch', 'batch_build')
+    sw.patch(H, 'save_checkpoint_safe', 'checkpoint')
+    sw.patch(tr, '_episode', 'episodes')
+    sw.patch(N.Population, '_speciate', 'reproduction')
+    sw.patch(N.Population, '_reproduce', 'reproduction')
+    step_kernel.step.launches = 0
+    step_kernel.step_autoreset.launches = 0
+    t0 = time.perf_counter()
+    try:
+        best = tr.run(num_generations=3, verbose=True)
+        torch.cuda.synchronize()
+    finally:
+        sw.restore()
+    wall = time.perf_counter() - t0
+    launches = step_kernel.step.launches
+    auto = step_kernel.step_autoreset.launches
+    neat_steps = tr.env_steps
+    log(f'NEAT path: 3 generations of {neat_cfg.pop_size} genomes, '
+        f'{neat_steps} env steps, step launches={launches}, '
+        f'step_autoreset launches={auto}, best fitness {best.fitness}, '
+        f'{wall:.2f} s (with the warm-up)')
+    if launches != neat_steps or auto != 0 or neat_steps == 0:
+        raise AssertionError(f'NEAT: {neat_steps} env steps but '
+                             f'{launches} launches of step and {auto} of '
+                             f'step_autoreset')
+    neat_gens = [dict({k: rec.get(k, 0.0) * 1e3 for k in (
+        'eval_s', 'episodes', 'batch_build', 'checkpoint')},
+        steps=rec['steps']) for rec in gens]
+    # speciation and reproduction follow each generation's evaluation
+    repro_total = sw.seconds.get('reproduction', 0.0)
+    hidden = [sum(1 for k in g.nodes if k not in neat_cfg.output_keys)
+              for g in gens[-1]['genomes']]
+    gen1 = H.PaddedNetBatch(gens[-1]['genomes'], neat_cfg, device='cuda')
+    log(f'NEAT generations (ms: eval_genomes, its episodes, PaddedNetBatch '
+        f'builds, checkpoint writes; env steps): {json.dumps(neat_gens)}; '
+        f'speciation '
+        f'and reproduction {repro_total * 1e3:.1f} ms over all three; '
+        f'{sw.calls.get("checkpoint", 0)} checkpoint writes; generation 2: '
+        f'{sum(h > 0 for h in hidden)} genomes with hidden nodes (up to '
+        f'{max(hidden)}), batch m={gen1.m} sweeps={gen1.num_sweeps} [{smi}]')
+    if max(hidden) == 0:
+        raise AssertionError('generation 2 has no mutated topology')
+
+    # the result checkpoint loads, and its net is its genome
+    data = H.load_hybrid_raw(tr.result_file)
+    saved = data['neat_genome']
+    if saved.fitness != tr.best_fitness or data['neat_config'] != neat_cfg:
+        raise AssertionError('the NEAT result file does not hold the best '
+                             'genome')
+    ffn = N.FeedForwardNetwork.create(saved, data['neat_config'])
+    emb = torch.randn((1, 4, 128), generator=torch.Generator().manual_seed(
+        3)) * 2
+    want = torch.tensor([ffn.activate(e.tolist()) for e in emb[0]])
+    got = H.PaddedNetBatch([saved], neat_cfg, device='cuda').logits(
+        emb.cuda())[0].cpu()
+    if not torch.allclose(got, want.to(got.dtype), rtol=1e-5, atol=1e-5):
+        raise AssertionError('the saved genome\'s net differs from its '
+                             'padded sweeps')
+    for name, arr in H.dqn_from_flax(data['dqn_params'],
+                                     (20, 20)).items():
+        if not torch.equal(arr, net.state_dict()[name].cpu()):
+            raise AssertionError(f'the saved dqn_params differ at {name}')
+
+    # common random numbers: four clones of the seed genome
+    tr.result_file = os.path.join(tmp, 'clones.pkl')
+    seed_genome = H.fc3_to_genome(net, neat_cfg)
+    clones = [(i, copy.deepcopy(seed_genome)) for i in range(4)]
+    tr.eval_genomes = inner
+    inner(clones, neat_cfg)
+    clone_fits = [g.fitness for _, g in clones]
+    if len(set(clone_fits)) != 1:
+        raise AssertionError(f'clones scored {clone_fits}')
+    log(f'NEAT result file loads (fitness {saved.fitness}); its net equals '
+        f'its padded sweeps; dqn_params equal the DQN; four clones of the '
+        f'seed genome score {clone_fits[0]} each')
+
+    # one fitness episode of 8 genomes, card against CPU
+    cpu_tr = H.HybridNEATTrainer(
+        {k: v.cpu() for k, v in net.state_dict().items()}, env_cfg,
+        neat_cfg, episode_steps=512, result_file=os.path.join(tmp, 'c.pkl'),
+        device='cpu')
+    eight = mutated_genomes(N, neat_cfg, seed_genome, 8, seed=4)
+    d8 = episode_draws(env_cfg, 1, 512, torch.Generator().manual_seed(5),
+                       'cpu')
+    t0 = time.perf_counter()
+    episode_check = episode_card_vs_cpu(tr, cpu_tr, eight, d8)
+    log(f'one fitness episode of 8 genomes (the seed and mutants with '
+        f'hidden sigmoid/tanh nodes) card against CPU: '
+        f'{json.dumps(episode_check)}, decisions more than 1e-4 from a tie '
+        f'equal, returns of unparted genomes equal '
+        f'({time.perf_counter() - t0:.1f} s)')
+    del cpu_tr
+
+    # sweep_values at pop 100 (generation 2's topologies), card vs CPU
+    gen1_cpu = H.PaddedNetBatch(gens[-1]['genomes'], neat_cfg, device='cpu')
+    emb = torch.randn((100, 4, 128), generator=torch.Generator().manual_seed(
+        6)) * 2
+    got, want = gen1.logits(emb.cuda()).cpu(), gen1_cpu.logits(emb)
+    sweep_err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f'sweep_values at pop 100: card against CPU '
+                             f'max abs difference {sweep_err}')
+    log(f'sweep_values at pop 100 (m={gen1.m}, {gen1.num_sweeps} sweeps) '
+        f'card against CPU: max abs difference {sweep_err} (limit 1e-5 + '
+        f'1e-5 x |value|)')
+
+    # --- ES at full width ---
+    def es_trainer(result):
+        return H.HeadESTrainer(net, env_cfg, episode_steps=512, pop_size=128,
+                               fitness_episodes=4, seed=0,
+                               result_file=os.path.join(tmp, result),
+                               device='cuda')
+
+    es = es_trainer('es.pkl')
+    es_launch = {'fitness': 0, 'validation': 0}
+    es_sw = Stopwatch()
+    for name, label in (('_fitness', 'fitness'), ('validate', 'validation')):
+        fn = getattr(es, name)
+
+        def counted(*args, fn=fn, label=label, **kwargs):
+            before = step_kernel.step.launches
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                es_launch[label] += step_kernel.step.launches - before
+
+        setattr(es, name, es_sw.wrap(label, counted))
+    es_sw.patch(H, 'save_checkpoint_safe', 'checkpoint')
+    step_kernel.step.launches = 0
+    step_kernel.step_autoreset.launches = 0
+    t0 = time.perf_counter()
+    try:
+        best_theta, best_val, hist = es.run(num_generations=2,
+                                            val_episodes=8)
+        torch.cuda.synchronize()
+    finally:
+        es_sw.restore()
+    es_wall = time.perf_counter() - t0
+    es_launches = step_kernel.step.launches
+    auto = step_kernel.step_autoreset.launches
+    es_steps = es.env_steps
+    log(f'ES path: 2 generations of {es.pop_size} + 1 members, '
+        f'{es_steps} env steps, step launches={es_launches} (fitness '
+        f'episodes at B=129: {es_launch["fitness"]}, validation at B=8: '
+        f'{es_launch["validation"]}), step_autoreset launches={auto}, '
+        f'{es_wall:.2f} s; history {json.dumps(hist)}')
+    if es_launches != es_steps or auto != 0:
+        raise AssertionError(f'ES: {es_steps} env steps but '
+                             f'{es_launches} launches of step, {auto} of '
+                             f'step_autoreset')
+    es_times = {k: v * 1e3 for k, v in es_sw.seconds.items()}
+    log(f'ES times over 2 generations (ms; validation includes the seed\'s '
+        f'before generation 0): {json.dumps(es_times)}; the rest of the '
+        f'wall (ranks, update, host) '
+        f'{(es_wall * 1e3 - sum(es_times.values())):.1f} ms [{smi}]')
+    ma, mb, dmean, dstd = es.holdout_compare(es._seed_theta, es._seed_theta,
+                                             episodes=8, block=8)
+    if not (ma == mb and dmean == 0.0 and dstd == 0.0):
+        raise AssertionError(f'holdout_compare(seed, seed) = '
+                             f'{(ma, mb, dmean, dstd)}')
+    twin = es_trainer('es_twin.pkl')
+    twin_hist = twin.run(num_generations=1, verbose=False, val_episodes=8)[2]
+    if twin_hist[0]['theta_fitness'] != hist[0]['theta_fitness']:
+        raise AssertionError(f'two ES trainers of one seed: theta_fitness '
+                             f'{twin_hist[0]["theta_fitness"]} vs '
+                             f'{hist[0]["theta_fitness"]}')
+    log(f'ES: holdout_compare(seed, seed) over 8 episodes = '
+        f'{(ma, mb, dmean, dstd)}; a second trainer of the same seed gives '
+        f'theta_fitness {twin_hist[0]["theta_fitness"]} in generation 0')
+
+    # times: profiler windows of at least 16 fitness steps
+    windows = {}
+    for label, runner in (
+            ('neat', lambda t: t._episode(gen1.acts, t._draws(1).take(
+                torch.zeros(100, dtype=torch.long)))),
+            ('es', lambda t: t._run(
+                *es._member_batch(es._seed_theta,
+                                  torch.zeros((64, 128, 3), device='cuda'),
+                                  torch.zeros((64, 3), device='cuda')),
+                t._draws(1).take(torch.zeros(129, dtype=torch.long))))):
+        short = (H.HybridNEATTrainer if label == 'neat' else H.HeadESTrainer)(
+            net, env_cfg, episode_steps=16, device='cuda',
+            result_file=os.path.join(tmp, 'short.pkl'))
+        counts = []
+
+        def fitness_steps(short=short, runner=runner, counts=counts):
+            # whole episodes (reset included) until 16 steps are taken
+            before = short.env_steps
+            while short.env_steps - before < 16:
+                runner(short)
+            counts.append(short.env_steps - before)
+
+        window = profile_device(fitness_steps, 1)
+        steps = counts[-1]
+        windows[label] = dict(window, steps=steps)
+        log_window(f'profile of {steps} fitness steps [{label}]', window,
+                   steps, smi, also=(STEP_KERNEL_NAME,))
+    # host clock, after generation 0 (which holds the first calls' set-up)
+    fitness_ms = {'neat': sum(g.get('episodes', 0.0) for g in gens[1:])
+                  * 1e3 / max(sum(g['steps'] for g in gens[1:]), 1),
+                  'es': es_sw.seconds['fitness'] * 1e3
+                  / max(es_launch['fitness'], 1),
+                  'neat_window': windows['neat']['wall_us'] / 1e3
+                  / windows['neat']['steps'],
+                  'es_window': windows['es']['wall_us'] / 1e3
+                  / windows['es']['steps']}
+    log(f'ms per fitness step (host clock: NEAT generations 1-2, ES fitness '
+        f'episodes, and the profiled windows with their resets): '
+        f'{json.dumps(fitness_ms)}; launches of step a fitness step: '
+        f'{(launches + es_launches) / (neat_steps + es_steps)} [{smi}]')
+    return {
+        'neat_launches': launches, 'neat_env_steps': neat_steps,
+        'neat_ms_by_generation': neat_gens,
+        'neat_reproduction_ms_three_generations': repro_total * 1e3,
+        'neat_checkpoint_writes': sw.calls.get('checkpoint', 0),
+        'es_launches': es_launches,
+        'es_launches_by_width': {'129': es_launch['fitness'],
+                                 '8': es_launch['validation']},
+        'es_ms_two_generations': es_times, 'es_wall_ms': es_wall * 1e3,
+        'fitness_ms_per_step': fitness_ms,
+        'fitness_launches_per_step': (launches + es_launches)
+        / (neat_steps + es_steps),
+        'fitness_window': {k: {'busy_us_per_step': w['busy_us'] / w['steps'],
+                               'idle_share': w['idle_share'],
+                               'dtoh_per_step': w['dtoh'] / w['steps']}
+                           for k, w in windows.items()},
+        'fitness_episode_card_vs_cpu': episode_check,
+        'sweep_max_abs_err': sweep_err}
+
+
+def adapter_phase(smi: str, tmp: str) -> dict:
+    """The wrapper layer on the card: make('Snake-v1') at 20x20x4 plays a
+    random episode to its end (one step launch at B=1 a step, no call of
+    the plain engine, the last step EQUAL to it); make_snake(num_envs=8)
+    (one auto-reset launch a step; the auto-reset entry against the plain
+    engine at B=8); DQNEvaluator over 2 episodes; render_winner on the NEAT
+    phase's checkpoint; the step entry against engine.step at B=1, B=100
+    and B=129."""
+    from marlsnake_torch.algo.evaluator import DQNEvaluator
+    from marlsnake_torch.algo.neat_hybrid import _default_env_cfg, render_winner
+    from marlsnake_torch.core import engine
+    from marlsnake_torch.envs.env import SnakeEnv
+    from marlsnake_torch.envs.wrappers import GymAdapter, make, make_snake
+    from marlsnake_torch.models.dqn import make_dqn
+    from marlsnake_torch.ops import step_kernel
+
+    plain_step = engine.step
+    plain_calls = [0]
+
+    def counted_plain(*args, **kwargs):
+        plain_calls[0] += 1
+        return plain_step(*args, **kwargs)
+
+    env = make('Snake-v1', device='cuda', seed=0)
+    cfg = env.cfg
+    gen = torch.Generator().manual_seed(40)
+    obs = env.reset()
+    step_kernel.step.launches = 0
+    step_kernel.step_autoreset.launches = 0
+    engine.step = counted_plain
+    steps = 0
+    t0 = time.perf_counter()
+    try:
+        dones = [False]
+        while not all(dones):
+            acts = torch.randint(0, 3, (cfg.num_snakes,), generator=gen)
+            before = (env.state, env.env.generator.get_state(), acts)
+            obs, rews, dones, info = env.step(acts.tolist())
+            steps += 1
+            if steps > cfg.max_episode_steps:
+                raise AssertionError('the adapter episode did not end')
+    finally:
+        engine.step = plain_step
+    wall = time.perf_counter() - t0
+    launches = step_kernel.step.launches
+    if launches != steps or plain_calls[0] != 0 \
+            or step_kernel.step_autoreset.launches != 0:
+        raise AssertionError(f'GymAdapter: {steps} steps, {launches} step '
+                             f'launches, {plain_calls[0]} plain-engine calls')
+    if 'rank' not in info or sorted(info['rank'])[0] != 1:
+        raise AssertionError(f'GymAdapter: no rank at the end: {info}')
+    state, gstate, acts = before
+    g2 = torch.Generator(device='cuda')
+    g2.set_state(gstate)
+    fruit_u = torch.rand((1, cfg.num_snakes), generator=g2, device='cuda')
+    want_state, want_out = engine.step(cfg, state, acts.view(1, -1).cuda(),
+                                       fruit_u)
+    compare((env.state,), (want_state,), 'GymAdapter last step')
+    for name, got in (('obs', obs), ('reward', np.asarray(rews, np.float32)),
+                      ('done', np.asarray(dones))):
+        if not np.array_equal(got, getattr(want_out, name)[0].cpu().numpy()):
+            raise AssertionError(f'GymAdapter last step: {name} differs')
+    log(f'GymAdapter (make Snake-v1, 20x20x4): a random episode of {steps} '
+        f'steps, {launches} step launches at B=1, 0 plain-engine calls, '
+        f'last step equal to engine.step, rank {info["rank"]}; '
+        f'{wall / steps * 1e3:.3f} ms a step [{smi}]')
+
+    venv, obs_shape, _, _ = make_snake(num_envs=8, device='cuda', seed=1)
+    obs = venv.reset()
+    step_kernel.step_autoreset.launches = 0
+    step_kernel.step.launches = 0
+    for _ in range(64):
+        obs, rews, dones, info = venv.step(torch.randint(
+            0, 3, (8, 4), generator=gen).numpy())
+    vlaunches = step_kernel.step_autoreset.launches
+    if vlaunches != 64 or step_kernel.step.launches != 0 \
+            or obs.shape != obs_shape:
+        raise AssertionError(f'make_snake(num_envs=8): 64 steps, '
+                             f'{vlaunches} step_autoreset launches')
+    log(f'make_snake(num_envs=8): 64 steps, {vlaunches} step_autoreset '
+        f'launches, obs {obs.shape}')
+    # the auto-reset entry at the VectorAdapter's width and config
+    err_auto = parity(venv.cfg, 8, 64, seed=43)
+
+    net = make_dqn(cfg, seed=0, device='cuda')
+    evaluator = DQNEvaluator(GymAdapter(SnakeEnv(cfg, device='cuda'), seed=2),
+                             net)
+    step_kernel.step.launches = 0
+    engine.step = counted_plain
+    t0 = time.perf_counter()
+    try:
+        reward, life = evaluator.evaluate(num_episodes=2, max_steps=256,
+                                          verbose=False)
+    finally:
+        engine.step = plain_step
+    ev_wall = time.perf_counter() - t0
+    ev_launches = step_kernel.step.launches
+    if not (math.isfinite(reward) and 0 < life <= 256) or ev_launches == 0 \
+            or plain_calls[0] != 0:
+        raise AssertionError(f'DQNEvaluator: reward {reward}, lifetime '
+                             f'{life}, {ev_launches} launches')
+    ev_ms = ev_wall / ev_launches * 1e3
+    log(f'DQNEvaluator: 2 episodes, {ev_launches} steps (step launches at '
+        f'B=1), mean reward {reward}, mean lifetime {life}; {ev_ms:.3f} ms '
+        f'a step (host clock, with the warm-up) [{smi}]')
+
+    step_kernel.step.launches = 0
+    rew, rlife = render_winner(os.path.join(tmp, 'neat.pkl'), render=False,
+                               episodes=1, max_steps=128, device='cuda')
+    rw_launches = step_kernel.step.launches
+    if not math.isfinite(rew) or rw_launches == 0:
+        raise AssertionError('render_winner did not play')
+    log(f'render_winner on the NEAT checkpoint: mean reward {rew}, mean '
+        f'lifetime {rlife}, {rw_launches} step launches')
+
+    ncfg = _default_env_cfg()
+    # the step entry at the widths of GymAdapter (1), NEAT (100), ES (129)
+    err = max(parity_step(ncfg, 1, 256, seed=41),
+              parity_step(ncfg, 100, 64, seed=44),
+              parity_step(ncfg, 129, 64, seed=42))
+    return {'gym_adapter_launches': launches,
+            'gym_adapter_ms_per_step': wall / steps * 1e3,
+            'vector_adapter_launches': vlaunches,
+            'dqn_evaluator_launches': ev_launches,
+            'dqn_evaluator_ms_per_step': ev_ms,
+            'render_winner_launches': rw_launches,
+            'step_max_abs_err_b1_b100_b129': err,
+            'step_autoreset_max_abs_err_b8': err_auto}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -1507,6 +2069,13 @@ def main() -> int:
     evaluation = evaluator_phase(smi)
     torch.cuda.empty_cache()
 
+    # --- 15. NEAT and ES evolution, then the wrapper layer ---
+    with tempfile.TemporaryDirectory() as evo_dir:
+        evolution = evolution_phase(smi, evo_dir)
+        torch.cuda.empty_cache()
+        adapters = adapter_phase(smi, evo_dir)
+    torch.cuda.empty_cache()
+
     step_main = step_rows[256]
     log(json.dumps({'kernels': variant_rows + [dict(
         auto,
@@ -1519,6 +2088,9 @@ def main() -> int:
         acting_forward_ms=forward_ms,
         bench_env_steps_per_s=b['value'],
         bench_idle_share=bench_idle,
+        vector_adapter_launches=adapters['vector_adapter_launches'],
+        max_abs_err_vector_adapter_b8=adapters[
+            'step_autoreset_max_abs_err_b8'],
         **ppo,
     ), dict(
         step_main,
@@ -1544,6 +2116,19 @@ def main() -> int:
         bench_idle_share={k: w['idle_share']
                           for k, w in slice_windows.items()},
         **evaluation,
+        launches_by_path={
+            'training': train_launches,
+            'evaluator (B=256)': evaluation['evaluator_launches'],
+            'neat (B=100)': evolution['neat_launches'],
+            'es (B=129 and 8)': evolution['es_launches'],
+            'gym_adapter (B=1)': adapters['gym_adapter_launches'],
+            'dqn_evaluator (B=1)': adapters['dqn_evaluator_launches'],
+            'render_winner (B=1)': adapters['render_winner_launches']},
+        evolution={k: v for k, v in evolution.items()
+                   if k not in ('neat_launches', 'es_launches')},
+        adapters={k: v for k, v in adapters.items()
+                  if k not in ('vector_adapter_launches',
+                               'step_autoreset_max_abs_err_b8')},
     )]}))
     log(f'total {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'ok': True, 'device': {

@@ -21,12 +21,15 @@ by snake, which is exact. A step of ``evaluate_batch`` is one forward, the
 masked choice, and one launch of the CUDA step kernel's entry without
 auto-reset, which holds the envs that were all done before the step
 still (``hold``); on the CPU the plain engine does the same.
+``DQNEvaluator`` plays one env at a time through a ``GymAdapter`` with the
+same masking, as the reference's evaluator does.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from marlsnake_torch.core import types as T
@@ -282,3 +285,64 @@ def evaluate_batch(net, params, cfg: T.EnvConfig, num_envs: int = 256,
                                device)
     r = run(params, seed)
     return float(r.mean_reward), float(r.mean_lifetime)
+
+
+class DQNEvaluator:
+    """Episode evaluator with safety masking (train_dqn.py:582-676), one
+    env at a time through a ``GymAdapter``-style env (``reset() -> obs``,
+    ``step(list) -> (obs, rews, dones, info)``, numpy on the host): each
+    step the DQN's Q-values of the env's obs on the net's device, the
+    masked choice (``masked_actions``) and the env's step. ``params`` is
+    a state_dict of the net's layout, or None for the net's own."""
+
+    def __init__(self, env, net, params=None, flood_limit: int = 60):
+        self.env = env
+        self.net = net
+        self.params = params
+        self.flood_limit = flood_limit
+        self.device = next(net.parameters()).device
+
+    @torch.no_grad()
+    def _policy(self, obs, cur_dirs, active):
+        q = (self.net(obs) if self.params is None
+             else torch.func.functional_call(self.net, self.params, (obs,)))
+        return masked_actions(obs, q, cur_dirs, active, self.flood_limit)
+
+    def evaluate(self, num_episodes: int = 1, render: bool = False,
+                 max_steps: int = 1000, verbose: bool = True):
+        n = self.env.num_snakes
+        total_rewards = 0.0
+        total_steps = 0.0
+        for ep in range(num_episodes):
+            obs = self.env.reset()
+            dones = [False] * n
+            dirs = torch.zeros((n, 2), dtype=torch.int32, device=self.device)
+            ep_rewards = np.zeros(n)
+            timelifes = np.zeros(n)
+            steps = 0
+            while not all(dones) and steps < max_steps:
+                if render:
+                    self.env.render()
+                active = np.array([not d for d in dones])
+                timelifes += active
+                acts, dirs = self._policy(
+                    torch.as_tensor(obs, device=self.device), dirs,
+                    torch.as_tensor(active, device=self.device))
+                obs, rews, dones, _ = self.env.step(acts.tolist())
+                ep_rewards += np.asarray(rews)
+                steps += 1
+            avg_r, avg_t = ep_rewards.mean(), timelifes.mean()
+            total_rewards += avg_r
+            total_steps += avg_t
+            if verbose:
+                print(f'Ep {ep + 1:3d}: Avg Reward: {avg_r:6.2f} | '
+                      f'Avg Timelife: {avg_t:5.1f} steps')
+        final_r = total_rewards / num_episodes
+        final_t = total_steps / num_episodes
+        if verbose:
+            print('-' * 50)
+            print(f'FINAL RESULTS OVER {num_episodes} EPISODES:')
+            print(f' >> Average Reward per Snake: {final_r:.2f}')
+            print(f' >> Average Timelife per Snake: {final_t:.2f} steps')
+            print('-' * 50)
+        return final_r, final_t

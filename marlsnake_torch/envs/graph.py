@@ -24,12 +24,12 @@ class GraphSnakeEnv(SnakeEnv):
                 '(same restriction as graph_snake_env.py:47-49)')
         super().__init__(cfg, device=device, seed=seed)
 
-    def reset(self, seed=None):
-        state, obs = super().reset(seed)
+    def reset(self, seed=None, draws=None):
+        state, obs = super().reset(seed, draws)
         return state, state_rays(self.cfg, state, obs[None])[0]
 
-    def step(self, state, actions):
-        state, out = super().step(state, actions)
+    def step(self, state, actions, fruit_u=None):
+        state, out = super().step(state, actions, fruit_u)
         return state, out.replace(
             obs=state_rays(self.cfg, state, out.obs[None])[0])
 

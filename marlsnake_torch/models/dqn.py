@@ -17,6 +17,8 @@ as float32: the flax DQN's ``compute_dtype``.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -71,20 +73,42 @@ class DQN(nn.Module):
         return self._trunk(x).to(torch.float32)
 
 
+# the standard deviation of a standard normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+def flax_init_(net: nn.Module) -> nn.Module:
+    """Give every convolution and linear layer of ``net`` flax's default
+    initialisation, as the JAX package's nets start: weights from
+    ``variance_scaling(1.0, 'fan_in', 'truncated_normal')`` (lecun normal:
+    a normal truncated to two standard deviations, scaled to variance
+    ``1 / fan_in``, ``fan_in = in_ch * kh * kw`` for a convolution and
+    ``in_features`` for a linear layer), and zero biases. Draws from
+    torch's default generator; returns ``net``."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                std = math.sqrt(1.0 / m.weight[0].numel()) / _TRUNC_STD
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std)
+                nn.init.zeros_(m.bias)
+    return net
+
+
 def make_dqn(cfg: EnvConfig, seed: int = 0, device='cuda',
              assume_binary_obs: bool = True, pad_channels: int = 0,
              compute_dtype: torch.dtype = torch.float32) -> DQN:
     """A DQN for ``cfg``'s observations as uint8 planes, 8 channels a
     stacked frame (packed obs are unpacked before the net,
     ``ops.obs_pack.unpack_obs``), with ``pad_channels`` zero channels
-    behind them; initialised from ``seed`` (on the CPU, then moved, so
-    the weights do not depend on the device)."""
+    behind them; initialised as flax initialises the JAX DQN
+    (``flax_init_``), from ``seed`` on the CPU and then moved, so that
+    the weights do not depend on the device."""
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        net = DQN((cfg.obs_height, cfg.obs_width),
-                  FEATURE_CHANNEL * cfg.frame_stack + pad_channels,
-                  cfg.num_actions,
-                  assume_binary_obs, device='cpu',
-                  compute_dtype=compute_dtype)
+        net = flax_init_(DQN((cfg.obs_height, cfg.obs_width),
+                             FEATURE_CHANNEL * cfg.frame_stack
+                             + pad_channels, cfg.num_actions,
+                             assume_binary_obs, device='cpu',
+                             compute_dtype=compute_dtype))
     return net.to(dev)

@@ -29,6 +29,7 @@ from torch import nn
 
 from marlsnake_torch.core.types import FEATURE_CHANNEL, EnvConfig
 from marlsnake_torch.device import resolve_device
+from marlsnake_torch.models.dqn import flax_init_
 
 CONV_CHANNELS = 32
 HIDDEN = 256
@@ -110,13 +111,14 @@ def make_actor_critic(cfg: EnvConfig, seed: int = 0, device='cuda',
                       ) -> ActorCritic:
     """An ActorCritic for ``cfg``'s observations as uint8 planes, 8
     channels a stacked frame (packed obs are unpacked before the net),
-    initialised from ``seed`` on the CPU and then moved, so that the
-    weights do not depend on the device."""
+    initialised as flax initialises the JAX ActorCritic
+    (``models.dqn.flax_init_``), from ``seed`` on the CPU and then moved,
+    so that the weights do not depend on the device."""
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        net = ActorCritic((cfg.obs_height, cfg.obs_width),
-                          FEATURE_CHANNEL * cfg.frame_stack,
-                          cfg.num_actions, assume_binary_obs, device='cpu',
-                          compute_dtype=compute_dtype)
+        net = flax_init_(ActorCritic(
+            (cfg.obs_height, cfg.obs_width),
+            FEATURE_CHANNEL * cfg.frame_stack, cfg.num_actions,
+            assume_binary_obs, device='cpu', compute_dtype=compute_dtype))
     return net.to(dev)

@@ -21,12 +21,20 @@ draws of every rollout step, the Gumbel noise of the action sample
 (``argmax(logits + gumbel)`` is a sample of ``softmax(logits)``, the very
 computation of JAX's ``random.categorical``) and one permutation of the
 rollout's samples for each epoch of minibatches.
+
+The evolution trainers (``algo/neat_hybrid.py``) take ``EpisodeDraws``
+for each fitness, validation or hold-out episode (a reset and the fruit
+draws of every step), and the head ES ``ESDraws`` for a generation (its
+perturbations and fitness episodes). A generator of its own, for a
+validation set, a hold-out set or one episode of a single env, is seeded
+with ``derive_seed``.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from marlsnake_torch.core.types import EnvConfig
@@ -138,3 +146,58 @@ def ppo_draws(cfg: EnvConfig, num_envs: int, rollout_steps: int,
                                        device=device)
                         for _ in range(update_epochs)])
     return PPODraws(step, noise, perm)
+
+
+def derive_seed(*parts: int) -> int:
+    """A 63-bit seed for a generator of its own, derived from integers
+    (numpy's ``SeedSequence``): the port's counterpart of ``fold_in``,
+    e.g. ``derive_seed(seed, episode)``."""
+    state = np.random.SeedSequence([int(p) for p in parts]).generate_state(
+        2, np.uint32)
+    return int(state[0]) | (int(state[1]) & 0x7FFFFFFF) << 32
+
+
+class EpisodeDraws(NamedTuple):
+    """The draws of ``E`` distinct episodes of up to ``T`` steps without
+    reset, every env stepped every step: one reset each and the fruit
+    draws of every step. A fitness episode of the evolution trainers has
+    ``E = 1``, its one env's draws shared by every member of the
+    population (common random numbers)."""
+    reset: ResetDraws
+    fruit_u: torch.Tensor  # (T, E, N) float32: fruit respawn
+
+    def take(self, rows: torch.Tensor) -> 'EpisodeDraws':
+        """The draws of the envs ``rows`` (indices into E, repeats
+        allowed), as new contiguous tensors, as the step kernel takes
+        them."""
+        rows = rows.to(self.fruit_u.device)
+        return EpisodeDraws(
+            ResetDraws(self.reset.spawn_u[rows], self.reset.fruit_u[rows]),
+            self.fruit_u[:, rows].contiguous())
+
+
+def episode_draws(cfg: EnvConfig, num_envs: int, steps: int,
+                  generator: torch.Generator, device) -> EpisodeDraws:
+    return EpisodeDraws(reset_draws(cfg, num_envs, generator, device),
+                        _rand((steps, num_envs, cfg.num_snakes), generator,
+                              device))
+
+
+class ESDraws(NamedTuple):
+    """One generation of the head ES: the antithetic perturbations and
+    the fitness episodes (each with E = 1, shared by every member)."""
+    eps_k: torch.Tensor  # (half, inputs, A) float32 standard normals
+    eps_b: torch.Tensor  # (half, A) float32 standard normals
+    episodes: tuple      # of EpisodeDraws
+
+
+def es_draws(cfg: EnvConfig, half: int, inputs: int, episodes: int,
+             steps: int, generator: torch.Generator, device) -> ESDraws:
+    a = cfg.num_actions
+    eps_k = torch.randn((half, inputs, a), generator=generator,
+                        device=device, dtype=torch.float32)
+    eps_b = torch.randn((half, a), generator=generator, device=device,
+                        dtype=torch.float32)
+    return ESDraws(eps_k, eps_b, tuple(
+        episode_draws(cfg, 1, steps, generator, device)
+        for _ in range(episodes)))
