@@ -133,16 +133,31 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    DQNEvaluator over 2 episodes (ms per step), render_winner(render=False)
    on the NEAT checkpoint, and the step entry against engine.step at B=1,
    B=100 and B=129, the widths of the adapter, NEAT and ES (tolerance 0);
+   then the battle arenas (``battle_phase``): build_battle_batch at 128
+   envs of 20x20x4 (length 5) for up to 512 steps, the masked DQN against
+   the PPO phase's trained net, the NEAT phase's winner and Greedy (one
+   step launch a loop step, no plain-engine call; the same battle
+   recorded on the card and 16 of its episodes replayed on the CPU:
+   every decision more than 1e-4 from a tie equal, near-ties counted,
+   rewards and lifetimes of unparted episodes equal; ms per battle step,
+   a profiler window of 16 steps, the flood fill at the battle's shape)
+   and the host BattleArena for one episode of up to 128 steps (one step
+   launch at B=1 a step); then every subcommand of the CLI once at small
+   counts (``cli_phase``: train writes the checkpoint that eval, battle,
+   battle --batched, neat and es load; train-ppo and demo; the launches of
+   both entries counted per subcommand, no plain-engine call);
 16. one JSON line of kernels (every entry and variant; the auto-reset
    entry's row carries the PPO numbers, the step entry's the evaluator's,
-   the evolution's and the adapters', with its launches on every path),
-   then, as the last line, {"ok": true, "device": {"platform": "gpu",
-   "kind": ..., "count": ...}}.
+   the evolution's, the adapters', the battles' and the CLI's, with its
+   launches on every path), then, as the last line, {"ok": true,
+   "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Run one phase alone: ``python3 -c "import chip_smoke as cs, tempfile, torch;
 torch.backends.cudnn.allow_tf32 = False;
 torch.backends.cuda.matmul.allow_tf32 = False; d = tempfile.mkdtemp();
-cs.evolution_phase('', d); cs.adapter_phase('', d)"``.
+cs.evolution_phase('', d); cs.adapter_phase('', d)"``; the battle and CLI
+phases need the NEAT phase's ``neat.pkl`` in ``d`` and PPO parameters
+(``cs.ppo_phase('', keep)`` puts them in ``keep['ppo_params']``).
 
 Exits non-zero without a result when CUDA is not available.
 """
@@ -735,13 +750,14 @@ def replay_ppo_rollout(trainer, start, draws, traj, end) -> int:
     return resets
 
 
-def ppo_phase(smi: str) -> dict:
+def ppo_phase(smi: str, keep: dict = None) -> dict:
     """PPO at the showcase width (PPOConfig's defaults at 256 envs: 20x20,
     4 snakes of length 5, 128 rollout steps, 4 epochs of 4 minibatches of
     32,768): three updates through PPOTrainer.update with the counters set
     to 0 before and read after; update 1's trajectory replayed on the CPU;
     one minibatch of 2,048 rows on the card against the CPU; a full
-    checkpoint round trip; the bench rows and two profiler windows."""
+    checkpoint round trip; the bench rows and two profiler windows. The
+    parameters after the three updates go into ``keep['ppo_params']``."""
     from marlsnake_torch import bench
     from marlsnake_torch.algo.ppo_trainer import (Minibatch, PPOConfig,
                                                   PPOTrainer)
@@ -809,6 +825,9 @@ def ppo_phase(smi: str) -> dict:
                        for v in ts.params.values()):
         raise AssertionError('the PPO parameters did not move or are not '
                              'finite')
+    if keep is not None:
+        keep['ppo_params'] = {k: v.detach().clone()
+                              for k, v in ts.params.items()}
     resets = replay_ppo_rollout(trainer, start, draws, traj, end1)
     log(f'PPO update 1 replayed through the plain engine on the CPU: every '
         f'obs, valid flag, reward and done flag of {cfg.rollout_steps} steps '
@@ -1414,6 +1433,29 @@ def evolution_phase(smi: str, tmp: str) -> dict:
         'sweep_max_abs_err': sweep_err}
 
 
+class PlainEngineCalls:
+    """Counts calls of the plain engine's steps (engine.step and
+    engine.step_autoreset) while active: on the card every step must be a
+    launch of the kernel."""
+
+    def __enter__(self):
+        from marlsnake_torch.core import engine
+        self.engine, self.calls = engine, 0
+        self.saved = (engine.step, engine.step_autoreset)
+
+        def counted(fn):
+            def wrapper(*args, **kwargs):
+                self.calls += 1
+                return fn(*args, **kwargs)
+            return wrapper
+
+        engine.step, engine.step_autoreset = map(counted, self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.step, self.engine.step_autoreset = self.saved
+
+
 def adapter_phase(smi: str, tmp: str) -> dict:
     """The wrapper layer on the card: make('Snake-v1') at 20x20x4 plays a
     random episode to its end (one step launch at B=1 a step, no call of
@@ -1430,23 +1472,15 @@ def adapter_phase(smi: str, tmp: str) -> dict:
     from marlsnake_torch.models.dqn import make_dqn
     from marlsnake_torch.ops import step_kernel
 
-    plain_step = engine.step
-    plain_calls = [0]
-
-    def counted_plain(*args, **kwargs):
-        plain_calls[0] += 1
-        return plain_step(*args, **kwargs)
-
     env = make('Snake-v1', device='cuda', seed=0)
     cfg = env.cfg
     gen = torch.Generator().manual_seed(40)
     obs = env.reset()
     step_kernel.step.launches = 0
     step_kernel.step_autoreset.launches = 0
-    engine.step = counted_plain
     steps = 0
     t0 = time.perf_counter()
-    try:
+    with PlainEngineCalls() as plain:
         dones = [False]
         while not all(dones):
             acts = torch.randint(0, 3, (cfg.num_snakes,), generator=gen)
@@ -1455,14 +1489,12 @@ def adapter_phase(smi: str, tmp: str) -> dict:
             steps += 1
             if steps > cfg.max_episode_steps:
                 raise AssertionError('the adapter episode did not end')
-    finally:
-        engine.step = plain_step
     wall = time.perf_counter() - t0
     launches = step_kernel.step.launches
-    if launches != steps or plain_calls[0] != 0 \
+    if launches != steps or plain.calls != 0 \
             or step_kernel.step_autoreset.launches != 0:
         raise AssertionError(f'GymAdapter: {steps} steps, {launches} step '
-                             f'launches, {plain_calls[0]} plain-engine calls')
+                             f'launches, {plain.calls} plain-engine calls')
     if 'rank' not in info or sorted(info['rank'])[0] != 1:
         raise AssertionError(f'GymAdapter: no rank at the end: {info}')
     state, gstate, acts = before
@@ -1502,17 +1534,14 @@ def adapter_phase(smi: str, tmp: str) -> dict:
     evaluator = DQNEvaluator(GymAdapter(SnakeEnv(cfg, device='cuda'), seed=2),
                              net)
     step_kernel.step.launches = 0
-    engine.step = counted_plain
     t0 = time.perf_counter()
-    try:
+    with PlainEngineCalls() as plain:
         reward, life = evaluator.evaluate(num_episodes=2, max_steps=256,
                                           verbose=False)
-    finally:
-        engine.step = plain_step
     ev_wall = time.perf_counter() - t0
     ev_launches = step_kernel.step.launches
     if not (math.isfinite(reward) and 0 < life <= 256) or ev_launches == 0 \
-            or plain_calls[0] != 0:
+            or plain.calls != 0:
         raise AssertionError(f'DQNEvaluator: reward {reward}, lifetime '
                              f'{life}, {ev_launches} launches')
     ev_ms = ev_wall / ev_launches * 1e3
@@ -1542,6 +1571,361 @@ def adapter_phase(smi: str, tmp: str) -> dict:
             'render_winner_launches': rw_launches,
             'step_max_abs_err_b1_b100_b129': err,
             'step_autoreset_max_abs_err_b8': err_auto}
+
+
+def recorded_battle(net, opponents, cfg, num_envs, max_steps, device,
+                    draws):
+    """``build_battle_batch``'s run with a record of every step: the
+    decision values of each seat (seat 0's Q-values, the PPO's logits,
+    the NEAT head's output values; None for the greedy seat), the actions
+    stepped and the seats done after the step. Returns (rewards,
+    lifetimes, record) on the CPU."""
+    from marlsnake_torch.algo import battle_batch as BB
+    record, pending = [], {}
+    real_seat0, real_fns = BB.masked_seat0, BB.build_vector_fns
+
+    def seat0(obs0, q0, dir0, alive0, flood_limit=60):
+        pending[0] = q0.cpu()
+        return real_seat0(obs0, q0, dir0, alive0, flood_limit)
+
+    def vector_fns(cfg, autoreset=True, device='cuda'):
+        reset_fn, step_fn = real_fns(cfg, autoreset, device)
+
+        def step(states, actions, draws, hold=None):
+            states, out = step_fn(states, actions, draws, hold=hold)
+            record.append({'actions': actions.cpu(), 'done': out.done.cpu(),
+                           'values': [pending.pop(i, None)
+                                      for i in range(cfg.num_snakes)]})
+            return states, out
+        return reset_fn, step
+
+    for seat, op in enumerate(opponents, 1):
+        if isinstance(op, BB.BatchedPPO):
+            def ppo(x, inner=op.net, seat=seat):
+                out = inner(x)
+                pending[seat] = out[0].cpu()
+                return out
+            op.net = ppo
+        elif isinstance(op, BB.BatchedNEAT):
+            def acts(emb, batch=op.batch, seat=seat):
+                values = batch.logits(emb)
+                pending[seat] = values[0].cpu()
+                return values.argmax(-1).to(torch.int32)
+            op.batch.acts = acts
+    BB.masked_seat0, BB.build_vector_fns = seat0, vector_fns
+    try:
+        run = BB.build_battle_batch(net, cfg, opponents, num_envs,
+                                    max_steps, device=device)
+        rew, life = run(draws=draws)
+    finally:
+        BB.masked_seat0, BB.build_vector_fns = real_seat0, real_fns
+    return rew.cpu(), life.cpu(), record
+
+
+def battle_card_vs_cpu(card, cpu, episodes: int) -> dict:
+    """The first ``episodes`` episodes of a recorded battle on the card
+    against the same episodes replayed on the CPU (``recorded_battle``
+    twice). Per episode, while it has not parted, for every seat alive
+    before the step: a decision whose values are more than 1e-4 apart
+    pairwise (the greedy seat's always) must be equal on both sides; a
+    decision nearer a tie is counted, and parts its episode if it flips.
+    Rewards and lifetimes of episodes never parted must be EQUAL."""
+    (rew_g, life_g, rec_g), (rew_c, life_c, rec_c) = card, cpu
+    k = episodes
+    parted = torch.zeros(k, dtype=torch.bool)
+    done = torch.zeros_like(rec_c[0]['done'])
+    compared = near = 0
+    for t in range(min(len(rec_g), len(rec_c))):
+        act_g, act_c = rec_g[t]['actions'][:k], rec_c[t]['actions']
+        for seat, values in enumerate(rec_c[t]['values']):
+            if values is None:
+                clear = torch.ones(k, dtype=torch.bool)
+            else:
+                gaps = (values[:, :, None] - values[:, None, :]).abs()
+                gaps = gaps.masked_fill(torch.eye(3, dtype=torch.bool),
+                                        float('inf'))
+                clear = gaps.flatten(1).min(-1).values > 1e-4
+            live = ~parted & ~done[:, seat]
+            differ = act_g[:, seat] != act_c[:, seat]
+            if bool((live & clear & differ).any()):
+                raise AssertionError(f'battle replay: a decision of seat '
+                                     f'{seat} more than 1e-4 from a tie '
+                                     f'differs at step {t}')
+            compared += int((live & clear).sum())
+            near += int((live & ~clear).sum())
+            parted |= live & ~clear & differ
+        done = done | rec_c[t]['done']
+    kept = ~parted
+    if len(rec_g) != len(rec_c) and bool(kept.all()) \
+            and int(life_g[:k].max()) == int(life_g.max()):
+        raise AssertionError('battle replay: lengths differ but no '
+                             'decision flipped')
+    if not (torch.equal(rew_g[:k][kept], rew_c[kept])
+            and torch.equal(life_g[:k][kept], life_c[kept])):
+        raise AssertionError('battle replay: rewards or lifetimes of '
+                             'episodes whose every decision agreed differ')
+    return {'episodes': k, 'steps': [len(rec_g), len(rec_c)],
+            'decisions_compared': compared, 'near_ties': near,
+            'episodes_parted': int(parted.sum())}
+
+
+def battle_phase(smi: str, tmp: str, ppo_params: dict) -> dict:
+    """The battle arenas at full width (the battle CLI's config: 20x20, 4
+    snakes of length 5): build_battle_batch with 128 envs for up to 512
+    steps, the masked DQN (the reference width, seeded weights) against
+    the PPO phase's trained net, the NEAT phase's winner and Greedy; the
+    step entry's launches equal the loop's steps, no plain-engine call;
+    16 of the episodes replayed on the CPU decision by decision; ms per
+    step, a profiler window of 16 steps and the flood fill at the
+    battle's shape. Then the host BattleArena, one episode of up to 128
+    steps at B=1: one step launch a step."""
+    import random
+    from marlsnake_torch.algo import battle_batch as BB
+    from marlsnake_torch.algo.battle import BattleArena
+    from marlsnake_torch.algo.neat_hybrid import load_hybrid_raw
+    from marlsnake_torch.algo.opponents import (GreedyAgent, NEATAgent,
+                                                PPOAgent)
+    from marlsnake_torch.core.types import EnvConfig
+    from marlsnake_torch.envs.wrappers import make
+    from marlsnake_torch.models.dqn import make_dqn
+    from marlsnake_torch.models.ppo import ActorCritic
+    from marlsnake_torch.ops import step_kernel
+    from marlsnake_torch.ops.floodfill import reachable_count
+    from marlsnake_torch.rng import BattleDraws, ResetDraws, battle_draws
+
+    cfg = EnvConfig(height=20, width=20, num_snakes=4, snake_length=5)
+    num_envs, max_steps, replayed = 128, 512, 16
+    data = load_hybrid_raw(os.path.join(tmp, 'neat.pkl'))
+    names = ['DQN (Main)', 'PPO', 'Hybrid NEAT', 'Greedy Bot']
+
+    def side(device):
+        net = make_dqn(cfg, seed=0, device=device)
+        ppo = ActorCritic((20, 20), assume_binary_obs=True, device=device)
+        ppo.load_state_dict(ppo_params)
+        return net, [BB.BatchedPPO(ppo),
+                     BB.BatchedNEAT(data['dqn_params'], data['neat_genome'],
+                                    data['neat_config'], cfg, device=device),
+                     BB.BatchedGreedy()]
+
+    net, opponents = side('cuda')
+    kinds = [op.draws for op in opponents]
+    draws = battle_draws(cfg, kinds, num_envs, max_steps,
+                         torch.Generator(device='cuda').manual_seed(50),
+                         'cuda')
+    run = BB.build_battle_batch(net, cfg, opponents, num_envs, max_steps,
+                                device='cuda')
+    # warm-up: a battle of 4 steps at the same shapes
+    BB.build_battle_batch(net, cfg, opponents, num_envs, 4,
+                          device='cuda')(seed=49)
+    step_kernel.step.launches = 0
+    step_kernel.step_autoreset.launches = 0
+    torch.cuda.synchronize()
+    with PlainEngineCalls() as plain:
+        t0 = time.perf_counter()
+        rew, life = run(draws=draws)
+        rew, life = rew.cpu(), life.cpu()
+        wall = time.perf_counter() - t0
+    steps = int(life.max())
+    launches = step_kernel.step.launches
+    auto = step_kernel.step_autoreset.launches
+    ms_per_step = wall / steps * 1e3
+    log(f'battle path (build_battle_batch): {num_envs} envs of 20x20x4, '
+        f'{steps} of {max_steps} steps, step launches={launches}, '
+        f'step_autoreset launches={auto}, plain-engine calls={plain.calls}; '
+        f'{ms_per_step:.3f} ms a battle step (host clock, one read-back a '
+        f'step) [{smi}]')
+    if launches != steps or auto != 0 or plain.calls != 0:
+        raise AssertionError(f'battle: {steps} steps but {launches} step '
+                             f'launches, {auto} step_autoreset launches, '
+                             f'{plain.calls} plain-engine calls')
+    if not (bool(torch.isfinite(rew).all()) and rew.shape == (num_envs, 4)
+            and bool((life >= 1).all()) and steps <= max_steps):
+        raise AssertionError('battle result not finite or out of range')
+    log(BB.summarize(rew, life, names))
+
+    # the same battle recorded, on the card and on the CPU (16 episodes)
+    card = recorded_battle(*side('cuda'), cfg, num_envs, max_steps, 'cuda',
+                           draws)
+    if not (torch.equal(card[0], rew) and torch.equal(card[1], life)):
+        raise AssertionError('battle: two runs of the same draws on the '
+                             'card differ')
+    few = torch.arange(replayed, device='cuda')
+    cpu_draws = BattleDraws(
+        ResetDraws(*(x[few].cpu() for x in draws.reset)),
+        draws.fruit_u[:, few].cpu(),
+        tuple(None if x is None else x[:, few].cpu() for x in draws.seat))
+    t0 = time.perf_counter()
+    cpu = recorded_battle(*side('cpu'), cfg, replayed, max_steps, 'cpu',
+                          cpu_draws)
+    replay = battle_card_vs_cpu(card, cpu, replayed)
+    log(f'battle: {replayed} episodes replayed on the CPU decision by '
+        f'decision: {json.dumps(replay)}; decisions more than 1e-4 from a '
+        f'tie equal, rewards and lifetimes of unparted episodes equal '
+        f'({time.perf_counter() - t0:.1f} s)')
+
+    # a profiler window of 16 battle steps (the reset included)
+    short = BB.build_battle_batch(net, cfg, opponents, num_envs, 16,
+                                  device='cuda')
+    window = profile_device(lambda: short(seed=51), 1)
+    log_window('profile of 16 battle steps at 128 envs', window, 16, smi,
+               also=(STEP_KERNEL_NAME,))
+    gen = torch.Generator(device='cuda').manual_seed(52)
+    boards = torch.rand((num_envs, 3, 20, 20), generator=gen,
+                        device='cuda') > 0.3
+    starts = torch.randint(0, 20, (num_envs, 3, 2), generator=gen,
+                           device='cuda')
+    fill = profile_device(lambda: reachable_count(boards, starts, 60), 10)
+    fill_us = fill['busy_us'] / 10
+    fill_kernels = sum(v[1] for v in fill['kernels'].values()) // 10
+    cells = boards.numel()
+    fill_bound_ms = max((cells + starts.numel() * starts.element_size()
+                         + num_envs * 3 * 4) / HBM_BYTES_PER_S,
+                        60 * cells * 6 / FP32_OPS_PER_S) * 1e3
+    log(f'flood fill at the battle\'s shape ({num_envs * 3} boards of '
+        f'20x20, limit 60, seat 0 alone): device {fill_us:.1f} us in '
+        f'{fill_kernels} kernels a call, bound {fill_bound_ms:.5f} ms '
+        f'(the larger of its bytes and its {60 * cells * 6} bool ops), '
+        f'{fill_us / 1e3 / ms_per_step * 100:.1f}% of a battle step '
+        f'[{smi}]')
+
+    # the host arena: one episode at B=1
+    env = make('Snake-v1', device='cuda', num_snakes=4, height=20,
+               width=20, snake_length=5, seed=3)
+    rng = random.Random(3)
+    ppo_host = ActorCritic((20, 20), assume_binary_obs=True, device='cuda')
+    ppo_host.load_state_dict(ppo_params)
+    arena = BattleArena(env, net, None, [
+        PPOAgent(1, ppo_host),
+        NEATAgent(2, data['dqn_params'], data['neat_genome'],
+                  data['neat_config'], cfg, device='cuda'),
+        GreedyAgent(3, rng)], display_names=names)
+    env_steps = [0]
+    inner_step = env.step
+
+    def counted_step(actions, **kwargs):
+        env_steps[0] += 1
+        return inner_step(actions, **kwargs)
+
+    env.step = counted_step
+    step_kernel.step.launches = 0
+    with PlainEngineCalls() as plain:
+        t0 = time.perf_counter()
+        host_rew, host_life = arena.run_battle(num_episodes=1,
+                                               max_steps=128, verbose=False)
+        host_wall = time.perf_counter() - t0
+    host_launches = step_kernel.step.launches
+    host_ms = host_wall / env_steps[0] * 1e3
+    log(f'host BattleArena (make Snake-v1, 20x20x4, PPO / NEAT / Greedy '
+        f'host agents): {env_steps[0]} steps, {host_launches} step launches '
+        f'at B=1, {plain.calls} plain-engine calls, mean rewards '
+        f'{host_rew.tolist()}, lifetimes {host_life.tolist()}; '
+        f'{host_ms:.3f} ms a step (host clock, with the warm-up) [{smi}]')
+    if host_launches != env_steps[0] or plain.calls != 0 \
+            or not np.isfinite(host_rew).all():
+        raise AssertionError(f'host arena: {env_steps[0]} steps, '
+                             f'{host_launches} launches, {plain.calls} '
+                             f'plain-engine calls')
+    return {'battle_launches': launches, 'battle_steps': steps,
+            'battle_ms_per_step': ms_per_step,
+            'battle_window': {
+                'busy_us_per_step': window['busy_us'] / 16,
+                'idle_share': window['idle_share'],
+                'device_events_per_step': sum(
+                    v[1] for v in window['kernels'].values()) / 16,
+                'dtoh_per_step': window['dtoh'] / 16,
+                'wall_ms_per_step': window['wall_us'] / 16e3},
+            'battle_floodfill_device_us': fill_us,
+            'battle_floodfill_kernels': fill_kernels,
+            'battle_floodfill_bound_ms': fill_bound_ms,
+            'battle_replay': replay,
+            'arena_launches': host_launches,
+            'arena_ms_per_step': host_ms}
+
+
+def cli_phase(smi: str, tmp: str, ppo_params: dict,
+              device: str = 'cuda') -> dict:
+    """Every subcommand of ``python -m marlsnake_torch.cli`` once on the
+    card at small counts, in a directory of its own: ``train`` (2
+    episodes, 32 envs) writes the checkpoint that ``eval``, ``battle``
+    (host and batched; with the PPO phase's net written in the reference
+    layout and the NEAT phase's winner), ``neat`` and ``es`` load;
+    ``train-ppo`` and ``demo``. Launches of both entries counted per
+    subcommand, no plain-engine call."""
+    import contextlib
+    import io
+    from marlsnake_torch import cli
+    from marlsnake_torch.models.weights import actor_critic_to_reference
+    from marlsnake_torch.ops import step_kernel
+
+    work = os.path.join(tmp, 'cli')
+    os.makedirs(work)
+    ppo_path = os.path.join(work, 'ppo_ref.pt')
+    torch.save({'model_state_dict': actor_critic_to_reference(ppo_params)},
+               ppo_path)
+    lineup = ['--ppo-checkpoint', ppo_path,
+              '--hybrid-pickle', os.path.join(tmp, 'neat.pkl')]
+    runs = [
+        ('train', ['--episodes', '2', '--num-envs', '32', '--no-log'],
+         'Ep     2 | Mean Reward:'),
+        ('eval', ['--no-render', '--episodes', '1'],
+         'FINAL RESULTS OVER 1 EPISODES:'),
+        ('battle', ['--no-render', '--episodes', '1'] + lineup,
+         'Hybrid NEAT          | '),
+        ('battle --batched', ['--episodes', '32'] + lineup, '| n=32'),
+        ('neat', ['--generations', '1', '--pop-size', '16',
+                  '--fitness-episodes', '1', '--result-file', 'neat.pkl'],
+         'Loaded checkpoint: final'),
+        ('es', ['--generations', '1', '--pop-size', '8',
+                '--fitness-episodes', '1', '--val-episodes', '4',
+                '--holdout-episodes', '4', '--result-file', 'es.pkl'],
+         'holdout (4 fresh paired episodes): seed '),
+        ('train-ppo', ['--updates', '1', '--num-envs', '16',
+                       '--rollout-steps', '16', '--no-log'],
+         'update    1 | return'),
+        ('demo', [], 'demo: ')]
+    counts = {}
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        for name, extra, expect in runs:
+            argv = name.split() + extra + ['--device', device]
+            step_kernel.step.launches = 0
+            step_kernel.step_autoreset.launches = 0
+            out = io.StringIO()
+            with PlainEngineCalls() as plain, contextlib.redirect_stdout(out):
+                t0 = time.perf_counter()
+                cli.main(argv)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            text = out.getvalue()
+            counts[name] = {'step': step_kernel.step.launches,
+                            'step_autoreset':
+                                step_kernel.step_autoreset.launches,
+                            'seconds': seconds}
+            loads = name in ('eval', 'battle', 'battle --batched', 'neat',
+                             'es')
+            autoreset = name == 'train-ppo'
+            if expect not in text or plain.calls != 0 \
+                    or (loads and 'Loaded checkpoint: final' not in text) \
+                    or counts[name]['step' if not autoreset
+                                    else 'step_autoreset'] == 0 \
+                    or counts[name]['step_autoreset' if not autoreset
+                                    else 'step'] != 0:
+                log(text[-3000:])
+                raise AssertionError(f'cli {name}: {counts[name]}, '
+                                     f'{plain.calls} plain-engine calls')
+            tail = [line for line in text.splitlines()
+                    if line.strip()][-6:]
+            log(f'cli {name} on the card: {seconds:.2f} s, step launches '
+                f'{counts[name]["step"]}, step_autoreset launches '
+                f'{counts[name]["step_autoreset"]}; last lines: '
+                f'{json.dumps(tail)}')
+    finally:
+        os.chdir(cwd)
+    if counts['train-ppo']['step_autoreset'] != 16:
+        raise AssertionError('cli train-ppo: one auto-reset launch a '
+                             'rollout step expected')
+    return counts
 
 
 def main() -> int:
@@ -2064,16 +2448,22 @@ def main() -> int:
         log(f'train bench (in turns): {json.dumps(row)} [{smi}]')
 
     # --- 14. PPO training and the batched evaluator at full width ---
-    ppo = ppo_phase(smi)
+    trained = {}
+    ppo = ppo_phase(smi, trained)
     torch.cuda.empty_cache()
     evaluation = evaluator_phase(smi)
     torch.cuda.empty_cache()
 
-    # --- 15. NEAT and ES evolution, then the wrapper layer ---
+    # --- 15. NEAT and ES evolution, the wrapper layer, the battle arenas
+    # and the CLI ---
     with tempfile.TemporaryDirectory() as evo_dir:
         evolution = evolution_phase(smi, evo_dir)
         torch.cuda.empty_cache()
         adapters = adapter_phase(smi, evo_dir)
+        torch.cuda.empty_cache()
+        battle = battle_phase(smi, evo_dir, trained['ppo_params'])
+        torch.cuda.empty_cache()
+        cli_runs = cli_phase(smi, evo_dir, trained['ppo_params'])
     torch.cuda.empty_cache()
 
     step_main = step_rows[256]
@@ -2123,7 +2513,14 @@ def main() -> int:
             'es (B=129 and 8)': evolution['es_launches'],
             'gym_adapter (B=1)': adapters['gym_adapter_launches'],
             'dqn_evaluator (B=1)': adapters['dqn_evaluator_launches'],
-            'render_winner (B=1)': adapters['render_winner_launches']},
+            'render_winner (B=1)': adapters['render_winner_launches'],
+            'battle_batch (B=128)': battle['battle_launches'],
+            'battle_arena (B=1)': battle['arena_launches'],
+            'cli': {k: {e: v[e] for e in ('step', 'step_autoreset')}
+                    for k, v in cli_runs.items()}},
+        battle={k: v for k, v in battle.items()
+                if k not in ('battle_launches', 'arena_launches')},
+        cli_seconds={k: v['seconds'] for k, v in cli_runs.items()},
         evolution={k: v for k, v in evolution.items()
                    if k not in ('neat_launches', 'es_launches')},
         adapters={k: v for k, v in adapters.items()

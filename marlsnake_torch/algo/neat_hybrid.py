@@ -237,7 +237,7 @@ def _is_flax(params: Mapping) -> bool:
     return isinstance(p.get('fc3'), Mapping)
 
 
-def _as_dqn(dqn, env_cfg: EnvConfig, device: torch.device) -> DQN:
+def as_dqn(dqn, env_cfg: EnvConfig, device: torch.device) -> DQN:
     """The frozen feature DQN on ``device`` from the port's ``DQN``, its
     state_dict, or flax DQN parameters."""
     if isinstance(dqn, DQN):
@@ -404,7 +404,7 @@ class _FitnessEpisodes:
             num_inputs=128, num_outputs=self.env_cfg.num_actions)
         self.episode_steps = episode_steps
         self.seed = seed
-        self.net = _as_dqn(dqn, self.env_cfg, self.device)
+        self.net = as_dqn(dqn, self.env_cfg, self.device)
         # the checkpoints' payload layout: flax's tree of numpy arrays
         self.dqn_params = dqn_to_flax(
             self.net.state_dict(),
@@ -721,7 +721,7 @@ def render_winner(winner_pickle: str, env_cfg: Optional[EnvConfig] = None,
     if render:
         env = RenderGUI(env, save_video=True, video_path=video_path,
                         fps=10)
-    net = _as_dqn(dqn_params, env_cfg, dev)
+    net = as_dqn(dqn_params, env_cfg, dev)
 
     ep_rewards, ep_timelifes = [], []
     for ep in range(episodes):

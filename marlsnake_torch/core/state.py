@@ -14,6 +14,8 @@ import dataclasses
 
 import torch
 
+from marlsnake_torch.core import types as T
+
 
 @dataclasses.dataclass(frozen=True)
 class EnvState:
@@ -60,6 +62,11 @@ class EnvState:
     def device(self) -> torch.device:
         return self.grid.device
 
+    @property
+    def body_length(self) -> torch.Tensor:
+        """(B, N) int32: head, body and tail cells of each snake."""
+        return self.ring_len + 1
+
 
 def ring_num_words(cap: int) -> int:
     """int32 words backing a ``cap``-slot 2-bit-packed ring."""
@@ -78,6 +85,13 @@ def ring_pack_prefix(dirs: torch.Tensor, cap: int) -> torch.Tensor:
             wv = wv | (dirs[..., j] << (2 * (j & 15)))
         words.append(wv)
     return torch.stack(words, dim=-1)
+
+
+def ring_slots(ring: torch.Tensor, cap: int) -> torch.Tensor:
+    """Unpack a ring (..., CW) to one direction per slot (..., cap), for
+    introspection; the ring ops below never unpack."""
+    slots = torch.arange(cap, dtype=torch.int32, device=ring.device)
+    return (ring[..., slots >> 4] >> (2 * (slots & 15))) & 3
 
 
 def ring_push(ring, ring_head, ring_len, direction, mask, cap: int):
@@ -104,9 +118,20 @@ def ring_pop_tail(ring, ring_head, ring_len, mask, cap: int):
 
     Returns (popped direction, valid where mask; new ring_len).
     """
+    new_len = torch.where(mask, ring_len - 1, ring_len)
+    return tail_direction(ring, ring_head, ring_len, cap), new_len
+
+
+def tail_direction(ring, ring_head, ring_len, cap: int) -> torch.Tensor:
+    """Direction of the oldest (tail-side) link, for any leading axes."""
     idx = (ring_head + ring_len - 1) % cap
     word = torch.gather(ring, -1, (idx >> 4).long().unsqueeze(-1)
                         ).squeeze(-1)
-    popped = (word >> (2 * (idx & 15))) & 3
-    new_len = torch.where(mask, ring_len - 1, ring_len)
-    return popped, new_len
+    return (word >> (2 * (idx & 15))) & 3
+
+
+def body_coords_mask(state: EnvState, snake_idx: int) -> torch.Tensor:
+    """(B, H, W) bool: the cells owned by ``snake_idx`` (head, body and
+    tail) in each env."""
+    return ((T.cell_type(state.grid) >= T.HEAD)
+            & (T.cell_owner(state.grid) == snake_idx))

@@ -39,6 +39,11 @@ def cell_owner(cell):
     return cell >> OWNER_SHIFT
 
 
+def pack_cell(ctype, owner):
+    """Pack type + owner into a cell value."""
+    return ctype + (owner << OWNER_SHIFT)
+
+
 # Observation: 8 one-hot channels per cell: wall, fruit, other
 # head/body/tail, my head/body/tail.
 FEATURE_CHANNEL = 8
@@ -228,3 +233,6 @@ class EnvConfig:
         """Max body length: a snake can never exceed the interior area."""
         return (self.height - 2) * (self.width - 2)
 
+    def reward(self, name: str) -> float:
+        """The reward of ``name``, one of ``REWARD_KEYS``."""
+        return self.rewards[REWARD_KEYS.index(name)]

@@ -27,6 +27,18 @@ from marlsnake_torch.core.types import FEATURE_CHANNEL, EnvConfig
 from marlsnake_torch.device import resolve_device
 
 
+def prepare_obs(x: torch.Tensor, compute_dtype: torch.dtype,
+                assume_binary_obs: bool) -> torch.Tensor:
+    """NHWC observations as a batch in ``compute_dtype``, divided by 255
+    where the batch's maximum exceeds 1 unless ``assume_binary_obs``."""
+    if x.dim() == 3:
+        x = x[None]
+    if assume_binary_obs:
+        return x.to(compute_dtype)
+    x = x.to(torch.float32)
+    return torch.where(x.max() > 1.0, x / 255.0, x).to(compute_dtype)
+
+
 class DQN(nn.Module):
     def __init__(self, grid_hw, in_channels: int = 8, num_actions: int = 3,
                  assume_binary_obs: bool = False, device='cuda',
@@ -44,15 +56,8 @@ class DQN(nn.Module):
         self.fc3 = nn.Linear(128, num_actions, device=dev)
 
     def _trunk(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dim() == 3:
-            x = x[None]
         dt = self.compute_dtype
-        if self.assume_binary_obs:
-            x = x.to(dt)
-        else:
-            x = x.to(torch.float32)
-            x = torch.where(x.max() > 1.0, x / 255.0, x).to(dt)
-        x = x.permute(0, 3, 1, 2)
+        x = prepare_obs(x, dt, self.assume_binary_obs).permute(0, 3, 1, 2)
         for conv in (self.conv1, self.conv2, self.conv3):
             x = F.relu(F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt),
                                 padding=1))
@@ -71,6 +76,48 @@ class DQN(nn.Module):
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """128-d penultimate embedding, float32."""
         return self._trunk(x).to(torch.float32)
+
+
+class DistilledDQN(nn.Module):
+    """The small acting trunk distilled from the reference-topology DQN,
+    the JAX package's ``DistilledDQN``: 3x3 SAME convolutions of
+    ``conv_channels`` (16, 32), dense ``fc_features`` (64), then the
+    Q-values, ReLU throughout, computed in ``compute_dtype`` (bfloat16 by
+    default; float32 parameters, float32 Q-values out). An opt-in acting
+    trade: checkpoints and training stay on ``DQN``. The flatten before
+    the first dense layer is in NHWC order, as flax's, so flax's kernels
+    map by a transpose (``models/weights.distilled_dqn_from_flax``)."""
+
+    def __init__(self, grid_hw, in_channels: int = 8, num_actions: int = 3,
+                 conv_channels=(16, 32), fc_features=(64,),
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 assume_binary_obs: bool = True, device='cuda'):
+        super().__init__()
+        h, w = grid_hw
+        dev = resolve_device(device)
+        self.assume_binary_obs = assume_binary_obs
+        self.compute_dtype = compute_dtype
+        chans = (in_channels,) + tuple(conv_channels)
+        self.convs = nn.ModuleList(
+            nn.Conv2d(i, o, 3, padding=1, device=dev)
+            for i, o in zip(chans[:-1], chans[1:]))
+        feats = (chans[-1] * h * w,) + tuple(fc_features)
+        self.fcs = nn.ModuleList(nn.Linear(i, o, device=dev)
+                                 for i, o in zip(feats[:-1], feats[1:]))
+        self.head = nn.Linear(feats[-1], num_actions, device=dev)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Q-values (B, num_actions), float32, of NHWC observations."""
+        dt = self.compute_dtype
+        x = prepare_obs(x, dt, self.assume_binary_obs).permute(0, 3, 1, 2)
+        for conv in self.convs:
+            x = F.relu(F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt),
+                                padding=1))
+        x = x.permute(0, 2, 3, 1).flatten(1)
+        for fc in self.fcs:
+            x = F.relu(F.linear(x, fc.weight.to(dt), fc.bias.to(dt)))
+        return F.linear(x, self.head.weight.to(dt),
+                        self.head.bias.to(dt)).to(torch.float32)
 
 
 # the standard deviation of a standard normal truncated to [-2, 2]

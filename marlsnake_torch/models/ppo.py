@@ -29,7 +29,7 @@ from torch import nn
 
 from marlsnake_torch.core.types import FEATURE_CHANNEL, EnvConfig
 from marlsnake_torch.device import resolve_device
-from marlsnake_torch.models.dqn import flax_init_
+from marlsnake_torch.models.dqn import flax_init_, prepare_obs
 
 CONV_CHANNELS = 32
 HIDDEN = 256
@@ -75,15 +75,8 @@ class ActorCritic(nn.Module):
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """Pooled features (B, 128 or fewer) in the compute dtype."""
-        if x.dim() == 3:
-            x = x[None]
         dt = self.compute_dtype
-        if self.assume_binary_obs:
-            x = x.to(dt)
-        else:
-            x = x.to(torch.float32)
-            x = torch.where(x.max() > 1.0, x / 255.0, x).to(dt)
-        x = x.permute(0, 3, 1, 2)
+        x = prepare_obs(x, dt, self.assume_binary_obs).permute(0, 3, 1, 2)
         for conv in (self.conv1, self.conv2):
             x = F.relu(F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt),
                                 padding=1))

@@ -11,7 +11,8 @@ inverse, and ``train_state_from_flax`` carries a whole JAX training state
 into the port's ``TrainState``. The ActorCritic flattens NHWC in both
 packages, so its kernels are transposed only
 (``actor_critic_from_flax``, ``actor_critic_to_flax``), and
-``ppo_train_state_from_flax`` carries a JAX ``PPOTrainState`` across.
+``ppo_train_state_from_flax`` carries a JAX ``PPOTrainState`` across; so
+does the ``DistilledDQN`` (``distilled_dqn_from_flax``).
 """
 
 from __future__ import annotations
@@ -205,6 +206,11 @@ def ppo_train_state_from_flax(ts, device='cuda'):
         finished_count=t('finished_count'))
 
 
+_AC_REFERENCE_NAMES = {'CNN_feature.0': 'conv1', 'CNN_feature.3': 'conv2',
+                       'actor.0': 'actor_fc1', 'actor.2': 'actor_fc2',
+                       'critic.0': 'critic_fc1', 'critic.2': 'critic_fc2'}
+
+
 def actor_critic_from_reference(state_dict: Mapping
                                 ) -> Dict[str, torch.Tensor]:
     """The reference's PPO checkpoint (``CNN_feature.0/.3`` convolutions,
@@ -214,13 +220,49 @@ def actor_critic_from_reference(state_dict: Mapping
     map exactly; the reference's pooling between its convolutions left the
     repository with its source module, so the trunk computes the same
     function only as far as the port's pooling is the reference's."""
-    names = {'CNN_feature.0': 'conv1', 'CNN_feature.3': 'conv2',
-             'actor.0': 'actor_fc1', 'actor.2': 'actor_fc2',
-             'critic.0': 'critic_fc1', 'critic.2': 'critic_fc2'}
     sd = {k.replace('module.', ''): v for k, v in state_dict.items()}
     return {f'{ours}.{leaf}': torch.as_tensor(sd[f'{theirs}.{leaf}'])
             .detach().clone()
-            for theirs, ours in names.items() for leaf in ('weight', 'bias')}
+            for theirs, ours in _AC_REFERENCE_NAMES.items()
+            for leaf in ('weight', 'bias')}
+
+
+def actor_critic_to_reference(state_dict: Mapping
+                              ) -> Dict[str, torch.Tensor]:
+    """The inverse of ``actor_critic_from_reference``: the port's
+    ``ActorCritic`` state_dict in the reference's PPO layout, on the
+    CPU."""
+    return {f'{theirs}.{leaf}': state_dict[f'{ours}.{leaf}']
+            .detach().cpu().clone()
+            for theirs, ours in _AC_REFERENCE_NAMES.items()
+            for leaf in ('weight', 'bias')}
+
+
+def distilled_dqn_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``DistilledDQN`` params (``Conv_i``, ``Dense_j``, with or
+    without the top-level ``'params'``) -> the port's ``DistilledDQN``
+    state_dict: the convolutions ``convs.i``, the hidden dense layers
+    ``fcs.j`` and the last dense layer ``head``. Both flatten NHWC, so
+    every kernel is a transpose."""
+    p = params['params'] if 'params' in params else params
+    convs = sorted((k for k in p if k.startswith('Conv_')),
+                   key=lambda k: int(k.split('_')[1]))
+    denses = sorted((k for k in p if k.startswith('Dense_')),
+                    key=lambda k: int(k.split('_')[1]))
+
+    def t(a):
+        return torch.as_tensor(np.array(a))
+
+    out = {}
+    for i, name in enumerate(convs):
+        out[f'convs.{i}.weight'] = t(np.transpose(
+            np.asarray(p[name]['kernel']), (3, 2, 0, 1)))
+        out[f'convs.{i}.bias'] = t(p[name]['bias'])
+    for j, name in enumerate(denses):
+        ours = 'head' if j == len(denses) - 1 else f'fcs.{j}'
+        out[f'{ours}.weight'] = t(np.asarray(p[name]['kernel']).T)
+        out[f'{ours}.bias'] = t(p[name]['bias'])
+    return out
 
 
 def dqn_from_reference(state_dict: Mapping) -> Dict[str, torch.Tensor]:

@@ -28,6 +28,11 @@ draws of every step), and the head ES ``ESDraws`` for a generation (its
 perturbations and fitness episodes). A generator of its own, for a
 validation set, a hold-out set or one episode of a single env, is seeded
 with ``derive_seed``.
+
+A batched battle (``algo/battle_batch.py``) takes ``BattleDraws``: its
+envs' resets and fruit draws, and for each opponent seat what its policy
+draws a step, the greedy fruit-seeker's tie-break uniforms or a random
+seat's actions.
 """
 
 from __future__ import annotations
@@ -201,3 +206,38 @@ def es_draws(cfg: EnvConfig, half: int, inputs: int, episodes: int,
     return ESDraws(eps_k, eps_b, tuple(
         episode_draws(cfg, 1, steps, generator, device)
         for _ in range(episodes)))
+
+
+class BattleDraws(NamedTuple):
+    """The draws of one batched battle of ``E`` envs and up to ``T``
+    steps: one reset each, the fruit draws of every step, and ``seat[i]``,
+    what the opponent in seat ``i + 1`` draws a step: the greedy
+    fruit-seeker's tie-break uniforms (T, E, 3) float32, a random seat's
+    actions (T, E) int32 in [0, 3), or None for a policy that draws
+    nothing."""
+    reset: ResetDraws
+    fruit_u: torch.Tensor  # (T, E, N) float32: fruit respawn
+    seat: tuple
+
+
+def battle_draws(cfg: EnvConfig, seat_kinds, num_envs: int, steps: int,
+                 generator: torch.Generator, device) -> BattleDraws:
+    """``seat_kinds``: what each opponent draws a step (the ``draws``
+    attribute of its policy in ``algo/battle_batch.py``): 'tiebreak',
+    'action' or None."""
+    reset = reset_draws(cfg, num_envs, generator, device)
+    fruit = _rand((steps, num_envs, cfg.num_snakes), generator, device)
+    seats = []
+    for kind in seat_kinds:
+        if kind == 'tiebreak':
+            seats.append(_rand((steps, num_envs, 3), generator, device))
+        elif kind == 'action':
+            seats.append(torch.randint(0, 3, (steps, num_envs),
+                                       generator=generator, device=device,
+                                       dtype=torch.int32))
+        elif kind is None:
+            seats.append(None)
+        else:
+            raise ValueError(f"unknown seat draw {kind!r}; choose from "
+                             f"'tiebreak', 'action' or None")
+    return BattleDraws(reset, fruit, tuple(seats))

@@ -6,26 +6,63 @@ written. ``restore`` loads it with ``weights_only=True`` onto the devices of
 a ``template`` of the same structure (a freshly initialised state) and
 checks every leaf's shape and dtype against it, raising ``KeyError`` for a
 key the file lacks and ``ValueError`` for a leaf that does not fit.
+``AsyncCheckpointer`` copies a payload to the host at once and writes it
+on a background thread, so that training goes on while it flushes.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Optional
 
 import torch
 
 
 def save(path: str, payload: Any) -> None:
+    _write(path, _to_cpu(payload))
+
+
+def _write(path: str, host_payload: Any) -> None:
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = f'{path}.{os.getpid()}.tmp'
+    tmp = f'{path}.{os.getpid()}.{threading.get_ident()}.tmp'
     try:
-        torch.save(_to_cpu(payload), tmp)
+        torch.save(host_payload, tmp)
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+
+
+class AsyncCheckpointer:
+    """Checkpoint writer whose writes run on a background thread: ``save``
+    copies the payload to host memory before it returns (so the caller
+    may go on changing its tensors) and writes it as ``save`` above does,
+    after the previous write; ``wait`` blocks until the last write is on
+    disk and raises its error, if it failed; ``close`` waits and stops the
+    thread."""
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._pending: Optional[Future] = None
+
+    def save(self, path: str, payload: Any) -> None:
+        self.wait()
+        self._pending = self._pool.submit(_write, path,
+                                          _to_cpu(payload, copy=True))
+
+    def wait(self) -> None:
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            pending.result()
+
+    def close(self) -> None:
+        try:
+            self.wait()
+        finally:
+            self._pool.shutdown()
 
 
 def restore(path: str, template: Any) -> Any:
@@ -34,13 +71,15 @@ def restore(path: str, template: Any) -> Any:
     return _fit(loaded, template, '')
 
 
-def _to_cpu(tree: Any) -> Any:
+def _to_cpu(tree: Any, copy: bool = False) -> Any:
+    """``tree`` with its tensors on the CPU; ``copy=True`` copies those
+    that were there already."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu()
+        return tree.detach().to('cpu', copy=copy)
     if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
+        return {k: _to_cpu(v, copy) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_to_cpu(v) for v in tree]
+        return [_to_cpu(v, copy) for v in tree]
     return tree
 
 

@@ -86,6 +86,35 @@ def test_save_restore_round_trip_and_checks(tmp_path):
                                   'n': [torch.zeros(2, dtype=torch.int32)]}})
 
 
+def test_async_checkpointer_round_trip(tmp_path):
+    """``AsyncCheckpointer.save`` snapshots the payload before it returns
+    (changing the tensors after does not reach the file), writes in the
+    background, one write after the other; ``wait`` raises a failed
+    write's error; ``close`` leaves every file written and no temporary."""
+    w = torch.arange(6.).view(2, 3)
+    payload = {'params': {'w': w}, 'step': 3}
+    template = {'params': {'w': torch.zeros(2, 3)}, 'step': 0}
+    saver = ckpt.AsyncCheckpointer()
+    try:
+        saver.save(str(tmp_path / 'a' / 'c1.pt'), payload)
+        w.add_(100.0)                          # training goes on
+        saver.save(str(tmp_path / 'a' / 'c2.pt'), dict(payload, step=4))
+        saver.wait()
+        first = ckpt.restore(str(tmp_path / 'a' / 'c1.pt'), template)
+        second = ckpt.restore(str(tmp_path / 'a' / 'c2.pt'), template)
+        assert torch.equal(first['params']['w'], torch.arange(6.).view(2, 3))
+        assert torch.equal(second['params']['w'], w)
+        assert (first['step'], second['step']) == (3, 4)
+        (tmp_path / 'file').write_text('')
+        saver.save(str(tmp_path / 'file' / 'c3.pt'), payload)
+        with pytest.raises(OSError):
+            saver.wait()
+        saver.save(str(tmp_path / 'a' / 'c3.pt'), payload)
+    finally:
+        saver.close()
+    assert sorted(os.listdir(tmp_path / 'a')) == ['c1.pt', 'c2.pt', 'c3.pt']
+
+
 @pytest.mark.parametrize('full', [False, True], ids=['light', 'full'])
 def test_trainer_checkpoint_round_trip(tmp_path, full):
     tr = small_trainer(tmp_path)

@@ -345,3 +345,53 @@ def test_fresh_nets_start_from_flax_init(kind):
         assert_lecun_normal(f'flax {name}', kernels,
                             [np.asarray(t[name]['bias']) for t in trees],
                             int(np.prod(kernels[0].shape[:-1])))
+
+
+# --- the distilled acting trunk ----------------------------------------------
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_distilled_dqn_matches_flax(dtype):
+    """Random flax DistilledDQN parameters (flax's names and layouts:
+    ``Conv_i`` (kh, kw, I, O), ``Dense_j`` (in, out), non-zero biases)
+    carried over by ``distilled_dqn_from_flax``: Q-values within 1e-5 at
+    float32 and within 2e-2 at bfloat16 (a few bfloat16 ulps at |q| < 1:
+    each package rounds its layers' outputs in its own places), float32
+    out; byte inputs scaled like flax's; a narrower net maps too."""
+    from marlsnake_tpu.models.dqn import DistilledDQN as FlaxDistilled
+    from marlsnake_torch.models.dqn import DistilledDQN
+    from marlsnake_torch.models.weights import distilled_dqn_from_flax
+    hw = (10, 12)
+    rng = np.random.default_rng(4)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    atol = 1e-5 if dtype == 'float32' else 2e-2
+    for convs, fcs, binary in (((16, 32), (64,), True),
+                               ((8,), (32, 16), False)):
+        shapes = {}
+        chans = (8,) + convs
+        for i, (a, b) in enumerate(zip(chans[:-1], chans[1:])):
+            shapes[f'Conv_{i}'] = (3, 3, a, b)
+        feats = (chans[-1] * hw[0] * hw[1],) + fcs + (3,)
+        for j, (a, b) in enumerate(zip(feats[:-1], feats[1:])):
+            shapes[f'Dense_{j}'] = (a, b)
+        params = {'params': {
+            name: {'kernel': (rng.normal(size=shape)
+                              / np.sqrt(np.prod(shape[:-1]))
+                              ).astype(np.float32),
+                   'bias': (rng.normal(size=shape[-1:]) * 0.3
+                            ).astype(np.float32)}
+            for name, shape in shapes.items()}}
+        flax_net = FlaxDistilled(conv_channels=convs, fc_features=fcs,
+                                 compute_dtype=jdt, assume_binary_obs=binary)
+        net = DistilledDQN(hw, conv_channels=convs, fc_features=fcs,
+                           compute_dtype=tdt, assume_binary_obs=binary,
+                           device='cpu')
+        net.load_state_dict(distilled_dqn_from_flax(params))
+        assert net.convs[0].weight.dtype == torch.float32
+        obs = one_hot_obs(rng, 16, hw)
+        if not binary:
+            obs = obs * 255
+        with torch.no_grad():
+            q = net(torch.as_tensor(obs))
+        want = np.asarray(jax.jit(flax_net.apply)(params, obs))
+        assert q.dtype == torch.float32 and q.shape == (16, 3)
+        np.testing.assert_allclose(q.numpy(), want, rtol=0, atol=atol)

@@ -71,3 +71,57 @@ def test_ring_pop_tail_bit_exact(cap):
                            (ring, head, length, mask)), cap)
     _eq(j[0], t[0], 'popped')
     _eq(j[1], t[1], 'ring_len')
+
+
+@pytest.mark.parametrize('cap', CAPS)
+def test_ring_slots_and_tail_direction_bit_exact(cap):
+    rng = np.random.default_rng(3000 + cap)
+    ring, head, length, _, _ = _random_ring(rng, 64, cap)
+    length[:4] = 0
+    _eq(JS.ring_slots(jnp.asarray(ring), cap),
+        TS.ring_slots(torch.as_tensor(ring), cap), 'slots')
+    _eq(JS.tail_direction(jnp.asarray(ring), jnp.asarray(head),
+                          jnp.asarray(length), cap),
+        TS.tail_direction(*(torch.as_tensor(x) for x in
+                            (ring, head, length)), cap), 'tail direction')
+    # (B, N, CW) layout
+    got = TS.tail_direction(*(torch.as_tensor(x).view((8, 8) + x.shape[1:])
+                              for x in (ring, head, length)), cap)
+    assert got.shape == (8, 8)
+
+
+def test_body_masks_lengths_cells_and_rewards_match_jax():
+    """``body_coords_mask`` and ``body_length`` of envs after random
+    steps (some snakes dead), ``pack_cell`` and ``EnvConfig.reward``:
+    EQUAL to JAX's."""
+    import jax
+    from marlsnake_tpu.core import types as JT
+    from marlsnake_tpu.envs.vector import build_vector_fns
+    from marlsnake_torch.core import types as TT
+    from test_torch_engine import configs, state_from_jax
+    jcfg, cfg = configs(height=10, width=10, num_snakes=3, snake_length=3,
+                        rewards=(2.0, 3.0, -4.0, 5.0, -0.25))
+    reset_fn, step_fn = build_vector_fns(jcfg, autoreset=False)
+    jstates, _ = jax.jit(reset_fn)(jax.random.split(jax.random.key(0), 4))
+    rng = np.random.default_rng(0)
+    step = jax.jit(step_fn)
+    for _ in range(8):
+        jstates, _ = step(jstates, jnp.asarray(rng.integers(0, 3, (4, 3)),
+                                               dtype=jnp.int32))
+    states = state_from_jax(jstates)
+    assert not np.asarray(jstates.alive).all()
+    _eq(jstates.body_length, states.body_length, 'body_length')
+    for i in range(3):
+        want = jax.vmap(lambda s: JS.body_coords_mask(s, i))(jstates)
+        _eq(want, TS.body_coords_mask(states, i), f'body of snake {i}')
+    for ctype in range(6):
+        for owner in (0, 1, 7):
+            assert TT.pack_cell(ctype, owner) == JT.pack_cell(ctype, owner)
+    cells = np.arange(6)[:, None] + 0 * np.arange(4)
+    _eq(JT.pack_cell(jnp.asarray(cells), jnp.arange(4)),
+        TT.pack_cell(torch.as_tensor(cells, dtype=torch.int32),
+                     torch.arange(4, dtype=torch.int32)), 'pack_cell')
+    for name in TT.REWARD_KEYS:
+        assert cfg.reward(name) == jcfg.reward(name)
+    with pytest.raises(ValueError):
+        cfg.reward('bonus')
