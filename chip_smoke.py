@@ -146,18 +146,40 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    counts (``cli_phase``: train writes the checkpoint that eval, battle,
    battle --batched, neat and es load; train-ppo and demo; the launches of
    both entries counted per subcommand, no plain-engine call);
-16. one JSON line of kernels (every entry and variant; the auto-reset
+16. data-parallel training (``parallel_phase``, ``marlsnake_torch/parallel``):
+   first both entries against the plain engine at a rank's widths (the
+   auto-reset entry at DistributedPPO's 128 envs a gloo rank and the
+   scaling harness's 512, the step entry at DistributedDQN's 128 with its
+   hold); then world 1 on NCCL in this process, where DistributedDQN (2
+   episodes at 256 envs of 20x20x4) and DistributedPPO (2 updates at 256 envs) must
+   EQUAL DQNTrainer and PPOTrainer at the same draws (parameters, target,
+   Adam state, ring, epsilon, env states, metrics; cuDNN deterministic),
+   with the step entry launched once an env step and the auto-reset entry
+   once a rollout step; two gloo ranks sharing the card (2 x 128 envs,
+   ``parallel.runner``): DQN for 2 episodes and PPO for 1 update with
+   parameters bit-equal across ranks, each rank's launches equal to its
+   own env steps, and the first all-reduced gradient of each within
+   1e-5 + 1e-4 x max|g| of the mean of the ranks' gradients computed on
+   the CPU from the same minibatches and parameters;
+   ``launch_local_cluster(2, 'cuda', 'gloo')`` with equal digests; the
+   scaling harness at world 1 and 2 (findings, not gates: one card cannot
+   show scaling); times, and the collectives of a 16-step DQN episode and
+   a PPO update by kind (``collective_counts``) with their times;
+17. one JSON line of kernels (every entry and variant; the auto-reset
    entry's row carries the PPO numbers, the step entry's the evaluator's,
-   the evolution's, the adapters', the battles' and the CLI's, with its
-   launches on every path), then, as the last line, {"ok": true,
-   "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+   the evolution's, the adapters', the battles', the CLI's and the
+   data-parallel trainers', with its launches on every path), then, as
+   the last line, {"ok": true, "device": {"platform": "gpu", "kind": ...,
+   "count": ...}}.
 
 Run one phase alone: ``python3 -c "import chip_smoke as cs, tempfile, torch;
 torch.backends.cudnn.allow_tf32 = False;
 torch.backends.cuda.matmul.allow_tf32 = False; d = tempfile.mkdtemp();
 cs.evolution_phase('', d); cs.adapter_phase('', d)"``; the battle and CLI
 phases need the NEAT phase's ``neat.pkl`` in ``d`` and PPO parameters
-(``cs.ppo_phase('', keep)`` puts them in ``keep['ppo_params']``).
+(``cs.ppo_phase('', keep)`` puts them in ``keep['ppo_params']``);
+``cs.parallel_phase('', d)`` runs alone once the kernel is built
+(``step_kernel.build_library()``).
 
 Exits non-zero without a result when CUDA is not available.
 """
@@ -1928,6 +1950,325 @@ def cli_phase(smi: str, tmp: str, ppo_params: dict,
     return counts
 
 
+def same_tree(a, b, where: str) -> None:
+    """Raise unless ``a`` and ``b`` hold equal tensors (dtype, shape and
+    every bit) and equal other leaves, through dataclasses, dicts, lists
+    and tuples; a replay ring is compared over its ``capacity`` rows (the
+    spare row takes every masked-out write, in no fixed order)."""
+    from marlsnake_torch.algo.replay import ReplayBuffer
+    if isinstance(a, ReplayBuffer):
+        cap = a.capacity
+        for (name, x), (_, y) in zip(a.fields(), b.fields()):
+            same_tree(x if x.dim() == 0 else x[:cap],
+                      y if y.dim() == 0 else y[:cap], f'{where}.{name}')
+    elif isinstance(a, torch.Tensor):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f'{where} differs')
+    elif hasattr(a, '__dataclass_fields__'):
+        for name in a.__dataclass_fields__:
+            same_tree(getattr(a, name), getattr(b, name), f'{where}.{name}')
+    elif isinstance(a, dict):
+        for k in a:
+            same_tree(a[k], b[k], f'{where}[{k}]')
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_tree(x, y, f'{where}[{i}]')
+    elif a != b:
+        raise AssertionError(f'{where}: {a} against {b}')
+
+
+def mean_of_cpu_grads(cpu_trainer, records, where: str) -> float:
+    """The all-reduced gradient of the first update of each rank
+    (``records``: the runner's 'record' of each, its first call) against
+    the mean of the
+    ranks' gradients computed on the CPU from the same arguments (the
+    minibatch and the parameters): within 1e-5 + 1e-4 x max|g|, the
+    tolerance of one TD update card against CPU. Returns the largest share
+    of that tolerance used."""
+    grads = []
+    for rec in records:
+        out = cpu_trainer.loss_and_grads(*rec['args'][0])
+        grads.append(out[1] if isinstance(out[1], list) else out[2])
+    worst = 0.0
+    for rec in records:
+        reduced = rec['reduced'][0][:-1]
+        for i, (got, *local) in enumerate(zip(reduced, *grads)):
+            want = sum(local) / len(local)
+            scale = float(want.abs().max())
+            diff = float((got - want).abs().max())
+            worst = max(worst, diff / (1e-5 + 1e-4 * scale))
+            if diff > 1e-5 + 1e-4 * scale:
+                raise AssertionError(f'{where}: the all-reduced gradient '
+                                     f'{i} is {diff} from the CPU mean '
+                                     f'(largest magnitude {scale})')
+    return worst
+
+
+def parallel_phase(smi: str, tmp: str) -> dict:
+    """Data-parallel DQN and PPO (``marlsnake_torch/parallel``) at full
+    width on the one card: world 1 on NCCL in this process, EQUAL to the
+    single-device trainers at the same draws (cuDNN deterministic); two
+    gloo ranks sharing the card (``parallel.runner``), whose parameters
+    must stay bit-equal and whose first all-reduced gradients must be the
+    mean of the ranks' gradients on the CPU; the local cluster; the
+    scaling harness at world 1 and 2; times and collectives. Every rank's
+    launches must equal its own env steps."""
+    from marlsnake_torch.algo.dqn_trainer import DQNConfig, DQNTrainer
+    from marlsnake_torch.algo.ppo_trainer import PPOConfig, PPOTrainer
+    from marlsnake_torch.core.types import EnvConfig
+    from marlsnake_torch.ops import step_kernel
+    from marlsnake_torch.parallel import distributed
+    from marlsnake_torch.parallel.dqn_dp import DistributedDQN
+    from marlsnake_torch.parallel.mesh import make_mesh
+    from marlsnake_torch.parallel.ppo_dp import DistributedPPO
+    from marlsnake_torch.parallel.runner import run_job
+    from marlsnake_torch.rng import ppo_draws, reset_draws, train_draws
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    dqn_kwargs = dict(num_envs=256, snake_length=3, max_steps_per_episode=256)
+    ppo_kwargs = dict(num_envs=256, save_final=False)
+    scale_env = dict(height=20, width=20, num_snakes=4, snake_length=3)
+    out = {}
+
+    # both entries against the plain engine at the widths a rank of this
+    # phase gives them, each rank's config: K1 at DistributedPPO's 128
+    # envs a gloo rank and the scaling harness's 512, the step entry at
+    # DistributedDQN's 128 (with its hold)
+    out['max_abs_err'] = {
+        'step_autoreset ppo B=128': parity(
+            PPOConfig(**ppo_kwargs).env_config(), 128, 64, seed=51),
+        'step_autoreset scaling B=512': parity(
+            EnvConfig(**scale_env), 512, 64, seed=52),
+        'step dqn B=128 hold': parity_step(
+            DQNConfig(**dqn_kwargs).env_config(), 128, 64, seed=53,
+            hold=True)}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0
+
+    def collectives(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            result = fn()
+            torch.cuda.synchronize()
+        return (result, distributed.collective_counts(prof),
+                distributed.collective_times(prof))
+
+    # --- world 1 on NCCL, in this process ---
+    distributed.initialize('file://' + os.path.join(tmp, 'rendezvous-w1'),
+                           1, 0, backend='nccl', device='cuda')
+    try:
+        mesh = make_mesh(1)
+        if mesh.group is None or torch.distributed.get_backend() != 'nccl':
+            raise AssertionError('world 1 runs without an NCCL group')
+        (_, warm_s) = timed(mesh.barrier)    # NCCL makes its communicator
+        out['nccl_first_collective_ms'] = warm_s * 1e3
+        ddqn = DistributedDQN(DQNConfig(**dqn_kwargs), mesh)
+        single = DQNTrainer(DQNConfig(**dqn_kwargs), device='cuda')
+        cfg, ecfg = single.config, single.env_cfg
+        ts_dp, ts = ddqn.init_state(), single.init_state()
+        same_tree(ts_dp, ts, 'DistributedDQN init')
+        gen = torch.Generator(device='cuda')
+        gen.manual_seed(41)
+        times = {'dp': [], 'single': []}
+        dp_launches, dp_steps = 0, []
+        for ep in range(2):
+            reset = reset_draws(ecfg, cfg.num_envs, gen, 'cuda')
+            draws = train_draws(ecfg, cfg.num_envs, cfg.max_steps_per_episode,
+                                cfg.buffer_size, cfg.batch_size, gen, 'cuda')
+            before = step_kernel.step.launches
+            (ts_dp, m_dp), sec = timed(
+                lambda: ddqn.train_episode(ts_dp, draws, reset))
+            dp_launches += step_kernel.step.launches - before
+            dp_steps.append(int(m_dp.episode_length))
+            times['dp'].append(sec * 1e3)
+            (ts, m), sec = timed(lambda: single.train_episode(ts, draws,
+                                                              reset))
+            times['single'].append(sec * 1e3)
+            same_tree(ts_dp, ts, f'DistributedDQN episode {ep}')
+            same_tree(m_dp, m, f'DistributedDQN metrics {ep}')
+            if m.updates <= 0 or not bool(torch.isfinite(m.mean_loss)):
+                raise AssertionError('world-1 DQN: no update or a loss '
+                                     'that is not finite')
+        if dp_launches != sum(dp_steps):
+            raise AssertionError(f'world-1 DQN: {sum(dp_steps)} env steps '
+                                 f'but {dp_launches} launches of step')
+        out['dqn_world1'] = {
+            'ms_per_episode': times['dp'],
+            'single_ms_per_episode': times['single'],
+            'ms_per_step': [t / n for t, n in zip(times['dp'], dp_steps)],
+            'single_ms_per_step': [t / n for t, n in zip(times['single'],
+                                                         dp_steps)],
+            'env_steps': dp_steps, 'step_launches': dp_launches,
+            'cudnn_deterministic': True}
+        log(f'DistributedDQN at world 1 (NCCL), {cfg.num_envs} envs of '
+            f'20x20x4, 2 episodes: EQUAL to DQNTrainer at the same draws '
+            f'(parameters, target, Adam, ring, epsilon, metrics); '
+            f'{sum(dp_steps)} env steps, {dp_launches} step launches; '
+            f'{json.dumps(out["dqn_world1"])} [{smi}]')
+
+        # a short episode from the warm ring, under the profiler
+        short = DistributedDQN(DQNConfig(**dict(
+            dqn_kwargs, max_steps_per_episode=16)), mesh)
+        (_, m_short), counts, ctimes = collectives(
+            lambda: short.train_episode(ts_dp))
+        out['dqn_world1_collectives'] = dict(
+            counts, steps=int(m_short.episode_length),
+            updates=m_short.updates, **ctimes)
+        log(f'collectives of a 16-step DistributedDQN episode at world 1 '
+            f'(warm ring; 1 before the first step, 1 a step, 1 an update, '
+            f'2 for the metrics): {json.dumps(out["dqn_world1_collectives"])}'
+            f' [{smi}]')
+        del ddqn, single, short, ts_dp, ts
+        torch.cuda.empty_cache()
+
+        dppo = DistributedPPO(PPOConfig(**ppo_kwargs), mesh)
+        psingle = PPOTrainer(PPOConfig(**ppo_kwargs), device='cuda')
+        pcfg = psingle.config
+        pts_dp, pts = dppo.init_state(), psingle.init_state()
+        same_tree(pts_dp, pts, 'DistributedPPO init')
+        ptimes = {'dp': [], 'single': []}
+        k1_launches = 0
+        for u in range(2):
+            draws = ppo_draws(psingle.env_cfg, pcfg.num_envs,
+                              pcfg.rollout_steps, pcfg.update_epochs, gen,
+                              'cuda')
+            before = step_kernel.step_autoreset.launches
+            (pts_dp, pm_dp), sec = timed(
+                lambda: dppo.train_update(pts_dp, draws))
+            k1_launches += step_kernel.step_autoreset.launches - before
+            ptimes['dp'].append(sec * 1e3)
+            (pts, pm), sec = timed(lambda: psingle.update(pts, draws))
+            ptimes['single'].append(sec * 1e3)
+            same_tree(pts_dp, pts, f'DistributedPPO update {u}')
+            same_tree(pm_dp, pm, f'DistributedPPO metrics {u}')
+        if k1_launches != 2 * pcfg.rollout_steps:
+            raise AssertionError(f'world-1 PPO: {2 * pcfg.rollout_steps} '
+                                 f'rollout steps but {k1_launches} launches '
+                                 f'of step_autoreset')
+        (_, _), pcounts, ptimes_c = collectives(
+            lambda: dppo.train_update(pts_dp))
+        out['ppo_world1'] = {
+            'ms_per_update': ptimes['dp'],
+            'single_ms_per_update': ptimes['single'],
+            'step_autoreset_launches': k1_launches,
+            'collectives_per_update': dict(pcounts, **ptimes_c)}
+        log(f'DistributedPPO at world 1 (NCCL), {pcfg.num_envs} envs x '
+            f'{pcfg.rollout_steps} steps, 2 updates: EQUAL to '
+            f'PPOTrainer.update at the same draws; {k1_launches} '
+            f'step_autoreset launches; {json.dumps(out["ppo_world1"])} '
+            f'[{smi}]')
+        del dppo, psingle, pts_dp, pts
+        torch.cuda.empty_cache()
+
+        cfg_s = EnvConfig(**scale_env)
+        out['scaling_world1'] = {
+            'step_time': distributed.per_device_step_time(
+                cfg_s, envs_per_device=512, num_steps=64, mesh=mesh),
+            'scaling': distributed.scaling_efficiency(
+                cfg_s, envs_per_device=512, num_steps=64, mesh=mesh)}
+        log(f'scaling at world 1 (NCCL), 512 envs of 20x20x4 a rank, 64 '
+            f'steps: {json.dumps(out["scaling_world1"])} [{smi}]')
+    finally:
+        torch.distributed.destroy_process_group()
+        torch.backends.cudnn.deterministic = deterministic
+
+    # --- two gloo ranks on the one card ---
+    half = dict(dqn_kwargs)                          # 2 x 128 envs
+    t0 = time.perf_counter()
+    ranks = run_job({'device': 'cuda', 'backend': 'gloo', 'tasks': [
+        {'kind': 'dqn', 'config': half, 'episodes': 2, 'check': 1},
+        {'kind': 'dqn', 'config': dict(half, max_steps_per_episode=16),
+         'episodes': 1, 'profile': True, 'check': 0},
+        {'kind': 'ppo', 'config': ppo_kwargs, 'updates': 1, 'check': 1,
+         'profile': True},
+        {'kind': 'scaling', 'env': scale_env, 'envs_per_device': 512,
+         'num_steps': 64}]}, 2, tmp, timeout=600)
+    job_s = time.perf_counter() - t0
+    dqn = [r[0] for r in ranks]
+    for ep in range(2):
+        a, b = (res['states'][ep] for res in dqn)
+        same_tree(a.params, b.params, f'gloo DQN episode {ep}: parameters '
+                  f'across ranks')
+        m = dqn[0]['metrics'][ep]
+        if m.updates <= 0 or not bool(torch.isfinite(m.mean_loss)):
+            raise AssertionError('gloo DQN: no update or a loss that is not '
+                                 'finite')
+    for r, res in enumerate(dqn + [x[1] for x in ranks]):
+        for steps, (step_n, auto_n) in zip(res['env_steps'],
+                                           res['launches']):
+            if step_n != steps or auto_n != 0:
+                raise AssertionError(f'gloo DQN rank {r % 2}: {steps} env '
+                                     f'steps but {step_n} step and {auto_n} '
+                                     f'step_autoreset launches')
+    ppo = [r[2] for r in ranks]
+    a, b = (res['states'][0] for res in ppo)
+    same_tree(a.params, b.params, 'gloo PPO: parameters across ranks')
+    for r, res in enumerate(ppo):
+        if res['launches'][0] != (0, res['env_steps'][0]) \
+                or res['env_steps'][0] != PPOConfig().rollout_steps:
+            raise AssertionError(f'gloo PPO rank {r}: {res["env_steps"]} '
+                                 f'env steps, launches {res["launches"]}')
+        pm = res['metrics'][0]
+        if not all(math.isfinite(float(getattr(pm, k))) for k in (
+                'loss_actor', 'loss_value', 'entropy', 'approx_kl')):
+            raise AssertionError('gloo PPO: a loss is not finite')
+    dqn_worst = mean_of_cpu_grads(
+        DQNTrainer(DQNConfig(**dict(half, num_envs=128)), device='cpu'),
+        [res['record'] for res in dqn], 'gloo DQN first update')
+    ppo_worst = mean_of_cpu_grads(
+        PPOTrainer(PPOConfig(**dict(ppo_kwargs, num_envs=1,
+                                    rollout_steps=1)), device='cpu'),
+        [res['record'] for res in ppo], 'gloo PPO first minibatch')
+    out['gloo_world2'] = {
+        'job_seconds': job_s,
+        'dqn_episode_seconds': [res['seconds'] for res in dqn],
+        'dqn_env_steps': [res['env_steps'] for res in dqn],
+        'dqn_updates': [m.updates for m in dqn[0]['metrics']],
+        'dqn_episode_length': [m.episode_length
+                               for m in dqn[0]['metrics']],
+        'dqn_step_launches': [[n for n, _ in res['launches']]
+                              for res in dqn],
+        'dqn_collectives_16_steps': [dict(x[1]['collectives'],
+                                          steps=x[1]['env_steps'][0],
+                                          updates=x[1]['metrics'][0].updates,
+                                          **x[1]['collective_times'])
+                                     for x in ranks],
+        'ppo_update_seconds': [res['seconds'][0] for res in ppo],
+        'ppo_step_autoreset_launches': [res['launches'][0][1]
+                                        for res in ppo],
+        'ppo_collectives': [dict(res['collectives'],
+                                 **res['collective_times']) for res in ppo],
+        'grad_tolerance_used': {'dqn': dqn_worst, 'ppo': ppo_worst},
+        'scaling': ranks[0][3]}
+    log(f'two gloo ranks on one card (2 x 128 envs): DQN 2 episodes and '
+        f'PPO 1 update, parameters bit-equal across ranks, launches equal '
+        f'each rank\'s env steps, first all-reduced gradients within '
+        f'{dqn_worst:.3g} (DQN) and {ppo_worst:.3g} (PPO) of their '
+        f'tolerance 1e-5 + 1e-4 x max|g| of the CPU mean; '
+        f'{json.dumps(out["gloo_world2"])} [{smi}]')
+
+    t0 = time.perf_counter()
+    cluster = distributed.launch_local_cluster(2, device='cuda',
+                                               backend='gloo')
+    if not all(r['updates'] > 0 for r in cluster):
+        raise AssertionError(f'local cluster made no update: {cluster}')
+    out['cluster'] = {'seconds': time.perf_counter() - t0,
+                      'results': cluster}
+    log(f'launch_local_cluster(2, cuda, gloo): digests equal; '
+        f'{json.dumps(out["cluster"])} [{smi}]')
+    out['seconds'] = time.perf_counter() - t_phase
+    log(f'parallel phase: {out["seconds"]:.1f} s')
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -2466,6 +2807,12 @@ def main() -> int:
         cli_runs = cli_phase(smi, evo_dir, trained['ppo_params'])
     torch.cuda.empty_cache()
 
+    # --- 16. data-parallel training ---
+    with tempfile.TemporaryDirectory() as dp_dir:
+        dp = parallel_phase(smi, dp_dir)
+    log(f'parallel: {json.dumps(dp)}')
+    torch.cuda.empty_cache()
+
     step_main = step_rows[256]
     log(json.dumps({'kernels': variant_rows + [dict(
         auto,
@@ -2481,6 +2828,15 @@ def main() -> int:
         vector_adapter_launches=adapters['vector_adapter_launches'],
         max_abs_err_vector_adapter_b8=adapters[
             'step_autoreset_max_abs_err_b8'],
+        distributed_ppo_launches={
+            'world 1, NCCL (B=256)': dp['ppo_world1'][
+                'step_autoreset_launches'],
+            'world 2, gloo, each rank (B=128)': dp['gloo_world2'][
+                'ppo_step_autoreset_launches']},
+        max_abs_err_distributed_ppo_b128=dp['max_abs_err'][
+            'step_autoreset ppo B=128'],
+        max_abs_err_scaling_b512=dp['max_abs_err'][
+            'step_autoreset scaling B=512'],
         **ppo,
     ), dict(
         step_main,
@@ -2492,6 +2848,8 @@ def main() -> int:
         launches=train_launches,
         max_abs_err=train_step_err,      # at the training path's shape
         max_abs_err_other_shapes=step_err,
+        max_abs_err_distributed_dqn_b128=dp['max_abs_err'][
+            'step dqn B=128 hold'],
         num_envs=256,
         at_4096_envs={k: step_rows[4096][k] for k in (
             'device_ms', 'host_us', 'call_ms', 'plain_ms', 'bound_ms',
@@ -2517,7 +2875,11 @@ def main() -> int:
             'battle_batch (B=128)': battle['battle_launches'],
             'battle_arena (B=1)': battle['arena_launches'],
             'cli': {k: {e: v[e] for e in ('step', 'step_autoreset')}
-                    for k, v in cli_runs.items()}},
+                    for k, v in cli_runs.items()},
+            'distributed_dqn world 1, NCCL (B=256)': dp['dqn_world1'][
+                'step_launches'],
+            'distributed_dqn world 2, gloo, each rank (B=128)': dp[
+                'gloo_world2']['dqn_step_launches']},
         battle={k: v for k, v in battle.items()
                 if k not in ('battle_launches', 'arena_launches')},
         cli_seconds={k: v['seconds'] for k, v in cli_runs.items()},

@@ -4,7 +4,8 @@ The batched multi-agent snake engine with every observation and spawn
 option, the Snake/Coop/Graph envs and the reference wrappers, DQN and PPO
 training, NEAT and head-ES evolution, the safety-masked evaluator, the
 battle arena (host and device-batched, with the opponent zoo) and the
-command line (``python -m marlsnake_torch.cli``), for one NVIDIA GPU. The
+command line (``python -m marlsnake_torch.cli``), for one NVIDIA GPU, and
+data-parallel DQN and PPO over ``torch.distributed`` (``parallel/``). The
 env step, with and without auto-reset, runs as one hand-written CUDA
 kernel (``ops/step_kernel.py``); everything else is plain PyTorch.
 Imports torch and numpy only.

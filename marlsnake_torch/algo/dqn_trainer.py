@@ -18,16 +18,31 @@ actions of all (num_envs x num_snakes) agents, the env step is one launch
 of the CUDA step kernel's entry without auto-reset (``ops/step_kernel``;
 the plain engine on the CPU), and the replay ring and the optimizer state
 stay on the device. Where the JAX package runs the episode as one
-``lax.scan`` program, this is a Python loop that reads two numbers back
-from the device per step (the ring's fill and whether any env is still
-live) and stops once every env has finished; the steps the scan would
-still run are no-ops there.
+``lax.scan`` program, this is a Python loop that reads its flags back
+from the device once a step (whether the ring is warm and whether any env
+is still live) and stops once every env has finished; the steps the scan
+would still run are no-ops there.
 
 Random numbers: the trainer owns one ``torch.Generator`` on its device;
 ``train_episode`` draws an episode's numbers from it up front
 (``rng.reset_draws``, ``rng.train_draws``) unless the caller hands them
 in. The replay ring is updated in place, so a ``TrainState`` that went
 into ``train_episode`` must not be used again.
+
+Data parallelism (``mesh``, the JAX trainer's ``axis_name`` branch; see
+``parallel/dqn_dp.py``): each rank steps its own envs into its own ring,
+and the parameters stay replicated. Each update all-reduces the
+gradients and the loss as one flat buffer and divides it by the world
+size (JAX's ``pmean``). Every rank makes the same collective calls: the
+step's read-back follows one MIN all-reduce of [can update, -live], so
+that every rank loops until no env of any rank is live, and updates stop
+everywhere once one rank's envs have all finished or its ring is not yet
+warm (JAX's ``pmin``). A rank whose envs have all finished launches no
+more env steps and pushes nothing; it takes part in the collectives
+only. Its episode length stops with its own last env. The metrics are
+the mean over ranks of the mean reward, mean loss and episode length and
+the max of the update count. A rank draws its resets and its steps from
+two generators of its own (``rng.rank_seed``).
 """
 
 from __future__ import annotations
@@ -49,7 +64,8 @@ from marlsnake_torch.device import resolve_device
 from marlsnake_torch.envs.vector import build_vector_fns
 from marlsnake_torch.models.dqn import make_dqn
 from marlsnake_torch.ops.obs_pack import unpack_obs
-from marlsnake_torch.rng import (ResetDraws, StepDraws, TrainDraws,
+from marlsnake_torch.rng import (RESET_STREAM, STEP_STREAM, ResetDraws,
+                                 StepDraws, TrainDraws, rank_seed,
                                  reset_draws, train_draws)
 from marlsnake_torch.utils import checkpoint as ckpt
 from marlsnake_torch.utils.metrics import MetricWriter
@@ -169,10 +185,15 @@ def huber_loss(pred: torch.Tensor, target: torch.Tensor,
 
 class DQNTrainer:
     """Single-device trainer. ``device`` defaults to the GPU; pass
-    ``'cpu'`` to run the plain PyTorch path."""
+    ``'cpu'`` to run the plain PyTorch path. With ``mesh``
+    (``parallel.mesh.Mesh``) it is one rank of a data-parallel run on the
+    mesh's device, ``num_envs`` being this rank's envs."""
 
-    def __init__(self, config: DQNConfig, device='cuda'):
+    def __init__(self, config: DQNConfig, device='cuda', mesh=None):
         self.config = config
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device
         if config.max_steps_per_episode % config.update_every != 0:
             raise ValueError(
                 f'update_every={config.update_every} must divide '
@@ -192,7 +213,15 @@ class DQNTrainer:
             config.obs_pad_channels, config.compute_dtype
         ).requires_grad_(False)
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(config.seed + 1)
+        if mesh is None:
+            self.generator.manual_seed(config.seed + 1)
+            self.reset_generator = self.generator
+        else:
+            self.generator.manual_seed(
+                rank_seed(config.seed, mesh.rank, STEP_STREAM))
+            self.reset_generator = torch.Generator(device=self.device)
+            self.reset_generator.manual_seed(
+                rank_seed(config.seed, mesh.rank, RESET_STREAM))
         self.update_batch = config.update_batch_size or config.batch_size
         self.best_mean_reward = float('-inf')
         self.writer = None
@@ -297,10 +326,45 @@ class DQNTrainer:
         next_obs, done). Returns (params, opt_state, loss, acting Q)."""
         loss, grads, q_act = self.loss_and_grads(params, target_params,
                                                  batch, acting_obs)
+        if self.mesh is not None:
+            *grads, loss = self.mesh.mean(grads + [loss])
         params, opt_state = self.apply_gradients(params, opt_state, grads)
         return params, opt_state, loss, q_act
 
     # ------------------------------------------------------------------
+    def _read_flags(self, buffer: replay.ReplayBuffer,
+                    frozen: torch.Tensor) -> Tuple[bool, bool, bool]:
+        """The step's one read-back: (can_update, live, any_live). ``live``:
+        an env of this rank has not finished; ``can_update``: the ring is
+        warm and an env is live, on every rank; ``any_live``: an env is
+        live on some rank. Under a mesh the two global flags come from one
+        MIN all-reduce of [can_update, -live]; without one, the ring's fill
+        and ``live`` are read back as they are."""
+        live = (~frozen).any().to(torch.int32)
+        if self.mesh is None:
+            size, live = torch.stack([buffer.size, live]).tolist()
+            return bool(live and size >= self.config.min_buffer_size), \
+                bool(live), bool(live)
+        warm = (buffer.size >= self.config.min_buffer_size).to(torch.int32)
+        flags = torch.stack([live * warm, -live])
+        self.mesh.all_reduce(flags, 'min')
+        can_update, neg_any_live, live = torch.cat(
+            [flags, live[None]]).tolist()
+        return bool(can_update), bool(live), neg_any_live < 0
+
+    def _mean_metrics(self, mean_reward, mean_loss, steps: int,
+                      updates: int):
+        """The episode's metrics over the ranks: the mean of the mean
+        reward, the mean loss and the episode length (float32, as JAX's
+        ``pmean``), the max of the update count."""
+        mesh = self.mesh
+        means = torch.stack([mean_reward, mean_loss, torch.tensor(
+            float(steps), device=self.device)])
+        mesh.all_reduce(means).div_(mesh.world)
+        most = mesh.all_reduce(torch.tensor(
+            [updates], dtype=torch.int64, device=self.device), 'max')
+        return means[0], means[1], float(means[2]), int(most)
+
     @torch.no_grad()
     def train_episode(self, ts: TrainState,
                       draws: Optional[TrainDraws] = None,
@@ -311,13 +375,13 @@ class DQNTrainer:
         shaping, masked push, freeze of finished envs, and the optimizer
         update the pacing mode asks for; then epsilon decay, target sync
         and the metrics. ``draws`` and ``reset`` default to numbers from
-        the trainer's generator."""
+        the trainer's generators."""
         cfg = self.config
         e, n = cfg.num_envs, cfg.num_snakes
         dev = self.device
         num_steps = cfg.max_steps_per_episode
         if reset is None:
-            reset = reset_draws(self.env_cfg, e, self.generator, dev)
+            reset = reset_draws(self.env_cfg, e, self.reset_generator, dev)
         if draws is None:
             draws = train_draws(self.env_cfg, e, num_steps, cfg.buffer_size,
                                 self.update_batch, self.generator, dev)
@@ -329,79 +393,86 @@ class DQNTrainer:
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         params, opt_state, buffer = ts.params, ts.opt_state, ts.buffer
         updates = steps = 0
-        size = int(buffer.size)  # the ring's fill, mirrored on the host
+        # the flags as the first step finds them: its fused update goes by
+        # the ring the last episode left
+        can_update, live, _ = self._read_flags(buffer, frozen)
 
         def flat(x):
             return x.reshape((e * n,) + x.shape[2:])
 
         for t in range(num_steps):
             d = draws.at(t)
-            if cfg.fused_act_update:
-                # the minibatch comes from the ring as it is before this
-                # step's push; acting and TD rows share one forward
-                acting = flat(self._acting_obs(env_states, obs))
-                if size >= cfg.min_buffer_size:
-                    batch = replay.sample(buffer, self.update_batch,
-                                          d.sample_u, idx=d.sample_idx)
-                    params, opt_state, loss, q_act = self._td_update(
-                        params, ts.target_params, opt_state, batch, acting)
-                    loss_sum = loss_sum + loss
-                    updates += 1
+            if live:
+                if cfg.fused_act_update:
+                    # the minibatch comes from the ring as it is before
+                    # this step's push; acting and TD rows share one
+                    # forward
+                    acting = flat(self._acting_obs(env_states, obs))
+                    if can_update:
+                        batch = replay.sample(buffer, self.update_batch,
+                                              d.sample_u, idx=d.sample_idx)
+                        params, opt_state, loss, q_act = self._td_update(
+                            params, ts.target_params, opt_state, batch,
+                            acting)
+                        loss_sum = loss_sum + loss
+                        updates += 1
+                    else:
+                        q_act = self._q(params, acting)
+                    actions = epsilon_greedy(q_act, dones, ts.epsilon,
+                                             d.rand, d.explore_u)
                 else:
-                    q_act = self._q(params, acting)
-                actions = epsilon_greedy(q_act, dones, ts.epsilon, d.rand,
-                                         d.explore_u)
-            else:
-                actions = self._select_actions(
-                    params, self._acting_obs(env_states, obs), dones,
-                    ts.epsilon, d)
-            # finished envs stand still (the reference loops while not
-            # all done): the step leaves them as they came in; no env is
-            # frozen before the first step
-            new_states, new_out = self._step_env(
-                env_states, actions, StepDraws(d.fruit_u, None, None),
-                hold=(frozen, out) if t > 0 else None)
+                    actions = self._select_actions(
+                        params, self._acting_obs(env_states, obs), dones,
+                        ts.epsilon, d)
+                # finished envs stand still (the reference loops while
+                # not all done): the step leaves them as they came in;
+                # no env is frozen before the first step
+                new_states, new_out = self._step_env(
+                    env_states, actions, StepDraws(d.fruit_u, None, None),
+                    hold=(frozen, out) if t > 0 else None)
 
-            # early-death shaping; t is the step count, since the loop
-            # ends with the last live env
-            shaped = new_out.reward
-            if t < cfg.early_death_threshold:
-                shaped = shaped + torch.where(
-                    new_out.done, cfg.early_death_penalty, 0.0)
-            push_mask = ~dones & ~frozen[:, None]  # agents alive at step
-            replay.push(buffer, flat(obs), flat(actions), flat(shaped),
-                        flat(new_out.obs), flat(new_out.done),
-                        mask=flat(push_mask))
-            ep_rew = ep_rew + torch.where(push_mask, shaped, 0.0)
+                # early-death shaping; t is the step count, since this
+                # rank's steps end with its last live env
+                shaped = new_out.reward
+                if t < cfg.early_death_threshold:
+                    shaped = shaped + torch.where(
+                        new_out.done, cfg.early_death_penalty, 0.0)
+                push_mask = ~dones & ~frozen[:, None]  # alive at step
+                replay.push(buffer, flat(obs), flat(actions), flat(shaped),
+                            flat(new_out.obs), flat(new_out.done),
+                            mask=flat(push_mask))
+                ep_rew = ep_rew + torch.where(push_mask, shaped, 0.0)
 
-            env_states, out = new_states, new_out
-            obs, dones = out.obs, out.done
-            frozen = frozen | dones.all(-1)
-            steps = t + 1
+                env_states, out = new_states, new_out
+                obs, dones = out.obs, out.done
+                frozen = frozen | dones.all(-1)
+                steps = t + 1
 
-            # the one read-back of the step
-            size, live = torch.stack(
-                [buffer.size, (~frozen).any().to(torch.int32)]).tolist()
-            if (not cfg.fused_act_update and live
-                    and steps % cfg.update_every == 0
-                    and size >= cfg.min_buffer_size):
+            can_update, live, any_live = self._read_flags(buffer, frozen)
+            if (not cfg.fused_act_update and can_update
+                    and (t + 1) % cfg.update_every == 0):
                 batch = replay.sample(buffer, self.update_batch, d.sample_u,
                                       idx=d.sample_idx)
                 params, opt_state, loss, _ = self._td_update(
                     params, ts.target_params, opt_state, batch)
                 loss_sum = loss_sum + loss
                 updates += 1
-            if not live:
+            if not any_live:
                 break
 
         episode = ts.episode + 1
         epsilon = torch.clamp(ts.epsilon * cfg.epsilon_decay,
                               min=cfg.epsilon_end)
         sync = episode % cfg.target_update_freq == 0
+        mean_reward = ep_rew.mean()
+        mean_loss = loss_sum / updates if updates else loss_sum
+        episode_length = float(steps)
+        if self.mesh is not None:
+            mean_reward, mean_loss, episode_length, updates = \
+                self._mean_metrics(mean_reward, mean_loss, steps, updates)
         metrics = EpisodeMetrics(
-            mean_reward=ep_rew.mean(),
-            mean_loss=loss_sum / updates if updates else loss_sum,
-            episode_length=float(steps), updates=updates)
+            mean_reward=mean_reward, mean_loss=mean_loss,
+            episode_length=episode_length, updates=updates)
         ts = ts.replace(
             params=params, target_params=params if sync else ts.target_params,
             opt_state=opt_state, buffer=buffer, epsilon=epsilon,
@@ -485,6 +556,8 @@ class DQNTrainer:
         if full:
             payload['buffer'] = dict(ts.buffer.fields())
             payload['generator'] = self.generator.get_state()
+            if self.reset_generator is not self.generator:
+                payload['reset_generator'] = self.reset_generator.get_state()
         return payload
 
     def save_checkpoint(self, ts: TrainState, tag, full: bool = False):
@@ -511,6 +584,8 @@ class DQNTrainer:
             ts = ts.replace(buffer=dataclasses.replace(ts.buffer,
                                                        **got['buffer']))
             self.generator.set_state(got['generator'].cpu())
+            if 'reset_generator' in got:
+                self.reset_generator.set_state(got['reset_generator'].cpu())
         return ts, {'best_mean_reward': got['best_mean_reward']}
 
     def delete_checkpoint(self, tag):

@@ -24,8 +24,16 @@ autograd on the forward, ``algo/optim.py`` for the clip and Adam.
 Random numbers: the trainer owns one ``torch.Generator`` on its device;
 ``update`` draws an update's numbers from it up front (``rng.ppo_draws``)
 unless the caller hands them in. Left out against the JAX trainer: the
-``axis_name`` (SPMD) branches, which belong to data-parallel training,
-and the fallback that loads checkpoints saved before the optimizer state.
+fallback that loads checkpoints saved before the optimizer state.
+
+Data parallelism (``mesh``, the JAX trainer's ``axis_name`` branch; see
+``parallel/ppo_dp.py``): each rank rolls out its own envs with its own
+generator (``rng.rank_seed``), so its Gumbel noise and its minibatch
+permutations are its own, over its own rows. Each minibatch all-reduces
+its gradients and its four loss terms as one flat buffer and divides it
+by the world size (JAX's ``pmean``). At the end the reward and valid-step
+sums, the finished-episode return sum and count and the episodes the
+rollout ended are summed over the ranks (the counts as int64, exactly).
 """
 
 from __future__ import annotations
@@ -44,7 +52,8 @@ from marlsnake_torch.device import resolve_device
 from marlsnake_torch.envs.vector import build_vector_fns
 from marlsnake_torch.models.ppo import make_actor_critic
 from marlsnake_torch.ops.obs_pack import unpack_obs
-from marlsnake_torch.rng import PPODraws, ppo_draws, reset_draws
+from marlsnake_torch.rng import (PPODraws, ResetDraws, ppo_draws,
+                                 rank_seed, reset_draws)
 from marlsnake_torch.utils import checkpoint as ckpt
 from marlsnake_torch.utils.metrics import MetricWriter
 
@@ -148,6 +157,7 @@ class Trajectory:
     next_done: torch.Tensor   # (T, E, N) bool: done, or the episode ended
     advantages: torch.Tensor  # (T, E, N) float32 (GAE)
     returns: torch.Tensor     # (T, E, N) float32
+    ended: torch.Tensor       # () int32: episodes the rollout ended
 
 
 class Minibatch(NamedTuple):
@@ -161,10 +171,15 @@ class Minibatch(NamedTuple):
 
 class PPOTrainer:
     """Single-device trainer. ``device`` defaults to the GPU; pass
-    ``'cpu'`` to run the plain PyTorch path."""
+    ``'cpu'`` to run the plain PyTorch path. With ``mesh``
+    (``parallel.mesh.Mesh``) it is one rank of a data-parallel run on the
+    mesh's device, ``num_envs`` being this rank's envs."""
 
-    def __init__(self, config: PPOConfig, device='cuda'):
+    def __init__(self, config: PPOConfig, device='cuda', mesh=None):
         self.config = config
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
         self.env_cfg = config.env_config()
         # the net is applied to parameters handed in (PPOTrainState.params);
@@ -175,7 +190,8 @@ class PPOTrainer:
         self._reset_env, self._step_env = build_vector_fns(
             self.env_cfg, autoreset=True, device=self.device)
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(config.seed + 1)
+        self.generator.manual_seed(config.seed + 1 if mesh is None
+                                   else rank_seed(config.seed, mesh.rank))
         t, e, n = config.rollout_steps, config.num_envs, config.num_snakes
         _, h, w, c = self.env_cfg.obs_shape
 
@@ -187,18 +203,22 @@ class PPOTrainer:
             obs=buf(torch.uint8, (t, e * n, h * w * c)),
             action=buf(torch.int32), logprob=buf(f32), value=buf(f32),
             reward=buf(f32), valid=buf(b8), next_done=buf(b8),
-            advantages=buf(f32), returns=buf(f32))
+            advantages=buf(f32), returns=buf(f32),
+            ended=buf(torch.int32, ()))
 
     # ------------------------------------------------------------------
-    def init_state(self) -> PPOTrainState:
+    def init_state(self, reset: Optional[ResetDraws] = None
+                   ) -> PPOTrainState:
         """The net's parameters, cold Adam moments, and ``num_envs`` envs
-        reset from the trainer's generator."""
+        reset with ``reset``, by default drawn from the trainer's
+        generator."""
         cfg, dev = self.config, self.device
         e, n = cfg.num_envs, cfg.num_snakes
         params = {k: v.detach().clone()
                   for k, v in self.net.state_dict().items()}
-        env_states, obs = self._reset_env(
-            reset_draws(self.env_cfg, e, self.generator, dev))
+        if reset is None:
+            reset = reset_draws(self.env_cfg, e, self.generator, dev)
+        env_states, obs = self._reset_env(reset)
 
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -274,6 +294,7 @@ class PPOTrainer:
             # auto-reset clears the per-agent done at an episode's end
             agent_done = out.done & ~ep_done[:, None]
             obs = out.obs
+        traj.ended.copy_(episodes - ts.episodes)
         _, last_value = self._policy(ts.params, obs)
         self._gae(last_value)
         return ts.replace(env_states=env_states, obs=obs,
@@ -373,6 +394,8 @@ class PPOTrainer:
         for epoch_perm in perm:
             for mb in self.minibatches(epoch_perm):
                 _, aux, grads = self.loss_and_grads(params, mb)
+                if self.mesh is not None:
+                    *grads, aux = self.mesh.mean(grads + [aux])
                 params, opt_state = self.apply_gradients(params, opt_state,
                                                          grads)
                 auxs.append(aux)
@@ -381,6 +404,14 @@ class PPOTrainer:
         rew_sum = (traj.reward * traj.valid).sum()
         valid_sum = traj.valid.sum(dtype=torch.int32)
         fin_sum, fin_cnt = ts.finished_return_sum, ts.finished_count
+        episodes = ts.episodes
+        if self.mesh is not None:
+            sums = self.mesh.all_reduce(torch.stack([rew_sum, fin_sum]))
+            counts = self.mesh.all_reduce(torch.stack(
+                [valid_sum, fin_cnt, traj.ended]).to(torch.int64))
+            rew_sum, fin_sum = sums
+            valid_sum, fin_cnt, ended = counts.to(torch.int32)
+            episodes = episodes - traj.ended + ended
         metrics = PPOMetrics(
             loss_actor=aux[0], loss_value=aux[1], entropy=aux[2],
             approx_kl=aux[3],
@@ -389,7 +420,7 @@ class PPOTrainer:
                 fin_cnt > 0, fin_sum / fin_cnt.clamp_min(1), 0.0),
             episodes_collected=fin_cnt)
         ts = ts.replace(params=params, opt_state=opt_state,
-                        update=ts.update + 1,
+                        update=ts.update + 1, episodes=episodes,
                         finished_return_sum=torch.zeros_like(fin_sum),
                         finished_count=torch.zeros_like(fin_cnt))
         return ts, metrics

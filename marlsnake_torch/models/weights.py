@@ -12,7 +12,9 @@ into the port's ``TrainState``. The ActorCritic flattens NHWC in both
 packages, so its kernels are transposed only
 (``actor_critic_from_flax``, ``actor_critic_to_flax``), and
 ``ppo_train_state_from_flax`` carries a JAX ``PPOTrainState`` across; so
-does the ``DistilledDQN`` (``distilled_dqn_from_flax``).
+does the ``DistilledDQN`` (``distilled_dqn_from_flax``). The states of the
+JAX data-parallel trainers split into one port state a rank
+(``dp_train_states_from_flax``, ``dp_ppo_train_states_from_flax``).
 """
 
 from __future__ import annotations
@@ -204,6 +206,54 @@ def ppo_train_state_from_flax(ts, device='cuda'):
         ep_return_acc=t('ep_return_acc'),
         finished_return_sum=t('finished_return_sum'),
         finished_count=t('finished_count'))
+
+
+def dp_train_states_from_flax(ts, grid_hw, world: int, device='cuda'):
+    """A JAX ``parallel.dqn_dp.DistributedDQN`` state with numpy leaves
+    (its ring holds ``world * capacity`` rows, ``ptr`` and ``size`` have
+    shape ``(world,)``; dqn_dp.py:93-103) -> the port's ``TrainState`` of
+    each rank: rank r's ring rows, ``ptr`` and ``size``, and the
+    replicated fields, through ``train_state_from_flax``."""
+    jbuf = _get(ts, 'buffer')
+    cap = np.asarray(_get(jbuf, 'obs')).shape[0] // world
+    states = []
+    for r in range(world):
+        buf = {name: np.asarray(_get(jbuf, name))[r * cap:(r + 1) * cap]
+               for name in ('obs', 'action', 'reward', 'next_obs', 'done')}
+        buf.update(ptr=np.asarray(_get(jbuf, 'ptr'))[r],
+                   size=np.asarray(_get(jbuf, 'size'))[r],
+                   obs_shape=_get(jbuf, 'obs_shape'))
+        local = {name: _get(ts, name) for name in (
+            'params', 'target_params', 'opt_state', 'epsilon', 'episode',
+            'global_step')}
+        states.append(train_state_from_flax(dict(local, buffer=buf),
+                                            grid_hw, device))
+    return states
+
+
+def dp_ppo_train_states_from_flax(ts, world: int, device='cuda'):
+    """A JAX ``parallel.ppo_dp.DistributedPPO`` state with numpy leaves ->
+    the port's ``PPOTrainState`` of each rank: rank r's rows of the env
+    states, ``obs``, ``agent_done`` and ``ep_return_acc``, and the
+    replicated fields (ppo_dp.py:21-22), through
+    ``ppo_train_state_from_flax``."""
+    from marlsnake_torch.core.state import EnvState
+    env = _get(ts, 'env_states')
+    e = np.asarray(_get(ts, 'obs')).shape[0] // world
+    states = []
+    for r in range(world):
+        def rows(x):
+            return np.asarray(x)[r * e:(r + 1) * e]
+
+        local = {name: _get(ts, name) for name in (
+            'params', 'opt_state', 'update', 'episodes',
+            'finished_return_sum', 'finished_count')}
+        local['env_states'] = {f.name: rows(_get(env, f.name))
+                               for f in dataclasses.fields(EnvState)}
+        for name in ('obs', 'agent_done', 'ep_return_acc'):
+            local[name] = rows(_get(ts, name))
+        states.append(ppo_train_state_from_flax(local, device))
+    return states
 
 
 _AC_REFERENCE_NAMES = {'CNN_feature.0': 'conv1', 'CNN_feature.3': 'conv2',

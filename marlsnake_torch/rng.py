@@ -33,6 +33,9 @@ A batched battle (``algo/battle_batch.py``) takes ``BattleDraws``: its
 envs' resets and fruit draws, and for each opponent seat what its policy
 draws a step, the greedy fruit-seeker's tie-break uniforms or a random
 seat's actions.
+
+A data-parallel rank seeds its generators with ``rank_seed``, so that
+its draws are its own.
 """
 
 from __future__ import annotations
@@ -160,6 +163,18 @@ def derive_seed(*parts: int) -> int:
     state = np.random.SeedSequence([int(p) for p in parts]).generate_state(
         2, np.uint32)
     return int(state[0]) | (int(state[1]) & 0x7FFFFFFF) << 32
+
+
+RESET_STREAM, STEP_STREAM = 0, 1
+
+
+def rank_seed(seed: int, rank: int, stream: int = STEP_STREAM) -> int:
+    """The seed of data-parallel rank ``rank``'s generator of ``stream``:
+    the counterpart of the JAX trainers' per-device streams,
+    ``fold_in(key, axis_index)``. A DQN rank draws its resets
+    (``RESET_STREAM``) and its steps (``STEP_STREAM``) from two
+    generators, as JAX folds its reset and step keys apart."""
+    return derive_seed(seed + 1, stream, rank)
 
 
 class EpisodeDraws(NamedTuple):

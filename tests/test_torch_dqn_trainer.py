@@ -76,15 +76,21 @@ def numpy_state(jts):
                         jts.replace(key=jax.random.key_data(jts.key)))
 
 
-def episode_draws(jtr, jts, tr, ring_size=None):
+def episode_draws(jtr, jts, tr, ring_size=None, axis_index=None):
     """(ResetDraws, TrainDraws) that the JAX trainer's next episode takes
     from ``jts.key`` (dqn_trainer.py:323-331, 374, 289-291; replay.py:105;
     the envs' own fruit keys, engine.py:576, 933). With ``ring_size``, the
     fill of a ring that stays full through the episode, also the indices
-    JAX draws when it samples with replacement (replay.py:101)."""
+    JAX draws when it samples with replacement (replay.py:101). With
+    ``axis_index``, those of that device of a data-parallel mesh, whose
+    streams fold in its index (dqn_trainer.py:324-329); ``tr`` then has
+    the device's own ``num_envs``."""
     cfg, ecfg = tr.config, tr.env_cfg
     e, n = cfg.num_envs, cfg.num_snakes
     key, k_reset, _ = jax.random.split(jts.key, 3)
+    if axis_index is not None:
+        k_reset = jax.random.fold_in(k_reset, axis_index)
+        key = jax.random.fold_in(key, axis_index + 1_000_003)
     reset_keys = jax.random.split(
         jax.random.fold_in(k_reset, jts.episode), e)
     env_keys = jax.vmap(lambda k: jax.random.fold_in(k, 2))(reset_keys)

@@ -70,14 +70,19 @@ def _jitted(jtr):
     return jax.jit(jtr._policy), jax.jit(jtr._step_env)
 
 
-def replay_jax_rollout(jtr, jts, env_cfg):
+def replay_jax_rollout(jtr, jts, env_cfg, axis_index=None):
     """The rollout the JAX trainer's next update takes from ``jts``
     (ppo_trainer.py:188-239), step by step. Returns (PPODraws for the
     port, what each step recorded, the smallest top-two gap of
-    ``logits + gumbel``, the obs after the last step)."""
+    ``logits + gumbel``, the obs after the last step). With
+    ``axis_index``, that device's rollout of a data-parallel mesh: ``jts``
+    holds the device's rows, ``jtr`` has its ``num_envs``, and its stream
+    folds in its index (ppo_trainer.py:227-230)."""
     cfg = jtr.config
     policy, step_env = _jitted(jtr)
     key, _ = jax.random.split(jts.key)
+    if axis_index is not None:
+        key = jax.random.fold_in(key, axis_index)
     env_states, obs, agent_done = jts.env_states, jts.obs, jts.agent_done
     rec = {k: [] for k in ('obs', 'action', 'value', 'reward', 'valid',
                            'next_done')}
