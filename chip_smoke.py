@@ -6,14 +6,23 @@
 Phases, each of which fails loudly (non-zero exit, no result line):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the CUDA step kernel with nvcc from this checkout's sources;
+2. build the CUDA step kernel and the safety mask (csrc/safety_mask.cu)
+   with nvcc from this checkout's sources, one nvcc a source, started
+   together;
 3. the kernel against its plain PyTorch version (engine.step_autoreset)
    on the card, at 10x10 with 2 snakes (B=64, done_mode 'all' and 'any'),
    at 20x20 with 4 snakes (B=4096) and at 40x40 with 8 snakes (B=1024),
    64 steps each, the same actions and draws for both: every state and
    output field must be EQUAL, floats included (tolerance 0: the library
    is built with -fmad=false and both sides do the same IEEE operations in
-   the same order), and each run must auto-reset some envs;
+   the same order), and each run must auto-reset some envs; then both
+   entries of the safety mask against their plain versions on the card
+   (``mask_parity_phase``, tolerance 0): reachable_count on 3,072 and 384
+   boards of 20x20, 256 of 40x40 and of 11x9 and 8 of 216x216 at limits
+   1, 7, 60 and passable densities 0.3, 0.7, 0.95; safety_mask (act,
+   new_dir, next_pos, head_exists) on 8 steps each at 40x40x8, at N=1
+   with a claim board, at E=1 and at 11x9x3, and on random 9-byte cells
+   at 32 snakes of 20x20 and 8 snakes of 216x216;
 4. the main path: VectorSnakeEnv with 4096 envs of 20x20 with 4 snakes
    and the reference-width DQN (random weights from a seed, float32, TF32
    off) acting epsilon-greedily for 16 steps; the launch counter is set
@@ -101,11 +110,14 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    both); the `--mode ppo` bench rows at 64 and 256 envs; profiler windows
    over 16 rollout steps and one minibatch update of 32,768 rows. Then
    evaluate_batch's loop (build_evaluate_batch) with the port's DQN at 256
-   envs of 20x20x4 for up to 512 steps, the step entry launched once a
-   step taken (auto-reset entry never); masked_actions on the card EQUAL
-   to the CPU on 16 recorded steps; ms per step, a profiler window of 16
-   evaluation steps and the flood fill's own device time, launches and
-   bound;
+   envs of 20x20x4 for up to 512 steps, the step entry and the safety mask
+   launched once a step taken (auto-reset entry never, the plain mask and
+   the plain fills never); the mask on the card EQUAL to its plain version
+   on the card and on the CPU on 16 recorded steps, and reachable_count's
+   own path (each step's 3,072 post-move boards, 16 launches) EQUAL to the
+   plain fill; ms per step, a profiler window of 16 evaluation steps, and
+   both mask entries' device_ms, host_us, call_ms, plain ms and bound at
+   the path's shapes;
 15. NEAT and ES evolution at full width (``evolution_phase``):
    HybridNEATTrainer with NeatConfig()'s pop 100 over the reference-width
    DQN (20x20x4, length 5, DEFAULT_REWARD, 512-step episodes) for 3
@@ -130,7 +142,8 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    no call of the plain engine, the last step EQUAL to it, a rank at the
    end), make_snake(num_envs=8) (one auto-reset launch a step, and the
    auto-reset entry against the plain engine at its B=8),
-   DQNEvaluator over 2 episodes (ms per step), render_winner(render=False)
+   DQNEvaluator over 2 episodes (one mask launch at E=1 a step, ms per
+   step, a profiler window, the mask's times), render_winner(render=False)
    on the NEAT checkpoint, and the step entry against engine.step at B=1,
    B=100 and B=129, the widths of the adapter, NEAT and ES (tolerance 0);
    then the battle arenas (``battle_phase``): build_battle_batch at 128
@@ -139,13 +152,15 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    step launch a loop step, no plain-engine call; the same battle
    recorded on the card and 16 of its episodes replayed on the CPU:
    every decision more than 1e-4 from a tie equal, near-ties counted,
-   rewards and lifetimes of unparted episodes equal; ms per battle step,
-   a profiler window of 16 steps, the flood fill at the battle's shape)
-   and the host BattleArena for one episode of up to 128 steps (one step
-   launch at B=1 a step); then every subcommand of the CLI once at small
-   counts (``cli_phase``: train writes the checkpoint that eval, battle,
-   battle --batched, neat and es load; train-ppo and demo; the launches of
-   both entries counted per subcommand, no plain-engine call);
+   rewards and lifetimes of unparted episodes equal; one mask launch at
+   E=128, N=1 a step; ms per battle step, a profiler window of 16 steps,
+   both mask entries at the battle's shapes) and the host BattleArena for
+   one episode of up to 128 steps (one step launch at B=1 a step, one
+   mask launch a step seat 0 began alive); then every subcommand of the
+   CLI once at small counts (``cli_phase``: train writes the checkpoint
+   that eval, battle, battle --batched, neat and es load; train-ppo and
+   demo; the launches of both step entries and of the mask counted per
+   subcommand, no plain-engine or plain-mask call);
 16. data-parallel training (``parallel_phase``, ``marlsnake_torch/parallel``):
    first both entries against the plain engine at a rank's widths (the
    auto-reset entry at DistributedPPO's 128 envs a gloo rank and the
@@ -168,8 +183,11 @@ Phases, each of which fails loudly (non-zero exit, no result line):
 17. one JSON line of kernels (every entry and variant; the auto-reset
    entry's row carries the PPO numbers, the step entry's the evaluator's,
    the evolution's, the adapters', the battles', the CLI's and the
-   data-parallel trainers', with its launches on every path), then, as
-   the last line, {"ok": true, "device": {"platform": "gpu", "kind": ...,
+   data-parallel trainers', with its launches on every path;
+   masked_actions with its launches on every masked path and its times
+   at E=256 x N=4, 128 x 1 and 1 x 4; reachable_count with its own path's
+   launches and its times at 3,072 and 384 boards), then, as the last
+   line, {"ok": true, "device": {"platform": "gpu", "kind": ...,
    "count": ...}}.
 
 Run one phase alone: ``python3 -c "import chip_smoke as cs, tempfile, torch;
@@ -180,6 +198,13 @@ phases need the NEAT phase's ``neat.pkl`` in ``d`` and PPO parameters
 (``cs.ppo_phase('', keep)`` puts them in ``keep['ppo_params']``);
 ``cs.parallel_phase('', d)`` runs alone once the kernel is built
 (``step_kernel.build_library()``).
+
+``python3 chip_smoke.py --masked-paths [DIR]`` times the three masked
+paths alone (``masked_paths``: ms per step and a 16-step profiler window
+of evaluate_batch, build_battle_batch and DQNEvaluator) against the
+marlsnake_torch package in DIR, by default this checkout's: a parent
+tree unpacked with ``git archive`` into a git-ignored directory gives
+the parent's numbers on the same card, run in turns with this tree's.
 
 Exits non-zero without a result when CUDA is not available.
 """
@@ -196,9 +221,16 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-FP32_OPS_PER_S = 67e12        # H100 SXM CUDA-core rate (used for int ops)
+# H100 SXM int32 and logic rate: 64 lanes on each of 132 SMs at 1.98 GHz
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 KERNEL_NAME = 'step_autoreset'       # part of the kernels' names as the
 STEP_KERNEL_NAME = 'step_noreset'    # profiler reports them
+MASK_KERNEL_NAME = 'masked_actions_kernel'
+FILL_KERNEL_NAME = 'reachable_count_kernel'
+FILL_WORD_OPS = 9    # a board word a round: 2 shifts, 4 ORs of neighbours,
+                     # an AND with the passable word, an OR, a popcount
+SCAN_CELL_OPS = 16   # a cell of the mask's obs scan: 8 channel compares,
+                     # the deadly OR, 2 argmax keys, the length
 
 
 def log(*args):
@@ -443,6 +475,29 @@ def kernel_traffic(cfg, state, actions, draws, outputs,
     return read + written, ops
 
 
+def bound_row(label, device_ms, host_blocks, call_ms, plain_ms, traffic,
+              smi) -> dict:
+    """An entry's times beside its bound, logged and as a ``kernels`` row:
+    ``traffic`` is (bytes, int32 operations) its inputs need."""
+    wrapper_us = sorted(host_blocks)[len(host_blocks) // 2]
+    nbytes, ops = traffic
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    pct_of_bound = 100.0 * bound_ms / device_ms
+    log(f'{label}: device {device_ms:.5f} ms (torch.profiler), '
+        f'host {wrapper_us:.2f} us per call (median of blocks '
+        f'{[round(x, 2) for x in host_blocks]}), call {call_ms:.5f} ms, '
+        f'plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({nbytes} bytes '
+        f'-> {bytes_ms:.5f} ms; {ops} int ops -> {ops_ms:.5f} ms), '
+        f'{pct_of_bound:.1f}% of bound [{smi}]')
+    return {'ms': device_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+            'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
+            'library_ms': None, 'device_ms': device_ms,
+            'host_us': wrapper_us, 'call_ms': call_ms,
+            'pct_of_bound': pct_of_bound, 'bytes': nbytes, 'int_ops': ops}
+
+
 def time_entry(label, kernel_name, step_fn, plain_fn, state, traffic,
                smi) -> dict:
     """Times of one entry of the step kernel. ``step_fn(state)`` returns
@@ -455,25 +510,10 @@ def time_entry(label, kernel_name, step_fn, plain_fn, state, traffic,
 
     device_ms = kernel_device_us(roll, kernel_name, 100) / 1e3
     host_blocks = host_us(roll)
-    wrapper_us = sorted(host_blocks)[len(host_blocks) // 2]
     call_ms = event_ms(lambda: step_fn(state), 200)
     plain_ms = event_ms(plain_fn, 20)
-    nbytes, ops = traffic
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    pct_of_bound = 100.0 * bound_ms / device_ms
-    log(f'{label}: device {device_ms:.5f} ms (torch.profiler, rolling), '
-        f'host {wrapper_us:.2f} us per call (median of blocks '
-        f'{[round(x, 2) for x in host_blocks]}), call {call_ms:.5f} ms, '
-        f'plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({nbytes} bytes '
-        f'-> {bytes_ms:.5f} ms; {ops} int ops -> {ops_ms:.5f} ms), '
-        f'{pct_of_bound:.1f}% of bound [{smi}]')
-    return {'ms': device_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
-            'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
-            'library_ms': None, 'device_ms': device_ms,
-            'host_us': wrapper_us, 'call_ms': call_ms,
-            'pct_of_bound': pct_of_bound, 'bytes': nbytes}
+    return bound_row(f'{label} (rolling)', device_ms, host_blocks, call_ms,
+                     plain_ms, traffic, smi)
 
 
 def pacing_probe(label, kernel_name, step_fn, state, smi) -> dict:
@@ -947,20 +987,282 @@ def ppo_phase(smi: str, keep: dict = None) -> dict:
             'ppo_minibatch_idle_share': mb_window['idle_share']}
 
 
+def fill_rounds(passable, start, cap) -> torch.Tensor:
+    """Rounds of dilation each of M boards (M, H, W) needs before its
+    count settles (a round adds no cell) or reaches its cap (an int or
+    (M,)), that last round included: the data-dependent work of a fill."""
+    m = passable.shape[0]
+    dev = passable.device
+    cap = torch.as_tensor(cap, device=dev).expand(m)
+    vis = torch.zeros((m,) + tuple(d + 2 for d in passable.shape[1:]),
+                      dtype=torch.bool, device=dev)
+    s = start.long()
+    vis[torch.arange(m, device=dev), s[:, 0] + 1, s[:, 1] + 1] = True
+    inner = vis[:, 1:-1, 1:-1]
+    count = torch.ones(m, dtype=torch.int64, device=dev)
+    rounds = torch.zeros(m, dtype=torch.int64, device=dev)
+    live = cap > 1
+    while bool(live.any()):
+        inner |= (vis[:, :-2, 1:-1] | vis[:, 2:, 1:-1] | vis[:, 1:-1, :-2]
+                  | vis[:, 1:-1, 2:]) & passable
+        new = inner.sum((-2, -1))
+        rounds += live
+        live &= (new < cap) & (new != count)
+        count = new
+    return rounds
+
+
+def fill_traffic(passable, start, cap) -> tuple:
+    """(bytes, int32 ops) of reachable_count on boards (M, H, W) bool with
+    starts (M, 2) int32: each board, start and count moved once; each
+    round a board needs (``fill_rounds``) FILL_WORD_OPS on each of its
+    32-bit row words."""
+    m, h, w = passable.shape
+    words = h * -(-w // 32)
+    ops = int(fill_rounds(passable, start, cap).sum()) * words * FILL_WORD_OPS
+    return m * h * w + m * 2 * 4 + m * 4, ops
+
+
+def plain_fill_inputs(inputs, limit: int):
+    """The plain mask of ``inputs`` (obs, q, dirs, active, claims) with
+    what it fills: (its MaskOut, boards (M, H, W), starts (M, 2), the
+    plain fill's counts (M,)), from the one call of reachable_count_plain
+    inside masked_actions_plain."""
+    from marlsnake_torch.ops import safety_mask as SM
+    seen, real = [], SM.reachable_count_plain
+
+    def recorder(passable, start, lim):
+        space = real(passable, start, lim)
+        seen.append((passable, start, space))
+        return space
+
+    SM.reachable_count_plain = recorder
+    try:
+        out = SM.masked_actions_plain(*inputs, limit)
+    finally:
+        SM.reachable_count_plain = real
+    (passable, start, space), = seen
+    return (out, passable.reshape((-1,) + passable.shape[-2:]),
+            start.reshape(-1, 2), space.reshape(-1))
+
+
+def mask_traffic(inputs, limit: int) -> tuple:
+    """(bytes, int32 ops) of the safety mask of ``inputs``: the obs, the
+    other inputs and the four outputs moved once; SCAN_CELL_OPS a cell of
+    every snake's obs; the fills of every (snake, move) board at the
+    kernel's cap min(limit, length + eat), FILL_WORD_OPS a word a round
+    (the kernel skips the boards already vetoed, so this counts more
+    fill work than it does)."""
+    obs, q, dirs, active, claims = inputs
+    e, n, h, w, c = obs.shape
+    per_snake = 3 * 4 + 2 * 4 + 1 + 4 + 8 + 8 + 1
+    nbytes = (e * n * h * w * c + e * n * per_snake
+              + (e * h * w if claims is not None else 0))
+    _, boards, starts, _ = plain_fill_inputs(inputs, limit)
+    flat = obs.reshape(e * n, h, w, c)
+    length = (flat[..., 5:8] == 1).flatten(1).sum(-1)
+    rows = torch.arange(e * n, device=obs.device).repeat_interleave(3)
+    eat = flat[rows, starts[:, 0].long(), starts[:, 1].long(), 1] == 1
+    cap = torch.clamp_max(length.repeat_interleave(3) + eat, limit)
+    words = h * -(-w // 32)
+    fills = int(fill_rounds(boards, starts, cap).sum()) * words
+    return nbytes, SCAN_CELL_OPS * e * n * h * w + fills * FILL_WORD_OPS
+
+
+def time_fill(label, passable, start, limit: int, smi) -> dict:
+    """reachable_count's times at one shape: device_ms from the profiler,
+    host_us, call_ms (CUDA events), the plain version's ms, the bound."""
+    from marlsnake_torch.ops.floodfill import (reachable_count,
+                                               reachable_count_plain)
+
+    def fn():
+        return reachable_count(passable, start, limit)
+
+    device_ms = kernel_device_us(fn, FILL_KERNEL_NAME, 100) / 1e3
+    blocks = host_us(fn)
+    call_ms = event_ms(fn, 200)
+    plain_ms = event_ms(lambda: reachable_count_plain(passable, start,
+                                                      limit), 10)
+    row = bound_row(label, device_ms, blocks, call_ms, plain_ms,
+                    fill_traffic(passable, start, limit), smi)
+    row['shape'] = list(passable.shape)
+    return row
+
+
+def time_mask(label, inputs, limit: int, smi) -> dict:
+    """safety_mask's times at one shape (``inputs``: obs, q, dirs, active,
+    claims), as ``time_fill``'s."""
+    from marlsnake_torch.ops import safety_mask as SM
+
+    def fn():
+        return SM.safety_mask(*inputs, limit)
+
+    device_ms = kernel_device_us(fn, MASK_KERNEL_NAME, 100) / 1e3
+    blocks = host_us(fn)
+    call_ms = event_ms(fn, 200)
+    plain_ms = event_ms(lambda: SM.masked_actions_plain(*inputs, limit), 5)
+    row = bound_row(label, device_ms, blocks, call_ms, plain_ms,
+                    mask_traffic(inputs, limit), smi)
+    row['shape'] = list(inputs[0].shape)
+    return row
+
+
+def max_abs_diff(a, b) -> float:
+    """The largest |a - b| of two tensors of one shape (0.0 when empty)."""
+    if not a.numel():
+        return 0.0
+    return (a.cpu().double() - b.cpu().double()).abs().max().item()
+
+
+def same_mask(got, want, where: str) -> float:
+    """Raise unless two MaskOuts are EQUAL, field by field; returns the
+    largest difference (0.0)."""
+    err = 0.0
+    for name, a, b in zip(got._fields, got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f'{where}: {name} is {a.dtype} '
+                                 f'{tuple(a.shape)}, plain {b.dtype} '
+                                 f'{tuple(b.shape)}')
+        err = max(err, max_abs_diff(a, b))
+        if not torch.equal(a, b.to(a.device)):
+            bad = (a.cpu() != b.cpu()).nonzero()[:5].tolist()
+            raise AssertionError(f'{where}: {name} differs at {bad}')
+    return err
+
+
+def mask_rollout(cfg, num_envs: int, steps: int, seed: int, claims=0.0,
+                 keep=None):
+    """Inputs of the safety mask over ``steps`` steps of envs without
+    reset driven by the kernel's own choices (random Q-values, directions
+    carried, finished snakes inactive): yields (obs, q, dirs, active,
+    claims) each step, claims a random board of density ``claims`` (None
+    at 0)."""
+    from marlsnake_torch.envs.vector import VectorSnakeEnv
+    from marlsnake_torch.ops import safety_mask as SM
+    env = VectorSnakeEnv(cfg, num_envs, autoreset=False, device='cuda',
+                         seed=seed)
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    states, obs = env.reset()
+    n, h, w = cfg.num_snakes, cfg.height, cfg.width
+    dirs = torch.zeros((num_envs, n, 2), dtype=torch.int32, device='cuda')
+    done = torch.zeros((num_envs, n), dtype=torch.bool, device='cuda')
+    for _ in range(steps):
+        q = torch.randn((num_envs, n, 3), generator=gen, device='cuda')
+        board = (torch.rand((num_envs, h, w), generator=gen, device='cuda')
+                 < claims) if claims else None
+        inputs = (obs, q, dirs, ~done, board)
+        yield inputs
+        out = SM.safety_mask(*inputs)
+        states, step = env.step(states, out.act)
+        obs, dirs, done = step.obs, out.new_dir, done | step.done
+
+
+def mask_parity_phase(smi: str) -> dict:
+    """Both entries of csrc/safety_mask.cu against their plain versions on
+    the card, tolerance 0. reachable_count at the evaluator's 3,072 and the
+    battle's 384 boards of 20x20, at 256 of 40x40 and of 11x9 and at 8 of
+    216x216, each at limits 1, 7 and 60 and passable densities 0.3, 0.7
+    and 0.95 (random starts, some on blocked cells). safety_mask on 8
+    steps of envs driven by its own choices at 40x40x8 (64 envs), at N=1
+    with a claim board (128 envs of 20x20, one snake each), at E=1
+    (20x20x4) and at 11x9x3, then once on random cells at the widest
+    instances: 32 snakes of 20x20 and 8 of 216x216 (over 48 KB of shared
+    memory a block)."""
+    from marlsnake_torch.core.types import EnvConfig
+    from marlsnake_torch.ops import safety_mask as SM
+    from marlsnake_torch.ops.floodfill import (reachable_count,
+                                               reachable_count_plain)
+
+    gen = torch.Generator(device='cuda').manual_seed(60)
+    fills, capped, fill_err = 0, 0, 0.0
+    for m, h, w in ((3072, 20, 20), (384, 20, 20), (256, 40, 40),
+                    (256, 11, 9), (8, 216, 216)):
+        for density in (0.3, 0.7, 0.95):
+            passable = torch.rand((m, h, w), generator=gen,
+                                  device='cuda') < density
+            start = torch.stack([
+                torch.randint(0, h, (m,), generator=gen, device='cuda'),
+                torch.randint(0, w, (m,), generator=gen, device='cuda')], -1)
+            for limit in (1, 7, 60):
+                got = reachable_count(passable, start, limit)
+                want = reachable_count_plain(passable, start, limit)
+                fill_err = max(fill_err, max_abs_diff(got, want))
+                if not torch.equal(got, want):
+                    bad = (got != want).nonzero()[:5].tolist()
+                    raise AssertionError(
+                        f'reachable_count {m}x{h}x{w} density {density} '
+                        f'limit {limit} differs at {bad}')
+                fills += m
+                capped += int((want == limit).sum())
+    log(f'reachable_count EQUAL to the plain version on {fills} boards '
+        f'({capped} at their cap; 3,072 and 384 of 20x20, 256 of 40x40 and '
+        f'11x9, 8 of 216x216; limits 1, 7, 60; densities 0.3, 0.7, 0.95)')
+    cases = (('40x40x8, 64 envs', EnvConfig(height=40, width=40,
+                                            num_snakes=8, snake_length=3),
+              64, 0.0),
+             ('N=1 with a claim board, 128 envs of 20x20',
+              EnvConfig(height=20, width=20, num_snakes=1, snake_length=5),
+              128, 0.05),
+             ('E=1, 20x20x4', EnvConfig(height=20, width=20, num_snakes=4,
+                                        snake_length=5), 1, 0.0),
+             ('11x9x3, 64 envs', EnvConfig(height=11, width=9, num_snakes=3,
+                                           snake_length=3), 64, 0.0))
+    steps, mask_err = 0, 0.0
+    for i, (name, cfg, num_envs, claims) in enumerate(cases):
+        for inputs in mask_rollout(cfg, num_envs, 8, seed=61 + i,
+                                   claims=claims):
+            mask_err = max(mask_err, same_mask(
+                SM.safety_mask(*inputs), SM.masked_actions_plain(*inputs),
+                f'safety_mask {name}'))
+            steps += 1
+    # the widest instances: 32 snakes an env, and 216x216 boards whose
+    # block needs more than 48 KB of shared memory; random channel values
+    # (0-2) in 9-byte cells, so the cells are read a byte at a time
+    soups = ((16, 32, 20, 20), (4, 8, 216, 216))
+    for e, n, h, w in soups:
+        obs = torch.randint(0, 3, (e, n, h, w, 9), generator=gen,
+                            device='cuda', dtype=torch.uint8)
+        obs[..., 5] = 0
+        obs[:, :, torch.randint(0, h, (1,), generator=gen,
+                                device='cuda'),
+            torch.randint(0, w, (1,), generator=gen, device='cuda'), 5] = 1
+        units = torch.tensor([(-1, 0), (0, 1), (1, 0), (0, -1), (0, 0)],
+                             dtype=torch.int32, device='cuda')
+        inputs = (obs, torch.randn((e, n, 3), generator=gen, device='cuda'),
+                  units[torch.randint(0, 5, (e, n), generator=gen,
+                                      device='cuda')],
+                  torch.rand((e, n), generator=gen, device='cuda') < 0.8,
+                  torch.rand((e, h, w), generator=gen, device='cuda') < 0.1)
+        mask_err = max(mask_err, same_mask(
+            SM.safety_mask(*inputs), SM.masked_actions_plain(*inputs),
+            f'safety_mask {e}x{n} of {h}x{w}x9'))
+        steps += 1
+    log(f'safety_mask EQUAL to the plain version (act, new_dir, next_pos, '
+        f'head_exists) on {steps} steps: ' + '; '.join(c[0] for c in cases)
+        + '; ' + '; '.join(f'{e} envs x {n} snakes of {h}x{w}x9 random '
+                           f'cells' for e, n, h, w in soups))
+    return {'reachable_count_boards': fills,
+            'reachable_count_capped': capped, 'safety_mask_steps': steps,
+            'reachable_count_max_abs_err': fill_err,
+            'safety_mask_max_abs_err': mask_err}
+
+
 def evaluator_phase(smi: str) -> dict:
     """The batched, safety-masked evaluator with the port's DQN at 20x20x4
     (the DQN trainer's env config), 256 envs, 512 steps (the JAX
-    defaults): the step entry's launches equal the steps taken; then
-    masked_actions on the card against the CPU over 16 recorded steps;
-    then times: ms per step, a profiler window of 16 evaluation steps, and
-    the flood fill alone at the shape the main path gives it."""
+    defaults): the step entry and the safety mask launched once a step
+    taken, no call of the plain mask or of any flood fill; then the mask
+    on the card against its plain version on the card and on the CPU over
+    16 recorded steps; then times: ms per step, a profiler window of 16
+    evaluation steps, the mask and the flood fill at the main path's
+    shapes."""
     from marlsnake_torch.algo.dqn_trainer import DQNConfig
     from marlsnake_torch.algo.evaluator import (build_evaluate_batch,
                                                 masked_actions)
     from marlsnake_torch.envs.vector import VectorSnakeEnv
     from marlsnake_torch.models.dqn import make_dqn
-    from marlsnake_torch.ops import step_kernel
-    from marlsnake_torch.ops.floodfill import reachable_count
+    from marlsnake_torch.ops import floodfill, step_kernel
+    from marlsnake_torch.ops import safety_mask as SM
 
     cfg = DQNConfig().env_config()
     num_envs, max_steps, n = 256, 512, cfg.num_snakes
@@ -969,47 +1271,77 @@ def evaluator_phase(smi: str) -> dict:
                                device='cuda')
     step_kernel.step.launches = 0
     step_kernel.step_autoreset.launches = 0
-    t0 = time.perf_counter()
-    res = run(seed=31)
-    reward, lifetime = float(res.mean_reward), float(res.mean_lifetime)
-    first_s = time.perf_counter() - t0
+    SM.safety_mask.launches = 0
+    floodfill.reachable_count.launches = 0
+    with PlainMaskCalls() as plain:
+        t0 = time.perf_counter()
+        res = run(seed=31)
+        reward, lifetime = float(res.mean_reward), float(res.mean_lifetime)
+        first_s = time.perf_counter() - t0
     launches = step_kernel.step.launches
     auto = step_kernel.step_autoreset.launches
+    masks = SM.safety_mask.launches
+    fills = floodfill.reachable_count.launches
     log(f'evaluator path: {num_envs} envs of {cfg.height}x{cfg.width}x{n}, '
         f'{res.steps} of {max_steps} steps in {first_s:.2f} s (with the '
         f'warm-up), step launches={launches}, step_autoreset launches='
-        f'{auto}; mean reward {reward}, mean lifetime {lifetime}')
-    if launches != res.steps or auto != 0:
+        f'{auto}, safety_mask launches={masks}, reachable_count launches='
+        f'{fills}, plain mask calls={plain.calls}; mean reward {reward}, '
+        f'mean lifetime {lifetime}')
+    if launches != res.steps or auto != 0 or masks != res.steps \
+            or fills != 0 or plain.calls:
         raise AssertionError(f'{res.steps} evaluation steps but {launches} '
-                             f'launches of step and {auto} of '
-                             f'step_autoreset')
+                             f'launches of step, {auto} of step_autoreset, '
+                             f'{masks} of safety_mask, {fills} of '
+                             f'reachable_count, plain calls {plain.calls}')
     if not (math.isfinite(reward) and math.isfinite(lifetime)
             and 0 < lifetime <= max_steps):
         raise AssertionError('evaluation result not finite or out of range')
 
-    # masked_actions, card against CPU, on 16 steps of recorded inputs
+    # the mask, card against its plain version on the card and on the CPU,
+    # on 16 steps of recorded inputs
     env = VectorSnakeEnv(cfg, num_envs, autoreset=False, device='cuda',
                          seed=33)
     states, obs = env.reset()
     dirs = torch.zeros((num_envs, n, 2), dtype=torch.int32, device='cuda')
     dones = torch.zeros((num_envs, n), dtype=torch.bool, device='cuda')
-    vetoed = 0
+    vetoed, mask_err, fill_err = 0, 0.0, 0.0
+    floodfill.reachable_count.launches = 0
     for t in range(16):
         with torch.no_grad():
             q = net(obs.reshape((-1,) + obs.shape[2:])).view(num_envs, n, -1)
+        inputs = (obs, q, dirs, ~dones, None)
+        got = SM.safety_mask(*inputs)
+        plain_out, boards, starts, plain_space = plain_fill_inputs(inputs, 60)
+        mask_err = max(mask_err, same_mask(
+            got, plain_out, f'safety_mask against the plain version on the '
+                            f'card, step {t}'))
+        same_mask(got, SM.masked_actions_plain(
+            *(None if x is None else x.cpu() for x in inputs)),
+            f'safety_mask against the plain version on the CPU, step {t}')
+        # reachable_count's own path: the space of every post-move board
+        # of the step, as a user of the entry asks for it
+        space = floodfill.reachable_count(boards, starts, 60)
+        fill_err = max(fill_err, max_abs_diff(space, plain_space))
+        if not torch.equal(space, plain_space):
+            raise AssertionError(f'reachable_count differs from the plain '
+                                 f'fill of the evaluation step {t}')
         acts, new_dirs = masked_actions(obs, q, dirs, ~dones)
-        cpu_acts, cpu_dirs = masked_actions(obs.cpu(), q.cpu(), dirs.cpu(),
-                                            ~dones.cpu())
-        if not (torch.equal(acts.cpu(), cpu_acts)
-                and torch.equal(new_dirs.cpu(), cpu_dirs)):
-            raise AssertionError(f'masked_actions on the card differs from '
-                                 f'the CPU at step {t}')
-        vetoed += int((acts.cpu() != q.argmax(-1).cpu().int()).sum())
+        if not (torch.equal(acts, got.act)
+                and torch.equal(new_dirs, got.new_dir)):
+            raise AssertionError('masked_actions differs from safety_mask')
+        vetoed += int((acts != q.argmax(-1).int()).sum())
         states, out = env.step(states, acts)
         obs, dirs, dones = out.obs, new_dirs, dones | out.done
-    log(f'masked_actions on the card equals the CPU on 16 steps of '
-        f'{num_envs} envs x {n} snakes ({vetoed} choices differ from the '
-        f'unmasked argmax)')
+    fill_launches = floodfill.reachable_count.launches
+    log(f'safety_mask on the card EQUAL to its plain version on the card '
+        f'and on the CPU on 16 steps of {num_envs} envs x {n} snakes '
+        f'({vetoed} choices differ from the unmasked argmax); '
+        f'reachable_count over each step\'s {boards.shape[0]} post-move '
+        f'boards EQUAL to the plain fill, {fill_launches} launches')
+    if fill_launches != 16:
+        raise AssertionError(f'reachable_count: 16 calls, {fill_launches} '
+                             f'launches')
 
     # times
     torch.cuda.synchronize()
@@ -1022,39 +1354,32 @@ def evaluator_phase(smi: str) -> dict:
     short = build_evaluate_batch(net, cfg, num_envs, 16, 60, device='cuda')
     window = profile_device(lambda: short(seed=34), 1)
     log_window('profile of 16 evaluation steps at 256 envs', window, 16, smi,
-               also=(STEP_KERNEL_NAME,))
-    gen = torch.Generator(device='cuda')
-    gen.manual_seed(35)
-    boards = torch.rand((num_envs * n, 3, cfg.height, cfg.width),
-                        generator=gen, device='cuda') > 0.3
-    starts = torch.randint(0, cfg.height, (num_envs * n, 3, 2),
-                           generator=gen, device='cuda')
-    fill = profile_device(lambda: reachable_count(boards, starts, 60), 10)
-    fill_us = fill['busy_us'] / 10
-    fill_kernels = sum(v[1] for v in fill['kernels'].values()) // 10
-    fill_ms = event_ms(lambda: reachable_count(boards, starts, 60), 10)
-    cells = boards.numel()
-    nbytes = cells + starts.numel() * starts.element_size() \
-        + num_envs * n * 3 * 4
-    ops = 60 * cells * 6
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    log(f'flood fill (plain torch) of {num_envs * n * 3} boards of '
-        f'{cfg.height}x{cfg.width}, limit 60, once a step: device '
-        f'{fill_us:.1f} us in {fill_kernels} kernels, call {fill_ms:.5f} ms '
-        f'(CUDA events), host wall {fill["wall_us"] / 10:.1f} us; bound '
-        f'{max(bytes_ms, ops_ms):.5f} ms ({nbytes} bytes -> {bytes_ms:.5f} '
-        f'ms; {ops} bool ops -> {ops_ms:.5f} ms), '
-        f'{fill_us / 1e3 / ms_per_step * 100:.1f}% of an evaluation step '
-        f'[{smi}]')
+               also=(STEP_KERNEL_NAME, MASK_KERNEL_NAME))
+    mask_row = time_mask(f'safety_mask at the evaluator\'s E={num_envs}, '
+                         f'N={n}, 20x20', inputs, 60, smi)
+    fill_row = time_fill(f'reachable_count at the evaluator\'s '
+                         f'{boards.shape[0]} boards of 20x20, limit 60',
+                         boards, starts, 60, smi)
     return {'evaluator_launches': launches,
+            'evaluator_mask_launches': masks,
+            'fill_launches': fill_launches,
+            'mask_max_abs_err': mask_err,
+            'fill_max_abs_err': fill_err,
             'evaluator_steps': res.steps,
             'evaluator_ms_per_step': ms_per_step,
-            'evaluator_idle_share': window['idle_share'],
-            'floodfill_device_us': fill_us,
-            'floodfill_kernels_per_step': fill_kernels,
-            'floodfill_call_ms': fill_ms,
-            'floodfill_bound_ms': max(bytes_ms, ops_ms)}
+            'evaluator_window': window_summary(window, 16),
+            'mask_evaluator': mask_row,
+            'fill_evaluator': fill_row}
+
+
+def window_summary(window, steps: int) -> dict:
+    """A profiler window's numbers a step."""
+    return {'busy_us_per_step': window['busy_us'] / steps,
+            'idle_share': window['idle_share'],
+            'device_events_per_step': sum(
+                v[1] for v in window['kernels'].values()) / steps,
+            'dtoh_per_step': window['dtoh'] / steps,
+            'wall_ms_per_step': window['wall_us'] / steps / 1e3}
 
 
 class Stopwatch:
@@ -1455,27 +1780,51 @@ def evolution_phase(smi: str, tmp: str) -> dict:
         'sweep_max_abs_err': sweep_err}
 
 
-class PlainEngineCalls:
+class CallCounter:
+    """Counts the calls of module functions while active (``targets()``,
+    (module, name) pairs): ``calls`` is their total."""
+
+    def targets(self):
+        raise NotImplementedError
+
+    def __enter__(self):
+        self.saved, self.calls = [], 0
+        for mod, name in self.targets():
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+
+            def counted(*args, _fn=fn, **kwargs):
+                self.calls += 1
+                return _fn(*args, **kwargs)
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+class PlainEngineCalls(CallCounter):
     """Counts calls of the plain engine's steps (engine.step and
     engine.step_autoreset) while active: on the card every step must be a
     launch of the kernel."""
 
-    def __enter__(self):
+    def targets(self):
         from marlsnake_torch.core import engine
-        self.engine, self.calls = engine, 0
-        self.saved = (engine.step, engine.step_autoreset)
+        return ((engine, 'step'), (engine, 'step_autoreset'))
 
-        def counted(fn):
-            def wrapper(*args, **kwargs):
-                self.calls += 1
-                return fn(*args, **kwargs)
-            return wrapper
 
-        engine.step, engine.step_autoreset = map(counted, self.saved)
-        return self
+class PlainMaskCalls(CallCounter):
+    """Counts calls of the plain mask and of both plain flood fills while
+    active: on the card every masked step must be one launch of the safety
+    mask kernel."""
 
-    def __exit__(self, *exc):
-        self.engine.step, self.engine.step_autoreset = self.saved
+    def targets(self):
+        from marlsnake_torch.ops import floodfill, safety_mask
+        return ((safety_mask, 'masked_actions_plain'),
+                (safety_mask, '_snake_moves'),
+                (safety_mask, 'reachable_count_plain'),
+                (floodfill, 'reachable_count_plain'))
 
 
 def adapter_phase(smi: str, tmp: str) -> dict:
@@ -1492,6 +1841,7 @@ def adapter_phase(smi: str, tmp: str) -> dict:
     from marlsnake_torch.envs.env import SnakeEnv
     from marlsnake_torch.envs.wrappers import GymAdapter, make, make_snake
     from marlsnake_torch.models.dqn import make_dqn
+    from marlsnake_torch.ops import safety_mask as SM
     from marlsnake_torch.ops import step_kernel
 
     env = make('Snake-v1', device='cuda', seed=0)
@@ -1556,20 +1906,36 @@ def adapter_phase(smi: str, tmp: str) -> dict:
     evaluator = DQNEvaluator(GymAdapter(SnakeEnv(cfg, device='cuda'), seed=2),
                              net)
     step_kernel.step.launches = 0
+    SM.safety_mask.launches = 0
     t0 = time.perf_counter()
-    with PlainEngineCalls() as plain:
+    with PlainEngineCalls() as plain, PlainMaskCalls() as plain_mask:
         reward, life = evaluator.evaluate(num_episodes=2, max_steps=256,
                                           verbose=False)
     ev_wall = time.perf_counter() - t0
     ev_launches = step_kernel.step.launches
+    ev_masks = SM.safety_mask.launches
     if not (math.isfinite(reward) and 0 < life <= 256) or ev_launches == 0 \
-            or plain.calls != 0:
+            or plain.calls != 0 or ev_masks != ev_launches \
+            or plain_mask.calls != 0:
         raise AssertionError(f'DQNEvaluator: reward {reward}, lifetime '
-                             f'{life}, {ev_launches} launches')
+                             f'{life}, {ev_launches} launches, {ev_masks} '
+                             f'safety_mask launches, {plain_mask.calls} '
+                             f'plain mask calls')
     ev_ms = ev_wall / ev_launches * 1e3
+    window = profile_device(lambda: evaluator.evaluate(
+        num_episodes=1, max_steps=16, verbose=False), 1)
     log(f'DQNEvaluator: 2 episodes, {ev_launches} steps (step launches at '
-        f'B=1), mean reward {reward}, mean lifetime {life}; {ev_ms:.3f} ms '
+        f'B=1), {ev_masks} safety_mask launches at E=1, N=4, no plain mask '
+        f'call, mean reward {reward}, mean lifetime {life}; {ev_ms:.3f} ms '
         f'a step (host clock, with the warm-up) [{smi}]')
+    log_window('profile of a DQNEvaluator episode of up to 16 steps (reset '
+               'included)', window, 16, smi,
+               also=(STEP_KERNEL_NAME, MASK_KERNEL_NAME))
+    dqn_inputs = next(
+        inputs for t, inputs in enumerate(mask_rollout(cfg, 1, 8, seed=45))
+        if t == 7)
+    mask_row = time_mask('safety_mask at DQNEvaluator\'s E=1, N=4, 20x20',
+                         dqn_inputs, 60, smi)
 
     step_kernel.step.launches = 0
     rew, rlife = render_winner(os.path.join(tmp, 'neat.pkl'), render=False,
@@ -1589,7 +1955,10 @@ def adapter_phase(smi: str, tmp: str) -> dict:
             'gym_adapter_ms_per_step': wall / steps * 1e3,
             'vector_adapter_launches': vlaunches,
             'dqn_evaluator_launches': ev_launches,
+            'dqn_evaluator_mask_launches': ev_masks,
             'dqn_evaluator_ms_per_step': ev_ms,
+            'dqn_evaluator_window': window_summary(window, 16),
+            'mask_dqn_evaluator': mask_row,
             'render_winner_launches': rw_launches,
             'step_max_abs_err_b1_b100_b129': err,
             'step_autoreset_max_abs_err_b8': err_auto}
@@ -1711,8 +2080,8 @@ def battle_phase(smi: str, tmp: str, ppo_params: dict) -> dict:
     from marlsnake_torch.envs.wrappers import make
     from marlsnake_torch.models.dqn import make_dqn
     from marlsnake_torch.models.ppo import ActorCritic
-    from marlsnake_torch.ops import step_kernel
-    from marlsnake_torch.ops.floodfill import reachable_count
+    from marlsnake_torch.ops import floodfill, step_kernel
+    from marlsnake_torch.ops import safety_mask as SM
     from marlsnake_torch.rng import BattleDraws, ResetDraws, battle_draws
 
     cfg = EnvConfig(height=20, width=20, num_snakes=4, snake_length=5)
@@ -1741,8 +2110,10 @@ def battle_phase(smi: str, tmp: str, ppo_params: dict) -> dict:
                           device='cuda')(seed=49)
     step_kernel.step.launches = 0
     step_kernel.step_autoreset.launches = 0
+    SM.safety_mask.launches = 0
+    floodfill.reachable_count.launches = 0
     torch.cuda.synchronize()
-    with PlainEngineCalls() as plain:
+    with PlainEngineCalls() as plain, PlainMaskCalls() as plain_mask:
         t0 = time.perf_counter()
         rew, life = run(draws=draws)
         rew, life = rew.cpu(), life.cpu()
@@ -1750,16 +2121,24 @@ def battle_phase(smi: str, tmp: str, ppo_params: dict) -> dict:
     steps = int(life.max())
     launches = step_kernel.step.launches
     auto = step_kernel.step_autoreset.launches
+    masks = SM.safety_mask.launches
+    fills = floodfill.reachable_count.launches
     ms_per_step = wall / steps * 1e3
     log(f'battle path (build_battle_batch): {num_envs} envs of 20x20x4, '
         f'{steps} of {max_steps} steps, step launches={launches}, '
-        f'step_autoreset launches={auto}, plain-engine calls={plain.calls}; '
+        f'step_autoreset launches={auto}, safety_mask launches={masks}, '
+        f'reachable_count launches={fills}, plain-engine calls='
+        f'{plain.calls}, plain mask calls={plain_mask.calls}; '
         f'{ms_per_step:.3f} ms a battle step (host clock, one read-back a '
         f'step) [{smi}]')
-    if launches != steps or auto != 0 or plain.calls != 0:
+    if launches != steps or auto != 0 or plain.calls != 0 \
+            or masks != steps or fills != 0 or plain_mask.calls != 0:
         raise AssertionError(f'battle: {steps} steps but {launches} step '
                              f'launches, {auto} step_autoreset launches, '
-                             f'{plain.calls} plain-engine calls')
+                             f'{masks} safety_mask launches, {fills} '
+                             f'reachable_count launches, {plain.calls} '
+                             f'plain-engine calls, {plain_mask.calls} '
+                             f'plain mask calls')
     if not (bool(torch.isfinite(rew).all()) and rew.shape == (num_envs, 4)
             and bool((life >= 1).all()) and steps <= max_steps):
         raise AssertionError('battle result not finite or out of range')
@@ -1785,30 +2164,31 @@ def battle_phase(smi: str, tmp: str, ppo_params: dict) -> dict:
         f'tie equal, rewards and lifetimes of unparted episodes equal '
         f'({time.perf_counter() - t0:.1f} s)')
 
-    # a profiler window of 16 battle steps (the reset included)
+    # a profiler window of 16 battle steps (the reset included); the last
+    # step's seat-0 inputs kept for the times of the mask and the fill
     short = BB.build_battle_batch(net, cfg, opponents, num_envs, 16,
                                   device='cuda')
-    window = profile_device(lambda: short(seed=51), 1)
+    seat0, kept = BB.masked_seat0, []
+
+    def keep_seat0(obs0, q0, dir0, alive0, flood_limit=60):
+        kept[:] = [(obs0[:, None], q0[:, None], dir0[:, None],
+                    alive0[:, None], None)]
+        return seat0(obs0, q0, dir0, alive0, flood_limit)
+
+    BB.masked_seat0 = keep_seat0
+    try:
+        window = profile_device(lambda: short(seed=51), 1)
+    finally:
+        BB.masked_seat0 = seat0
     log_window('profile of 16 battle steps at 128 envs', window, 16, smi,
-               also=(STEP_KERNEL_NAME,))
-    gen = torch.Generator(device='cuda').manual_seed(52)
-    boards = torch.rand((num_envs, 3, 20, 20), generator=gen,
-                        device='cuda') > 0.3
-    starts = torch.randint(0, 20, (num_envs, 3, 2), generator=gen,
-                           device='cuda')
-    fill = profile_device(lambda: reachable_count(boards, starts, 60), 10)
-    fill_us = fill['busy_us'] / 10
-    fill_kernels = sum(v[1] for v in fill['kernels'].values()) // 10
-    cells = boards.numel()
-    fill_bound_ms = max((cells + starts.numel() * starts.element_size()
-                         + num_envs * 3 * 4) / HBM_BYTES_PER_S,
-                        60 * cells * 6 / FP32_OPS_PER_S) * 1e3
-    log(f'flood fill at the battle\'s shape ({num_envs * 3} boards of '
-        f'20x20, limit 60, seat 0 alone): device {fill_us:.1f} us in '
-        f'{fill_kernels} kernels a call, bound {fill_bound_ms:.5f} ms '
-        f'(the larger of its bytes and its {60 * cells * 6} bool ops), '
-        f'{fill_us / 1e3 / ms_per_step * 100:.1f}% of a battle step '
-        f'[{smi}]')
+               also=(STEP_KERNEL_NAME, MASK_KERNEL_NAME))
+    inputs = kept[0]
+    mask_row = time_mask(f'safety_mask at the battle\'s E={num_envs}, N=1 '
+                         f'(seat 0 alone), 20x20', inputs, 60, smi)
+    _, boards, starts, _ = plain_fill_inputs(inputs, 60)
+    fill_row = time_fill(f'reachable_count at the battle\'s '
+                         f'{boards.shape[0]} boards of 20x20, limit 60',
+                         boards, starts, 60, smi)
 
     # the host arena: one episode at B=1
     env = make('Snake-v1', device='cuda', num_snakes=4, height=20,
@@ -1830,37 +2210,39 @@ def battle_phase(smi: str, tmp: str, ppo_params: dict) -> dict:
 
     env.step = counted_step
     step_kernel.step.launches = 0
-    with PlainEngineCalls() as plain:
+    SM.safety_mask.launches = 0
+    with PlainEngineCalls() as plain, PlainMaskCalls() as plain_mask:
         t0 = time.perf_counter()
         host_rew, host_life = arena.run_battle(num_episodes=1,
                                                max_steps=128, verbose=False)
         host_wall = time.perf_counter() - t0
     host_launches = step_kernel.step.launches
+    host_masks = SM.safety_mask.launches
     host_ms = host_wall / env_steps[0] * 1e3
     log(f'host BattleArena (make Snake-v1, 20x20x4, PPO / NEAT / Greedy '
         f'host agents): {env_steps[0]} steps, {host_launches} step launches '
-        f'at B=1, {plain.calls} plain-engine calls, mean rewards '
+        f'at B=1, {host_masks} safety_mask launches (one a step seat 0 '
+        f'began alive), {plain.calls} plain-engine calls, '
+        f'{plain_mask.calls} plain mask calls, mean rewards '
         f'{host_rew.tolist()}, lifetimes {host_life.tolist()}; '
         f'{host_ms:.3f} ms a step (host clock, with the warm-up) [{smi}]')
     if host_launches != env_steps[0] or plain.calls != 0 \
+            or host_masks != int(host_life[0]) or plain_mask.calls != 0 \
             or not np.isfinite(host_rew).all():
         raise AssertionError(f'host arena: {env_steps[0]} steps, '
-                             f'{host_launches} launches, {plain.calls} '
-                             f'plain-engine calls')
-    return {'battle_launches': launches, 'battle_steps': steps,
+                             f'{host_launches} launches, {host_masks} '
+                             f'safety_mask launches, {plain.calls} '
+                             f'plain-engine calls, {plain_mask.calls} plain '
+                             f'mask calls')
+    return {'battle_launches': launches, 'battle_mask_launches': masks,
+            'battle_steps': steps,
             'battle_ms_per_step': ms_per_step,
-            'battle_window': {
-                'busy_us_per_step': window['busy_us'] / 16,
-                'idle_share': window['idle_share'],
-                'device_events_per_step': sum(
-                    v[1] for v in window['kernels'].values()) / 16,
-                'dtoh_per_step': window['dtoh'] / 16,
-                'wall_ms_per_step': window['wall_us'] / 16e3},
-            'battle_floodfill_device_us': fill_us,
-            'battle_floodfill_kernels': fill_kernels,
-            'battle_floodfill_bound_ms': fill_bound_ms,
+            'battle_window': window_summary(window, 16),
+            'mask_battle': mask_row,
+            'fill_battle': fill_row,
             'battle_replay': replay,
             'arena_launches': host_launches,
+            'arena_mask_launches': host_masks,
             'arena_ms_per_step': host_ms}
 
 
@@ -1877,6 +2259,7 @@ def cli_phase(smi: str, tmp: str, ppo_params: dict,
     import io
     from marlsnake_torch import cli
     from marlsnake_torch.models.weights import actor_critic_to_reference
+    from marlsnake_torch.ops import safety_mask as SM
     from marlsnake_torch.ops import step_kernel
 
     work = os.path.join(tmp, 'cli')
@@ -1913,8 +2296,10 @@ def cli_phase(smi: str, tmp: str, ppo_params: dict,
             argv = name.split() + extra + ['--device', device]
             step_kernel.step.launches = 0
             step_kernel.step_autoreset.launches = 0
+            SM.safety_mask.launches = 0
             out = io.StringIO()
-            with PlainEngineCalls() as plain, contextlib.redirect_stdout(out):
+            with PlainEngineCalls() as plain, PlainMaskCalls() as pmask, \
+                    contextlib.redirect_stdout(out):
                 t0 = time.perf_counter()
                 cli.main(argv)
                 torch.cuda.synchronize()
@@ -1923,11 +2308,22 @@ def cli_phase(smi: str, tmp: str, ppo_params: dict,
             counts[name] = {'step': step_kernel.step.launches,
                             'step_autoreset':
                                 step_kernel.step_autoreset.launches,
+                            'safety_mask': SM.safety_mask.launches,
                             'seconds': seconds}
             loads = name in ('eval', 'battle', 'battle --batched', 'neat',
                              'es')
             autoreset = name == 'train-ppo'
-            if expect not in text or plain.calls != 0 \
+            # eval and the batched battle mask every step; the host battle
+            # every step seat 0 began alive
+            masked = counts[name]['safety_mask']
+            if name in ('eval', 'battle --batched'):
+                mask_ok = masked == counts[name]['step']
+            elif name == 'battle':
+                mask_ok = 0 < masked <= counts[name]['step']
+            else:
+                mask_ok = True
+            if expect not in text or plain.calls != 0 or pmask.calls != 0 \
+                    or not mask_ok \
                     or (loads and 'Loaded checkpoint: final' not in text) \
                     or counts[name]['step' if not autoreset
                                     else 'step_autoreset'] == 0 \
@@ -1940,7 +2336,8 @@ def cli_phase(smi: str, tmp: str, ppo_params: dict,
                     if line.strip()][-6:]
             log(f'cli {name} on the card: {seconds:.2f} s, step launches '
                 f'{counts[name]["step"]}, step_autoreset launches '
-                f'{counts[name]["step_autoreset"]}; last lines: '
+                f'{counts[name]["step_autoreset"]}, safety_mask launches '
+                f'{masked}; last lines: '
                 f'{json.dumps(tail)}')
     finally:
         os.chdir(cwd)
@@ -2269,6 +2666,117 @@ def parallel_phase(smi: str, tmp: str) -> dict:
     return out
 
 
+def masked_paths(smi: str, steps: int = 128) -> dict:
+    """ms per step (host clock) and a profiler window of 16 steps (device
+    events, busy us, idle share a step) of the three masked paths, through
+    their public entry points alone, which the parent tree's package has
+    too (``--masked-paths DIR``): evaluate_batch at 256 envs of 20x20x4
+    (the DQN trainer's env config), build_battle_batch at 128 envs of
+    20x20x4 (length 5) against an untrained PPO, Greedy and Random, and
+    DQNEvaluator at B=1 (20x20x4, length 5); up to ``steps`` steps each
+    after a short warm-up, DQN weights from seed 0."""
+    from marlsnake_torch.algo import battle_batch as BB
+    from marlsnake_torch.algo.dqn_trainer import DQNConfig
+    from marlsnake_torch.algo.evaluator import (DQNEvaluator,
+                                                build_evaluate_batch)
+    from marlsnake_torch.core.types import EnvConfig
+    from marlsnake_torch.envs.env import SnakeEnv
+    from marlsnake_torch.envs.wrappers import GymAdapter
+    from marlsnake_torch.models.dqn import make_dqn
+    from marlsnake_torch.models.ppo import ActorCritic
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    result = {}
+
+    def timed(name, run, short):
+        short(0)   # warm-up at the same shapes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        taken = run(1)
+        wall = time.perf_counter() - t0
+        counted = [0]
+        window = profile_device(lambda: counted.__setitem__(0, short(2)), 1)
+        result[name] = dict(window_summary(window, counted[0]),
+                            ms_per_step=wall / taken * 1e3, steps=taken,
+                            window_steps=counted[0])
+        log(f'{name}: {wall / taken * 1e3:.3f} ms a step over {taken} '
+            f'steps; window of {counted[0]} steps: '
+            f'{json.dumps(result[name])} [{smi}]')
+
+    cfg = DQNConfig().env_config()
+    net = make_dqn(cfg, seed=0, device='cuda')
+    ev_long = build_evaluate_batch(net, cfg, 256, steps, 60, device='cuda')
+    ev_short = build_evaluate_batch(net, cfg, 256, 16, 60, device='cuda')
+
+    def evaluate(fn, seed):
+        r = fn(seed=seed)
+        float(r.mean_reward)
+        return r.steps
+
+    timed('evaluate_batch (256 envs)', lambda seed: evaluate(ev_long, seed),
+          lambda seed: evaluate(ev_short, seed))
+
+    bcfg = EnvConfig(height=20, width=20, num_snakes=4, snake_length=5)
+    bnet = make_dqn(bcfg, seed=0, device='cuda')
+    torch.manual_seed(0)
+    ppo = ActorCritic((20, 20), assume_binary_obs=True, device='cuda')
+    lineup = [BB.BatchedPPO(ppo), BB.BatchedGreedy(), BB.BatchedRandom()]
+    b_long = BB.build_battle_batch(bnet, bcfg, lineup, 128, steps,
+                                   device='cuda')
+    b_short = BB.build_battle_batch(bnet, bcfg, lineup, 128, 16,
+                                    device='cuda')
+
+    def battle(fn, seed):
+        _, life = fn(seed=seed)
+        return int(life.max())
+
+    timed('build_battle_batch (128 envs)', lambda seed: battle(b_long, seed),
+          lambda seed: battle(b_short, seed))
+
+    env = GymAdapter(SnakeEnv(bcfg, device='cuda'), seed=2)
+    evaluator = DQNEvaluator(env, bnet)
+    env_steps, inner = [0], env.step
+
+    def counted_step(actions, **kwargs):
+        env_steps[0] += 1
+        return inner(actions, **kwargs)
+
+    env.step = counted_step
+
+    def episode(max_steps):
+        env_steps[0] = 0
+        evaluator.evaluate(num_episodes=1, max_steps=max_steps,
+                           verbose=False)
+        return env_steps[0]
+
+    timed('DQNEvaluator (B=1)', lambda seed: episode(steps),
+          lambda seed: episode(16))
+    return result
+
+
+def masked_paths_main(root: str) -> int:
+    """``python3 chip_smoke.py --masked-paths [DIR]``: ``masked_paths``
+    against the marlsnake_torch package in DIR (default: this checkout),
+    one JSON line."""
+    if not torch.cuda.is_available():
+        print('chip_smoke: CUDA is not available', file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
+    import marlsnake_torch
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip()
+    log(smi)
+    package = os.path.dirname(os.path.abspath(marlsnake_torch.__file__))
+    log(f'package: {package}')
+    result = masked_paths(smi)
+    log(json.dumps({'masked_paths': result, 'package': package,
+                    'device': smi}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -2284,7 +2792,7 @@ def main() -> int:
     from marlsnake_torch.core.types import EnvConfig
     from marlsnake_torch.envs.vector import VectorSnakeEnv
     from marlsnake_torch.models.dqn import make_dqn
-    from marlsnake_torch.ops import step_kernel
+    from marlsnake_torch.ops import cuda_build, mask_kernel, step_kernel
     from marlsnake_torch.ops.obs_pack import unpack_obs
     from marlsnake_torch.rng import reset_draws, step_draws, train_draws
 
@@ -2298,14 +2806,19 @@ def main() -> int:
     log(f'torch {torch.__version__} cuda {torch.version.cuda} '
         f'device {kind} count {torch.cuda.device_count()}')
 
-    # --- 2. build ---
+    # --- 2. build: one nvcc a source, started together ---
     t0 = time.perf_counter()
-    path, build_log = step_kernel.build_library()
+    built = cuda_build.build(step_kernel.SOURCE, mask_kernel.SOURCE)
     step_kernel.load_library()
+    mask_kernel.load_library()
     log(f'build: {time.perf_counter() - t0:.2f} s -> '
-        f'{os.path.relpath(path)}')
-    for line in build_log.splitlines():
+        f'{", ".join(os.path.relpath(p) for p, _ in built)}')
+    for line in built[0][1].splitlines():
         log(f'  nvcc: {line}')
+    # the safety mask's 32 instances: registers, stack and spills
+    for line in built[1][1].splitlines():
+        if 'Compiling entry' in line or 'Used' in line or 'spill' in line:
+            log(f'  nvcc: {line.strip()}')
 
     # --- 3. kernel against the plain version ---
     small = dict(height=10, width=10, num_snakes=2, snake_length=3)
@@ -2315,6 +2828,8 @@ def main() -> int:
               parity(EnvConfig(**small, done_mode='any'), 64, 64, seed=2),
               parity(EnvConfig(**big), 4096, 64, seed=3),
               parity(EnvConfig(**wide), 1024, 64, seed=4))
+    # ... and both entries of the safety mask against theirs
+    mask_parity = mask_parity_phase(smi)
 
     # --- 4. the main path: acting rollout at full width ---
     torch.backends.cudnn.allow_tf32 = False
@@ -2814,6 +3329,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     step_main = step_rows[256]
+    mask_rows = {'evaluator (E=256, N=4)': evaluation['mask_evaluator'],
+                 'battle (E=128, N=1)': battle['mask_battle'],
+                 'DQNEvaluator (E=1, N=4)': adapters['mask_dqn_evaluator']}
+    fill_rows = {'evaluator (3,072 boards)': evaluation['fill_evaluator'],
+                 'battle (384 boards)': battle['fill_battle']}
     log(json.dumps({'kernels': variant_rows + [dict(
         auto,
         name='step_autoreset',
@@ -2863,7 +3383,8 @@ def main() -> int:
         bench_env_steps_per_s={k: r['value'] for k, r in bench_rows.items()},
         bench_idle_share={k: w['idle_share']
                           for k, w in slice_windows.items()},
-        **evaluation,
+        **{k: v for k, v in evaluation.items()
+           if not k.startswith(('mask_', 'fill_'))},
         launches_by_path={
             'training': train_launches,
             'evaluator (B=256)': evaluation['evaluator_launches'],
@@ -2881,13 +3402,50 @@ def main() -> int:
             'distributed_dqn world 2, gloo, each rank (B=128)': dp[
                 'gloo_world2']['dqn_step_launches']},
         battle={k: v for k, v in battle.items()
-                if k not in ('battle_launches', 'arena_launches')},
+                if k not in ('battle_launches', 'arena_launches',
+                             'mask_battle', 'fill_battle')},
         cli_seconds={k: v['seconds'] for k, v in cli_runs.items()},
         evolution={k: v for k, v in evolution.items()
                    if k not in ('neat_launches', 'es_launches')},
         adapters={k: v for k, v in adapters.items()
                   if k not in ('vector_adapter_launches',
-                               'step_autoreset_max_abs_err_b8')},
+                               'step_autoreset_max_abs_err_b8',
+                               'mask_dqn_evaluator')},
+    ), dict(
+        mask_rows['evaluator (E=256, N=4)'],
+        name='masked_actions',
+        route='cuda',
+        source='marlsnake_torch/csrc/safety_mask.cu',
+        replaces='marlsnake_tpu/algo/evaluator.py:131 (masked_actions, '
+                 'with masked_action_single :56; XLA code, not a Pallas '
+                 'kernel)',
+        launches=evaluation['evaluator_mask_launches'],
+        max_abs_err=evaluation['mask_max_abs_err'],   # the path's 16 steps
+        max_abs_err_other_shapes=mask_parity['safety_mask_max_abs_err'],
+        checked=mask_parity,
+        at_shapes=mask_rows,
+        launches_by_path={
+            'evaluator (E=256, N=4)': evaluation['evaluator_mask_launches'],
+            'battle_batch (E=128, N=1)': battle['battle_mask_launches'],
+            'dqn_evaluator (E=1, N=4)': adapters[
+                'dqn_evaluator_mask_launches'],
+            'battle_arena (E=1, N=4)': battle['arena_mask_launches'],
+            'cli': {k: v['safety_mask'] for k, v in cli_runs.items()}},
+    ), dict(
+        fill_rows['evaluator (3,072 boards)'],
+        name='reachable_count',
+        route='cuda',
+        source='marlsnake_torch/csrc/safety_mask.cu',
+        replaces='marlsnake_tpu/ops/floodfill.py:25 (reachable_count, XLA '
+                 'code, not a Pallas kernel)',
+        launches=evaluation['fill_launches'],
+        launches_note='its own path: the space of every post-move board '
+                      'of 16 evaluation steps; the masked paths launch it '
+                      '0 times, the mask kernel runs the same fill',
+        max_abs_err=evaluation['fill_max_abs_err'],   # the path's boards
+        max_abs_err_other_shapes=mask_parity['reachable_count_max_abs_err'],
+        checked=mask_parity,
+        at_shapes=fill_rows,
     )]}))
     log(f'total {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'ok': True, 'device': {
@@ -2897,4 +3455,8 @@ def main() -> int:
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--masked-paths']:
+        sys.exit(masked_paths_main(
+            sys.argv[2] if len(sys.argv) > 2
+            else os.path.dirname(os.path.abspath(__file__))))
     sys.exit(main())

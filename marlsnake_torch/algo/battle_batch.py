@@ -15,9 +15,9 @@ still (``hold``); on the CPU the plain engine does the same. The loop
 stops once every env is done, as the steps left would change nothing.
 
 Seat 0 claims first, against an empty claim set, so its masked action
-depends on its own obs alone: the forward and the vetoes run over the E
-seat-0 frames (``masked_action_single``), not over all E x N agents as
-the JAX arena's ``masked_actions`` does, for the same actions and
+depends on its own obs alone: the forward and the safety mask run over
+the E seat-0 frames (``masked_seat0``), not over all E x N agents as the
+JAX arena's ``masked_actions`` does, for the same actions and
 directions.
 
 Policy parity notes:
@@ -44,12 +44,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from marlsnake_torch.algo.evaluator import (DEADLY_CHANNELS,
-                                            masked_action_single)
+from marlsnake_torch.algo.evaluator import DEADLY_CHANNELS
 from marlsnake_torch.algo.neat_hybrid import PaddedNetBatch, as_dqn
 from marlsnake_torch.core import types as T
 from marlsnake_torch.device import resolve_device
 from marlsnake_torch.envs.vector import build_vector_fns
+from marlsnake_torch.ops.safety_mask import safety_mask
 from marlsnake_torch.rng import BattleDraws, StepDraws, battle_draws
 
 # own-body probes of the direction inference, in the reference's order
@@ -219,14 +219,12 @@ def masked_seat0(obs0: torch.Tensor, q0: torch.Tensor, dir0: torch.Tensor,
     obs0 (E, H, W, C) uint8, q0 (E, 3), dir0 (E, 2) with ``(0, 0)``
     unknown, alive0 (E,) bool. Seat 0 claims first, against an empty claim
     set, so this is ``masked_actions(...)[..., 0]`` of the whole env and
-    its direction. Returns (action (E,) int32, new_dir (E, 2)); an
+    its direction: the safety mask of one snake an env (one launch of its
+    kernel on the card). Returns (action (E,) int32, new_dir (E, 2)); an
     inactive seat acts 0 and keeps its direction."""
-    claimed = torch.zeros(obs0.shape[:3], dtype=torch.bool,
-                          device=obs0.device)
-    act, new_dir, _, _ = masked_action_single(obs0, q0, dir0, claimed,
-                                              flood_limit)
-    return (torch.where(alive0, act, 0),
-            torch.where(alive0[:, None], new_dir, dir0))
+    out = safety_mask(obs0[:, None], q0[:, None], dir0[:, None],
+                      alive0[:, None], None, flood_limit)
+    return out.act[:, 0], out.new_dir[:, 0]
 
 
 def build_battle_batch(net, cfg: T.EnvConfig, opponents: Sequence,

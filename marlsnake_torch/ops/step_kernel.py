@@ -32,9 +32,9 @@ tensor view is host work on the order of a kernel launch. A state this
 wrapper returned goes back into the kernel as its arena, unchecked and
 uncopied; any other state is checked and copied into an arena first.
 
-The library is built on first use with ``nvcc`` (sm_90a, ``-fmad=false``)
-from the source in this package into ``build/marlsnake_torch/`` at the
-repository root, and loaded with ctypes.
+The library is built on first use with ``nvcc`` (sm_90a, ``-fmad=false``;
+``ops/cuda_build.py``) from the source in this package into
+``build/marlsnake_torch/`` at the repository root, and loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -42,11 +42,8 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import hashlib
 import math
 import os
-import shutil
-import subprocess
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -54,15 +51,10 @@ import torch
 from marlsnake_torch.core import engine
 from marlsnake_torch.core.state import EnvState, ring_num_words
 from marlsnake_torch.core.types import EnvConfig
+from marlsnake_torch.ops import cuda_build
 from marlsnake_torch.rng import StepDraws, spawn_draw_shape
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, 'csrc', 'step_autoreset.cu')
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), 'build',
-                         'marlsnake_torch')
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
-              '-fmad=false', '-std=c++17', '-shared', '-Xcompiler', '-fPIC',
-              '-Xptxas', '-v')
+SOURCE = os.path.join(cuda_build.CSRC_DIR, 'step_autoreset.cu')
 
 # Limits of the kernel itself (the plain version has none): one warp per
 # env with lane i = snake i, the fruit draws on lanes < nf, and one env's
@@ -180,38 +172,11 @@ def _carved(cls, plan, arena):
     return obj
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get('CUDA_HOME') or '/usr/local/cuda'
-    path = os.path.join(cuda_home, 'bin', 'nvcc')
-    if os.path.exists(path):
-        return path
-    found = shutil.which('nvcc')
-    if found is None:
-        raise RuntimeError('nvcc not found: the CUDA step kernel is built '
-                           'with the CUDA toolkit on the GPU machine')
-    return found
-
-
 def build_library() -> Tuple[str, str]:
     """Compile the kernel if its library is not built yet; returns
     (library path, compiler output, which lists registers and shared
-    memory). The file name carries a hash of the source and flags, so an
-    edited source is rebuilt."""
-    with open(SOURCE, 'rb') as fp:
-        digest = hashlib.sha256(fp.read() + ' '.join(NVCC_FLAGS).encode())
-    path = os.path.join(BUILD_DIR,
-                        f'step_autoreset_{digest.hexdigest()[:16]}.so')
-    if os.path.exists(path):
-        return path, ''
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f'{path}.{os.getpid()}.tmp'
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                           f'{proc.stdout}{proc.stderr}')
-    os.replace(tmp, path)
-    return path, proc.stdout + proc.stderr
+    memory; '' where it was built before)."""
+    return cuda_build.build(SOURCE)[0]
 
 
 @functools.lru_cache(maxsize=None)
