@@ -19,7 +19,9 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    entries of the safety mask against their plain versions on the card
    (``mask_parity_phase``, tolerance 0): reachable_count on 3,072 and 384
    boards of 20x20, 256 of 40x40 and of 11x9 and 8 of 216x216 at limits
-   1, 7, 60 and passable densities 0.3, 0.7, 0.95; safety_mask (act,
+   1, 7, 60 and passable densities 0.3, 0.7, 0.95, and on 384 boards of
+   20x20 from starts off the board (row -1, row 20, column -1, column 20,
+   row 25: both count 0, as JAX does); safety_mask (act,
    new_dir, next_pos, head_exists) on 8 steps each at 40x40x8, at N=1
    with a claim board, at E=1 and at 11x9x3, and on random 9-byte cells
    at 32 snakes of 20x20 and 8 snakes of 216x216;
@@ -59,8 +61,11 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    every field and sampled row equal;
 8. the training path: DQNTrainer at 256 envs of 20x20 with 4 snakes
    (reference-width DQN, batch 512, ring of 10,000, float32, TF32 off),
-   two episodes through train_episode; the no-reset entry's launch counter
-   is set to 0 before and must equal the env steps taken; updates happen,
+   two episodes through train_episode, each chunk of 8 steps a replay of
+   its captured CUDA graph; the no-reset entry's launch counter is set to
+   0 before and must equal the env steps the chunks ran (an episode's
+   last chunk runs on after its last env finished), replays included;
+   updates happen,
    the loss is finite, the ring holds min(pushed, capacity) rows, the
    parameters moved and the target parameters did not;
 9. one TD update on the card against the same update on the CPU (same
@@ -69,7 +74,9 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    orders, and cuDNN's backward may use atomics);
 10. a full checkpoint saved on the card and loaded into a fresh trainer:
    one more episode from each gives equal metrics and parameters (cuDNN
-   set to its deterministic algorithms for this phase);
+   set to its deterministic algorithms for this phase; the saving trainer
+   runs its chunks uncaptured, since its graph holds the algorithms of
+   its capture, and the fresh one captures its own);
 11. times of the training path: the no-reset entry's device_ms, host_us and
    call_ms at 256 and 4096 envs with its byte bound and engine.step
    beside it, its device time while it holds no, half or all envs still,
@@ -91,23 +98,26 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    bound (recomputed for the variant's obs and spawn);
 13. this slice's paths at full width: the bench rollout at 4096 envs of
    20x20x4 with pool and procedural spawn, uint8 and packed obs, the
-   vision-5 window and the graph (ray) env with the rays' own time;
-   profiler windows of 16 packed and 16 graph steps; the replay push on
-   packed rows beside uint8 rows; two training episodes at 256 envs with
-   packed obs (launches equal env steps, updates made, loss finite) and
-   its train-bench row;
+   vision-5 window and the graph (ray) env with the rays' own time, each
+   rollout of 256 steps a replay of its captured CUDA graph (launches
+   equal the steps, replays included); profiler windows of 16 packed and
+   16 graph steps; the replay push on packed rows beside uint8 rows; two
+   training episodes at 256 envs with packed obs (launches equal the
+   steps the chunk graphs ran, updates made, loss finite) and its
+   train-bench row;
 14. PPO and the batched evaluator at full width (``ppo_phase``,
    ``evaluator_phase``): three PPO updates at the showcase width (256 envs
    of 20x20x4, length 5, 128 rollout steps) through PPOTrainer.update,
-   the auto-reset entry launched once a rollout step (the counters set to
-   0 before and read after), losses finite, the first update's entropy
+   the auto-reset entry launched once a rollout step, the rollout a
+   replay of its captured graph (the counters set to 0 before and read
+   after, replays included), losses finite, the first update's entropy
    within 0.1 of ln 3, the parameters moved; update 1's trajectory
    replayed through the plain engine on the CPU with the recorded actions
    and the same draws (every obs, reward and done flag and the final
    states EQUAL); one minibatch of 2,048 rows card against CPU (loss
    within 1e-5 relative, gradients within 1e-5 + 1e-4 x max|g|); a full
    checkpoint round trip (cuDNN deterministic; the next update equal from
-   both); the `--mode ppo` bench rows at 64 and 256 envs; profiler windows
+   both, the saving trainer's rollout uncaptured); the `--mode ppo` bench rows at 64 and 256 envs; profiler windows
    over 16 rollout steps and one minibatch update of 32,768 rows. Then
    evaluate_batch's loop (build_evaluate_batch) with the port's DQN at 256
    envs of 20x20x4 for up to 512 steps, the step entry and the safety mask
@@ -180,7 +190,19 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    scaling harness at world 1 and 2 (findings, not gates: one card cannot
    show scaling); times, and the collectives of a 16-step DQN episode and
    a PPO update by kind (``collective_counts``) with their times;
-17. one JSON line of kernels (every entry and variant; the auto-reset
+17. the captured loops (``graph_phase``, ``utils/cuda_graph.py``): each
+   graph against its uncaptured body on the card, cuDNN deterministic,
+   tolerance 0, every field: two DQN episodes at 256 envs for
+   update_every 1 and 4 and the fused update, three PPO updates at 256
+   envs (states, trajectories, metrics), 64 bench steps at 4096 envs; the
+   launch counters equal to the steps the graphs ran; then in turns
+   (graph, uncaptured, uncaptured, graph) ms per DQN step at 32 and 256
+   envs, ms per PPO update and rollout at 64 and 256 envs and bench
+   env-steps/s at 4096 envs; profiler windows of 16 steps of each path,
+   graph and uncaptured (device busy, idle share, device events, graph
+   and kernel launches and read-backs a step, each kernel's device time a
+   launch inside the graph); each capture's seconds and pool bytes;
+18. one JSON line of kernels (every entry and variant; the auto-reset
    entry's row carries the PPO numbers, the step entry's the evaluator's,
    the evolution's, the adapters', the battles', the CLI's and the
    data-parallel trainers', with its launches on every path;
@@ -190,6 +212,10 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    line, {"ok": true, "device": {"platform": "gpu", "kind": ...,
    "count": ...}}.
 
+The graph phase alone (~3 minutes of command time): ``python3 -c "import
+torch, chip_smoke as cs; torch.backends.cudnn.allow_tf32 = False;
+torch.backends.cuda.matmul.allow_tf32 = False; from marlsnake_torch.ops
+import step_kernel; step_kernel.build_library(); cs.graph_phase('')"``.
 Run one phase alone: ``python3 -c "import chip_smoke as cs, tempfile, torch;
 torch.backends.cudnn.allow_tf32 = False;
 torch.backends.cuda.matmul.allow_tf32 = False; d = tempfile.mkdtemp();
@@ -275,7 +301,9 @@ def profile_device(fn, iters: int) -> dict:
     'idle_share', 'wall_us', 'dtoh'} from the device-side events: busy is
     their summed duration, span the time from the first start to the last
     end (one stream, so they do not overlap), dtoh the number of
-    device-to-host copies, each of which the host waits for."""
+    device-to-host copies, each of which the host waits for;
+    'graph_launches' and 'kernel_launches' count the host's
+    cudaGraphLaunch and cudaLaunchKernel calls."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -287,8 +315,11 @@ def profile_device(fn, iters: int) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels, busy, first, last = {}, 0.0, None, None
+    runtime = {'cudaGraphLaunch': 0, 'cudaLaunchKernel': 0}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            for name in runtime:
+                runtime[name] += name in e.name
             continue
         start, end = e.time_range.start, e.time_range.end
         kernels.setdefault(e.name, [0.0, 0])
@@ -302,7 +333,9 @@ def profile_device(fn, iters: int) -> dict:
             'idle_share': 1.0 - busy / span if span > 0 else None,
             'wall_us': wall_us,
             'dtoh': sum(v[1] for k, v in kernels.items()
-                        if 'Memcpy DtoH' in k)}
+                        if 'Memcpy DtoH' in k),
+            'graph_launches': runtime['cudaGraphLaunch'],
+            'kernel_launches': runtime['cudaLaunchKernel']}
 
 
 def kernel_device_us(fn, kernel_name: str, iters: int) -> float:
@@ -555,7 +588,9 @@ def log_window(title, window, steps, smi, also=()) -> None:
         f'{window["span_us"]:.1f} us, idle share {window["idle_share"]}, '
         f'{window["dtoh"]} device-to-host copies in {steps} steps '
         f'({window["dtoh"] / steps:.2f} a step), '
-        f'{sum(v[1] for v in window["kernels"].values())} device events '
+        f'{sum(v[1] for v in window["kernels"].values())} device events, '
+        f'{window["graph_launches"]} graph launches and '
+        f'{window["kernel_launches"]} kernel launches from the host '
         f'[{smi}]')
     table = sorted(window['kernels'].items(), key=lambda kv: -kv[1][0])
     for i, (name, (us, count)) in enumerate(table):
@@ -934,7 +969,13 @@ def ppo_phase(smi: str, keep: dict = None) -> dict:
         other = PPOTrainer(config(save_dir=save_dir, seed=99), device='cuda')
         ts_other = other.load_checkpoint('smoke', other.init_state(),
                                          full=True)
-    ts_a, m_a = trainer.update(ts)
+    # the trainer's rollout graph holds the cuDNN algorithms of its
+    # capture: it runs the rollout uncaptured here, the fresh trainer
+    # captures its own under deterministic cuDNN
+    draws_a = ppo_draws(trainer.env_cfg, cfg.num_envs, cfg.rollout_steps,
+                        cfg.update_epochs, trainer.generator, trainer.device)
+    ts_a, m_a = trainer.learn(trainer.collect_plain(ts, draws_a),
+                              draws_a.perm)
     ts_b, m_b = other.update(ts_other)
     torch.cuda.synchronize()
     torch.backends.cudnn.deterministic = deterministic
@@ -1194,9 +1235,33 @@ def mask_parity_phase(smi: str) -> dict:
                         f'limit {limit} differs at {bad}')
                 fills += m
                 capped += int((want == limit).sum())
+    # starts off the board: row -1, row h, column -1, column w, row h + 5
+    # (each seeds no cell: min(0, limit), as the JAX fill counts it)
+    off_board = 0
+    m, h, w = 384, 20, 20
+    passable = torch.rand((m, h, w), generator=gen, device='cuda') < 0.7
+    along = torch.randint(0, h, (m,), generator=gen, device='cuda')
+    for row, col in ((-1, None), (h, None), (None, -1), (None, w),
+                     (h + 5, None)):
+        start = torch.stack([
+            along if row is None else torch.full_like(along, row),
+            along if col is None else torch.full_like(along, col)], -1)
+        for limit in (1, 7, 60):
+            got = reachable_count(passable, start, limit)
+            want = reachable_count_plain(passable, start, limit)
+            fill_err = max(fill_err, max_abs_diff(got, want))
+            if not torch.equal(got, want) or bool(want.any()):
+                raise AssertionError(
+                    f'reachable_count from ({row}, {col}) off the board, '
+                    f'limit {limit}: {got[:5].tolist()} against the plain '
+                    f'{want[:5].tolist()} (both must be 0)')
+            off_board += m
     log(f'reachable_count EQUAL to the plain version on {fills} boards '
         f'({capped} at their cap; 3,072 and 384 of 20x20, 256 of 40x40 and '
-        f'11x9, 8 of 216x216; limits 1, 7, 60; densities 0.3, 0.7, 0.95)')
+        f'11x9, 8 of 216x216; limits 1, 7, 60; densities 0.3, 0.7, 0.95) '
+        f'and on {off_board} boards of 20x20 from starts off the board '
+        f'(row -1, row 20, column -1, column 20, row 25: all 0)')
+    fills += off_board
     cases = (('40x40x8, 64 envs', EnvConfig(height=40, width=40,
                                             num_snakes=8, snake_length=3),
               64, 0.0),
@@ -2666,6 +2731,278 @@ def parallel_phase(smi: str, tmp: str) -> dict:
     return out
 
 
+def chunked_steps(trainer, metrics) -> int:
+    """The env steps a DQN episode of ``metrics`` ran: whole chunks of
+    ``trainer.chunk_steps``, the last one running on after the episode's
+    last env finished."""
+    k = trainer.chunk_steps
+    return -(-int(metrics.episode_length) // k) * k
+
+
+def first_difference(a, b, where: str):
+    """The name of the first field where ``a`` and ``b`` differ (as
+    ``same_tree`` compares them), or None."""
+    try:
+        same_tree(a, b, where)
+    except AssertionError as err:
+        return str(err)
+    return None
+
+
+def graph_phase(smi: str) -> dict:
+    """The captured loops (``utils/cuda_graph.py``): the DQN episode's
+    chunks, the PPO rollout and the bench rollout, each held against its
+    uncaptured body, then timed.
+
+    Equality, cuDNN deterministic, tolerance 0: two DQN episodes at 256
+    envs for update_every 1 and 4 and the fused update (every field of the
+    state, ring over its capacity rows, and the metrics), three PPO
+    updates at 256 envs (the state, the trajectory, the metrics) and 64
+    bench steps at 4096 envs (the states and the checksum), each from the
+    same state with the same draws. The step counters must equal the
+    steps the graphs ran. Times in turns (graph, uncaptured, uncaptured,
+    graph): ms per DQN step at 32 and 256 envs, ms per PPO update and its
+    rollout at 64 and 256 envs, bench env-steps/s at 4096 envs. Profiler
+    windows of 16 steps of each path, graph and uncaptured. What each
+    capture cost once: seconds and the bytes of its pool."""
+    from marlsnake_torch import bench
+    from marlsnake_torch.algo.dqn_trainer import DQNConfig, DQNTrainer
+    from marlsnake_torch.algo.ppo_trainer import PPOConfig, PPOTrainer
+    from marlsnake_torch.core.types import EnvConfig
+    from marlsnake_torch.envs.vector import VectorSnakeEnv
+    from marlsnake_torch.ops import step_kernel
+    from marlsnake_torch.rng import (ppo_draws, reset_draws, rollout_draws,
+                                     train_draws)
+    from marlsnake_torch.utils.cuda_graph import clone_tree
+
+    t_phase = time.perf_counter()
+    out = {'equal': {}, 'captures': {}}
+
+    def dqn_config(**kwargs):
+        return DQNConfig(**{**dict(num_envs=256, snake_length=3,
+                                   max_steps_per_episode=256), **kwargs})
+
+    def check_equal(got, want, what):
+        bad = first_difference(got, want, what)
+        if bad is not None:
+            raise AssertionError(f'graph against its uncaptured body: {bad}')
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # --- DQN: two episodes each way, from the same warm state ---
+        for label, mode in (('every-1', {}), ('every-4',
+                                              dict(update_every=4)),
+                            ('fused', dict(fused_act_update=True))):
+            tr = DQNTrainer(dqn_config(**mode), device='cuda')
+            cfg, ecfg, k = tr.config, tr.env_cfg, tr.chunk_steps
+            ts, _ = tr.train_episode(tr.init_state())   # warm ring, capture
+            gen = torch.Generator(device='cuda')
+            gen.manual_seed(61)
+            episodes = [(train_draws(ecfg, cfg.num_envs,
+                                     cfg.max_steps_per_episode,
+                                     cfg.buffer_size, tr.update_batch, gen,
+                                     'cuda'),
+                         reset_draws(ecfg, cfg.num_envs, gen, 'cuda'))
+                        for _ in range(2)]
+            runs = {}
+            for name, fn in (('graph', tr.train_episode),
+                             ('uncaptured', tr.train_episode_plain)):
+                step_kernel.step.launches = 0
+                cur, metrics = ts, []
+                for draws, reset in episodes:
+                    cur, m = fn(cur, draws, reset)
+                    metrics.append(m)
+                torch.cuda.synchronize()
+                run = sum(chunked_steps(tr, m) for m in metrics)
+                if step_kernel.step.launches != run:
+                    raise AssertionError(
+                        f'DQN {label} {name}: {run} steps run, '
+                        f'{step_kernel.step.launches} step launches')
+                runs[name] = (cur, metrics, run)
+            check_equal(runs['graph'][:2], runs['uncaptured'][:2],
+                        f'DQN {label}')
+            lengths = [int(m.episode_length) for m in runs['graph'][1]]
+            loop, = tr.captured_loops()
+            out['equal'][f'dqn {label}'] = {
+                'episode_length': lengths,
+                'updates': [m.updates for m in runs['graph'][1]],
+                'steps_run': runs['graph'][2], 'chunk_steps': k,
+                'wasted_steps': runs['graph'][2] - sum(lengths)}
+            out['captures'][f'dqn {label}'] = loop.stats()
+            log(f'DQN {label} at 256 envs, 2 episodes: graph EQUAL to the '
+                f'uncaptured chunks (cuDNN deterministic, every field); '
+                f'{json.dumps(out["equal"][f"dqn {label}"])}; capture '
+                f'{json.dumps(loop.stats())} [{smi}]')
+            del tr, ts, runs, episodes
+            torch.cuda.empty_cache()
+
+        # --- PPO: three updates each way ---
+        tr = PPOTrainer(PPOConfig(num_envs=256, save_final=False),
+                        device='cuda')
+        cfg = tr.config
+        ts, _ = tr.update(tr.init_state())               # capture
+        gen = torch.Generator(device='cuda')
+        gen.manual_seed(62)
+        updates = [ppo_draws(tr.env_cfg, cfg.num_envs, cfg.rollout_steps,
+                             cfg.update_epochs, gen, 'cuda')
+                   for _ in range(3)]
+        runs = {}
+        for name, collect in (('graph', tr.collect),
+                              ('uncaptured', tr.collect_plain)):
+            step_kernel.step_autoreset.launches = 0
+            cur, record = ts, []
+            for draws in updates:
+                cur = collect(cur, draws)
+                traj = clone_tree(tr.trajectory)
+                cur, m = tr.learn(cur, draws.perm)
+                record.append((traj, m))
+            torch.cuda.synchronize()
+            if step_kernel.step_autoreset.launches != 3 * cfg.rollout_steps:
+                raise AssertionError(
+                    f'PPO {name}: {step_kernel.step_autoreset.launches} '
+                    f'launches for {3 * cfg.rollout_steps} rollout steps')
+            runs[name] = (cur, record)
+        check_equal(runs['graph'], runs['uncaptured'], 'PPO')
+        loop = tr.rollout_loop()[1]
+        out['equal']['ppo'] = {'updates': 3, 'rollout_steps':
+                               cfg.rollout_steps}
+        out['captures']['ppo rollout'] = loop.stats()
+        log(f'PPO at 256 envs, 3 updates: the rollout graph EQUAL to its '
+            f'uncaptured body (states, trajectories, metrics; cuDNN '
+            f'deterministic); capture {json.dumps(loop.stats())} [{smi}]')
+        del tr, ts, runs, updates
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    # --- bench: 64 steps at 4096 envs each way ---
+    big = EnvConfig(height=20, width=20, num_snakes=4, snake_length=3,
+                    spawn_mode='procedural')
+    env = VectorSnakeEnv(big, 4096, device='cuda', seed=63)
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(64)
+    roll = bench.Rollout(env, 64)
+    states, _ = roll.random(env.reset()[0], gen)           # capture
+    actions, draws = rollout_draws(big, 4096, 64, gen, 'cuda')
+    got = roll(states, actions, draws)
+    want = roll(states, actions, draws, captured=False)
+    check_equal(got, want, 'bench rollout')
+    out['equal']['bench'] = {'steps': 64, 'num_envs': 4096,
+                             'checksum': float(got[1])}
+    out['captures']['bench rollout (64 steps)'] = roll.loop.stats()
+    log(f'bench rollout, 64 steps at 4096 envs: graph EQUAL to its '
+        f'uncaptured body (states and checksum {float(got[1])}); capture '
+        f'{json.dumps(roll.loop.stats())} [{smi}]')
+    del env, roll, states, got, want, actions, draws
+    torch.cuda.empty_cache()
+
+    # --- times, in turns: graph, uncaptured, uncaptured, graph ---
+    turns = (True, False, False, True)
+    out['dqn'] = {}
+    for n_envs in (32, 256):
+        rows = [bench.run_train(n_envs, 1, episodes=2, device='cuda',
+                                captured=c) for c in turns]
+        out['dqn'][n_envs] = {
+            'graph_ms_per_step': [r['ms_per_step'] for r in rows if
+                                  r['captured']],
+            'uncaptured_ms_per_step': [r['ms_per_step'] for r in rows
+                                       if not r['captured']],
+            'rows': rows}
+        for r in rows:
+            log(f'train bench (in turns): {json.dumps(r)} [{smi}]')
+    out['ppo'] = {}
+    for n_envs in (64, 256):
+        rows = [bench.run_ppo(n_envs, updates=3, device='cuda', captured=c)
+                for c in turns]
+        out['ppo'][n_envs] = {
+            key: [r[field] for r in rows if r['captured'] == c]
+            for key, field, c in (
+                ('graph_ms_per_update', 'ms_per_update', True),
+                ('uncaptured_ms_per_update', 'ms_per_update', False),
+                ('graph_rollout_ms', 'rollout_ms', True),
+                ('uncaptured_rollout_ms', 'rollout_ms', False))}
+        for r in rows:
+            log(f'ppo bench (in turns): {json.dumps(r)} [{smi}]')
+    rows = [bench.run(num_envs=4096, num_steps=256, iters=2, device='cuda',
+                      captured=c) for c in turns]
+    out['bench'] = {
+        'graph_env_steps_per_s': [r['value'] for r in rows if r['captured']],
+        'uncaptured_env_steps_per_s': [r['value'] for r in rows
+                                       if not r['captured']]}
+    for r in rows:
+        log(f'bench (in turns): {json.dumps(r)} [{smi}]')
+
+    # --- profiler windows of 16 steps, graph and uncaptured ---
+    out['windows'] = {}
+
+    def window(label, fn, also):
+        w = profile_device(fn, 1)
+        log_window(f'profile of 16 {label} steps', w, 16, smi, also=also)
+        mine = {k: v for k, v in w['kernels'].items()
+                if any(a in k for a in also)}
+        out['windows'][label] = {
+            'busy_us_per_step': w['busy_us'] / 16,
+            'wall_us_per_step': w['wall_us'] / 16,
+            'idle_share': w['idle_share'],
+            'device_events_per_step': sum(
+                v[1] for v in w['kernels'].values()) / 16,
+            'graph_launches_per_step': w['graph_launches'] / 16,
+            'kernel_launches_per_step': w['kernel_launches'] / 16,
+            'read_backs_per_step': w['dtoh'] / 16,
+            'kernel_us_per_launch': {k: v[0] / v[1]
+                                     for k, v in mine.items()}}
+
+    for n_envs in (32, 256):
+        tr = DQNTrainer(dqn_config(num_envs=n_envs,
+                                   max_steps_per_episode=16), device='cuda')
+        held = [tr.train_episode(tr.init_state())[0]]
+        for _ in range(12):                       # a warm ring
+            held[0] = tr.train_episode(held[0])[0]
+        for name, fn in (('graph', tr.train_episode),
+                         ('uncaptured', tr.train_episode_plain)):
+            lengths = []
+
+            def episode():
+                held[0], m = fn(held[0])
+                lengths.append((int(m.episode_length), m.updates))
+
+            window(f'DQN training ({name}, {n_envs} envs)', episode,
+                   (STEP_KERNEL_NAME,))
+            out['windows'][f'DQN training ({name}, {n_envs} envs)'][
+                'steps_and_updates'] = lengths[-1]
+        del tr, held
+    for name, captured in (('graph', True), ('uncaptured', False)):
+        tr = PPOTrainer(PPOConfig(num_envs=256, rollout_steps=16,
+                                  save_final=False), device='cuda')
+        held = [tr.init_state()]
+        draws = ppo_draws(tr.env_cfg, 256, 16, 4, tr.generator, 'cuda')
+        collect = tr.collect if captured else tr.collect_plain
+
+        def rollout():
+            held[0] = collect(held[0], draws)
+
+        window(f'PPO rollout ({name}, 256 envs, with GAE)', rollout,
+               (KERNEL_NAME,))
+        del tr, held
+    env = VectorSnakeEnv(big, 4096, device='cuda', seed=65)
+    roll = bench.Rollout(env, 16)
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(66)
+    for name, captured in (('graph', True), ('uncaptured', False)):
+        held = [env.reset()[0]]
+
+        def steps():
+            held[0], _ = roll.random(held[0], gen, captured)
+
+        window(f'bench ({name}, 4096 envs)', steps, (KERNEL_NAME,))
+    del env, roll, held
+    torch.cuda.empty_cache()
+    out['seconds'] = time.perf_counter() - t_phase
+    log(f'graph phase: {out["seconds"]:.1f} s')
+    return out
+
+
 def masked_paths(smi: str, steps: int = 128) -> dict:
     """ms per step (host clock) and a profiler window of 16 steps (device
     events, busy us, idle share a step) of the three masked paths, through
@@ -2900,15 +3237,17 @@ def main() -> int:
     bench_gen = torch.Generator(device=bench_env.device)
     bench_gen.manual_seed(10)
     held = [bench_states]
+    bench_roll = bench.Rollout(bench_env, 16)
 
     def bench_steps():
-        held[0], r = bench.rollout(bench_env, held[0], 16, bench_gen)
+        held[0], r = bench_roll.random(held[0], bench_gen)
 
     window = profile_device(bench_steps, 1)
     log_window('profile of 16 bench steps', window, 16, smi,
                also=(KERNEL_NAME,))
     bench_idle = window['idle_share']
     del bench_env, bench_states, held, outputs, last, s, states, out, obs
+    del bench_roll
     torch.cuda.empty_cache()
 
     # --- 6. the entry without auto-reset against engine.step ---
@@ -2956,20 +3295,25 @@ def main() -> int:
     env_steps, episodes = 0, []
     for _ in range(2):
         ts, m = trainer.train_episode(ts)
-        env_steps += int(m.episode_length)
+        env_steps += chunked_steps(trainer, m)
         episodes.append(m)
     torch.cuda.synchronize()
     train_launches = step_kernel.step.launches
     last_m = episodes[-1]
+    train_graph, = trainer.captured_loops()
     log(f'training path: 2 episodes at {tcfg.num_envs} envs, '
         f'{[int(m.episode_length) for m in episodes]} steps, '
         f'{[m.updates for m in episodes]} updates, mean loss '
         f'{[float(m.mean_loss) for m in episodes]}, mean reward '
         f'{[float(m.mean_reward) for m in episodes]}, step launches='
-        f'{train_launches}, ring size {int(ts.buffer.size)}')
-    if train_launches != env_steps:
+        f'{train_launches} over {env_steps} steps run in chunks of '
+        f'{trainer.chunk_steps} (the last chunk of an episode runs on '
+        f'after its last env), ring size {int(ts.buffer.size)}; the '
+        f'chunk graph {json.dumps(train_graph.stats())}')
+    if train_launches != env_steps or train_graph.replays == 0:
         raise AssertionError(f'{env_steps} env steps on the training path '
-                             f'but {train_launches} kernel launches')
+                             f'but {train_launches} kernel launches, '
+                             f'{train_graph.replays} graph replays')
     if last_m.updates <= 0 or ts.global_step != sum(m.updates
                                                     for m in episodes):
         raise AssertionError('no optimizer update in the second episode')
@@ -2990,8 +3334,9 @@ def main() -> int:
         raise AssertionError('the target parameters changed before a sync')
     if not all(bool(torch.isfinite(v).all()) for v in ts.params.values()):
         raise AssertionError('parameters are not finite')
-    log('training path ok: launches equal env steps, updates made, loss '
-        'finite, parameters moved, target parameters unchanged')
+    log('training path ok: launches equal the env steps the chunk graphs '
+        'ran, updates made, loss finite, parameters moved, target '
+        'parameters unchanged')
 
     # --- 9. one TD update, card against CPU ---
     u = torch.rand((tcfg.buffer_size,), generator=trainer.generator,
@@ -3032,7 +3377,10 @@ def main() -> int:
                            device='cuda')
         ts_other, _ = other.load_checkpoint('smoke', other.init_state(),
                                             full=True)
-    ts, m_a = trainer.train_episode(ts)
+    # the trainer's graph holds the cuDNN algorithms of its capture (not
+    # deterministic): it runs its chunks uncaptured here, the fresh
+    # trainer captures its own under deterministic cuDNN
+    ts, m_a = trainer.train_episode_plain(ts)
     ts_other, m_b = other.train_episode(ts_other)
     torch.cuda.synchronize()
     torch.backends.cudnn.deterministic = deterministic
@@ -3046,7 +3394,8 @@ def main() -> int:
         raise AssertionError(f'after a full checkpoint round trip the next '
                              f'episode differs: {got_a} vs {got_b}')
     log(f'checkpoint round trip (full) on the card: the next episode is '
-        f'equal from both, (length, updates, mean reward, mean loss) = '
+        f'equal from both (uncaptured from the saved trainer, a graph in '
+        f'the loaded one), (length, updates, mean reward, mean loss) = '
         f'{got_a}')
     del other, ts_other
 
@@ -3231,9 +3580,10 @@ def main() -> int:
         wgen = torch.Generator(device='cuda')
         wgen.manual_seed(22)
         wheld = [wenv.reset()[0]]
+        wroll = bench.Rollout(wenv, 16)
 
         def window_steps():
-            wheld[0], _ = bench.rollout(wenv, wheld[0], 16, wgen)
+            wheld[0], _ = wroll.random(wheld[0], wgen)
 
         window = profile_device(window_steps, 1)
         slice_windows[label] = window
@@ -3258,7 +3608,7 @@ def main() -> int:
                 f'{sum(v[1] for v in rays_prof["kernels"].values()) // 20} '
                 f'kernels, host wall {rays_prof["wall_us"] / 20:.1f} us '
                 f'[{smi}]')
-    del wenv, wheld, gstate, feats
+    del wenv, wheld, wroll, gstate, feats
     torch.cuda.empty_cache()
 
     # two training episodes at 256 envs with packed obs
@@ -3271,7 +3621,7 @@ def main() -> int:
     p_steps, p_eps = 0, []
     for _ in range(2):
         pts, m = ptrainer.train_episode(pts)
-        p_steps += int(m.episode_length)
+        p_steps += chunked_steps(ptrainer, m)
         p_eps.append(m)
     torch.cuda.synchronize()
     packed_launches = step_kernel.step.launches
@@ -3279,11 +3629,12 @@ def main() -> int:
         f'{[int(m.episode_length) for m in p_eps]} steps, '
         f'{[m.updates for m in p_eps]} updates, mean loss '
         f'{[float(m.mean_loss) for m in p_eps]}, step launches='
-        f'{packed_launches}, ring size {int(pts.buffer.size)} rows of '
+        f'{packed_launches} over {p_steps} steps run, ring size {int(pts.buffer.size)} rows of '
         f'{pts.buffer.obs.shape[1]} bytes')
     if packed_launches != p_steps:
-        raise AssertionError(f'{p_steps} env steps on the packed training '
-                             f'path but {packed_launches} kernel launches')
+        raise AssertionError(f'{p_steps} env steps run on the packed '
+                             f'training path but {packed_launches} kernel '
+                             f'launches')
     if p_eps[-1].updates <= 0 or not all(
             bool(torch.isfinite(m.mean_loss)) for m in p_eps) \
             or float(p_eps[-1].mean_loss) <= 0.0:
@@ -3328,6 +3679,17 @@ def main() -> int:
     log(f'parallel: {json.dumps(dp)}')
     torch.cuda.empty_cache()
 
+    # --- 17. the captured loops against their bodies, and their times ---
+    graphs = graph_phase(smi)
+    log(f'graphs: {json.dumps(graphs)}')
+    torch.cuda.empty_cache()
+
+    def in_graphs(kernel_name):
+        return {label: {k: v for k, v in w['kernel_us_per_launch'].items()
+                        if kernel_name in k}
+                for label, w in graphs['windows'].items()
+                if any(kernel_name in k for k in w['kernel_us_per_launch'])}
+
     step_main = step_rows[256]
     mask_rows = {'evaluator (E=256, N=4)': evaluation['mask_evaluator'],
                  'battle (E=128, N=1)': battle['mask_battle'],
@@ -3357,6 +3719,9 @@ def main() -> int:
             'step_autoreset ppo B=128'],
         max_abs_err_scaling_b512=dp['max_abs_err'][
             'step_autoreset scaling B=512'],
+        device_us_per_launch_in_windows=in_graphs(KERNEL_NAME),
+        graph_bench_env_steps_per_s=graphs['bench'],
+        graph_ppo=graphs['ppo'],
         **ppo,
     ), dict(
         step_main,
@@ -3375,6 +3740,11 @@ def main() -> int:
             'device_ms', 'host_us', 'call_ms', 'plain_ms', 'bound_ms',
             'pct_of_bound', 'bytes', 'device_us_holding',
             'device_us_by_pacing')},
+        device_us_per_launch_in_windows=in_graphs(STEP_KERNEL_NAME),
+        graph_dqn={n: {k: v for k, v in r.items() if k != 'rows'}
+                   for n, r in graphs['dqn'].items()},
+        graph_equal=graphs['equal'],
+        graph_captures=graphs['captures'],
         train_idle_share={n: w['idle_share'] for n, w in windows.items()},
         train_dtoh_per_step={n: w['dtoh'] / w['steps']
                              for n, w in windows.items()},

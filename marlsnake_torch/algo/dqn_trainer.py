@@ -18,20 +18,32 @@ actions of all (num_envs x num_snakes) agents, the env step is one launch
 of the CUDA step kernel's entry without auto-reset (``ops/step_kernel``;
 the plain engine on the CPU), and the replay ring and the optimizer state
 stay on the device. Where the JAX package runs the episode as one
-``lax.scan`` program, this is a Python loop that reads its flags back
-from the device once a step (whether the ring is warm and whether any env
-is still live) and stops once every env has finished; the steps the scan
-would still run are no-ops there.
+``lax.scan`` program, this runs it in chunks of ``chunk_steps`` steps
+(``chunk_steps``: the largest multiple of ``update_every`` that divides
+``max_steps_per_episode`` and is at most 8). A chunk is branch-free, as
+the scan's body is: whether an env is live and whether the ring is warm
+are device predicates, every update the chunk may make is computed and
+kept only where it may be made (``torch.where``), and the step count,
+the update count and the loss sum are device counters. On CUDA the chunk
+is captured once as a CUDA graph and replayed (``utils/cuda_graph.py``);
+on the CPU the same body runs directly. The host reads one flag a chunk
+(is an env still live?) and stops after the chunk in which the last env
+finished: the steps of that chunk after it are no-ops, as the scan's
+are, but each still pays its discarded update. ``train_episode_plain``
+runs the same chunks uncaptured.
 
 Random numbers: the trainer owns one ``torch.Generator`` on its device;
 ``train_episode`` draws an episode's numbers from it up front
 (``rng.reset_draws``, ``rng.train_draws``) unless the caller hands them
-in. The replay ring is updated in place, so a ``TrainState`` that went
-into ``train_episode`` must not be used again.
+in.
+
+The episode's buffers are the trainer's own: ``train_episode`` copies
+the state it is given into them and hands back copies, so a
+``TrainState`` that went into ``train_episode`` stays as it was.
 
 Data parallelism (``mesh``, the JAX trainer's ``axis_name`` branch; see
-``parallel/dqn_dp.py``): each rank steps its own envs into its own ring,
-and the parameters stay replicated. Each update all-reduces the
+``parallel/dqn_dp.py``) keeps a Python loop over steps: each rank steps
+its own envs into its own ring, and the parameters stay replicated. Each update all-reduces the
 gradients and the loss as one flat buffer and divides it by the world
 size (JAX's ``pmean``). Every rank makes the same collective calls: the
 step's read-back follows one MIN all-reduce of [can update, -live], so
@@ -42,7 +54,8 @@ more env steps and pushes nothing; it takes part in the collectives
 only. Its episode length stops with its own last env. The metrics are
 the mean over ranks of the mean reward, mean loss and episode length and
 the max of the update count. A rank draws its resets and its steps from
-two generators of its own (``rng.rank_seed``).
+two generators of its own (``rng.rank_seed``). Its ring is updated in
+place.
 """
 
 from __future__ import annotations
@@ -67,7 +80,10 @@ from marlsnake_torch.ops.obs_pack import unpack_obs
 from marlsnake_torch.rng import (RESET_STREAM, STEP_STREAM, ResetDraws,
                                  StepDraws, TrainDraws, rank_seed,
                                  reset_draws, train_draws)
+from marlsnake_torch.ops import step_kernel
 from marlsnake_torch.utils import checkpoint as ckpt
+from marlsnake_torch.utils.cuda_graph import (CapturedLoop, clone_tree,
+                                              copy_into)
 from marlsnake_torch.utils.metrics import MetricWriter
 
 Params = Dict[str, torch.Tensor]
@@ -183,6 +199,45 @@ def huber_loss(pred: torch.Tensor, target: torch.Tensor,
     return 0.5 * quadratic ** 2 + delta * (abs_err - quadratic)
 
 
+def mean_of(x: torch.Tensor) -> torch.Tensor:
+    """The mean as the JAX trainer's compiled ``jnp.mean`` gives it: XLA
+    turns the division of the sum by the count into a product with the
+    count's float32 reciprocal. ``Tensor.mean`` divides, and differs in
+    the last bit where the count is no power of two."""
+    return x.sum() * (1.0 / x.numel())
+
+
+def chunk_steps(max_steps: int, update_every: int, most: int = 8) -> int:
+    """Steps of one chunk of an episode: the largest multiple of
+    ``update_every`` that divides ``max_steps`` and is at most ``most``
+    (``update_every`` itself where it exceeds ``most``)."""
+    fits = [k for k in range(update_every, most + 1, update_every)
+            if max_steps % k == 0]
+    return fits[-1] if fits else update_every
+
+
+@dataclasses.dataclass
+class _EpisodeBuffers:
+    """What an episode's chunks carry, at fixed addresses: the envs, the
+    episode's counters and accumulators, the learner's state, the ring,
+    and the episode's draws (step axis first, read at the device step
+    index ``t``)."""
+    envs: step_kernel.StaticEnvs
+    frozen: torch.Tensor       # (E,) bool: the env has finished
+    ep_rew: torch.Tensor       # (E, N) float32
+    loss_sum: torch.Tensor     # () float32
+    updates: torch.Tensor      # () int32
+    steps: torch.Tensor        # () int32: steps with an env live
+    t: torch.Tensor            # (1,) int64: the next step's index
+    params: Params
+    target_params: Params
+    opt_state: optim.AdamState
+    buffer: replay.ReplayBuffer
+    epsilon: torch.Tensor
+    draws: TrainDraws
+    flags: torch.Tensor        # (3,) int32: [live, steps, updates]
+
+
 class DQNTrainer:
     """Single-device trainer. ``device`` defaults to the GPU; pass
     ``'cpu'`` to run the plain PyTorch path. With ``mesh``
@@ -223,6 +278,10 @@ class DQNTrainer:
             self.reset_generator.manual_seed(
                 rank_seed(config.seed, mesh.rank, RESET_STREAM))
         self.update_batch = config.update_batch_size or config.batch_size
+        self.chunk_steps = chunk_steps(config.max_steps_per_episode,
+                                       config.update_every)
+        # (buffers, CapturedLoop) by the shapes of the episode's draws
+        self._chunks: Dict[tuple, Tuple[_EpisodeBuffers, CapturedLoop]] = {}
         self.best_mean_reward = float('-inf')
         self.writer = None
 
@@ -334,17 +393,12 @@ class DQNTrainer:
     # ------------------------------------------------------------------
     def _read_flags(self, buffer: replay.ReplayBuffer,
                     frozen: torch.Tensor) -> Tuple[bool, bool, bool]:
-        """The step's one read-back: (can_update, live, any_live). ``live``:
-        an env of this rank has not finished; ``can_update``: the ring is
-        warm and an env is live, on every rank; ``any_live``: an env is
-        live on some rank. Under a mesh the two global flags come from one
-        MIN all-reduce of [can_update, -live]; without one, the ring's fill
-        and ``live`` are read back as they are."""
+        """The data-parallel step's one read-back: (can_update, live,
+        any_live). ``live``: an env of this rank has not finished;
+        ``can_update``: the ring is warm and an env is live, on every rank;
+        ``any_live``: an env is live on some rank. The two global flags
+        come from one MIN all-reduce of [can_update, -live]."""
         live = (~frozen).any().to(torch.int32)
-        if self.mesh is None:
-            size, live = torch.stack([buffer.size, live]).tolist()
-            return bool(live and size >= self.config.min_buffer_size), \
-                bool(live), bool(live)
         warm = (buffer.size >= self.config.min_buffer_size).to(torch.int32)
         flags = torch.stack([live * warm, -live])
         self.mesh.all_reduce(flags, 'min')
@@ -365,7 +419,19 @@ class DQNTrainer:
             [updates], dtype=torch.int64, device=self.device), 'max')
         return means[0], means[1], float(means[2]), int(most)
 
-    @torch.no_grad()
+    def _draws(self, draws: Optional[TrainDraws],
+               reset: Optional[ResetDraws]
+               ) -> Tuple[TrainDraws, ResetDraws]:
+        cfg, dev = self.config, self.device
+        if reset is None:
+            reset = reset_draws(self.env_cfg, cfg.num_envs,
+                                self.reset_generator, dev)
+        if draws is None:
+            draws = train_draws(self.env_cfg, cfg.num_envs,
+                                cfg.max_steps_per_episode, cfg.buffer_size,
+                                self.update_batch, self.generator, dev)
+        return draws, reset
+
     def train_episode(self, ts: TrainState,
                       draws: Optional[TrainDraws] = None,
                       reset: Optional[ResetDraws] = None
@@ -375,16 +441,222 @@ class DQNTrainer:
         shaping, masked push, freeze of finished envs, and the optimizer
         update the pacing mode asks for; then epsilon decay, target sync
         and the metrics. ``draws`` and ``reset`` default to numbers from
-        the trainer's generators."""
+        the trainer's generators. On one device the steps run in chunks,
+        on CUDA as replays of one captured graph; with a mesh, as a loop
+        over steps."""
+        if self.mesh is not None:
+            return self._train_episode_loop(ts, draws, reset)
+        return self._train_episode_chunks(ts, draws, reset, captured=True)
+
+    def train_episode_plain(self, ts: TrainState,
+                            draws: Optional[TrainDraws] = None,
+                            reset: Optional[ResetDraws] = None
+                            ) -> Tuple[TrainState, EpisodeMetrics]:
+        """``train_episode`` on one device with its chunks run uncaptured
+        (the graph's plain version; the same buffers and the same body)."""
+        return self._train_episode_chunks(ts, draws, reset, captured=False)
+
+    def _chunk_loop(self, draws: TrainDraws
+                   ) -> Tuple[_EpisodeBuffers, CapturedLoop]:
+        """The chunk's buffers and its ``CapturedLoop`` for draws of the
+        shapes of ``draws``, made on first use (draws that hand over
+        ``sample_idx`` take another loop than draws that sample from
+        ``sample_u``)."""
+        key = tuple(None if x is None else tuple(x.shape) for x in draws)
+        if key not in self._chunks:
+            bufs = self._episode_buffers(draws)
+            self._chunks[key] = (bufs, CapturedLoop(
+                lambda: self._chunk(bufs), self.device))
+        return self._chunks[key]
+
+    def captured_loops(self) -> list:
+        """The ``CapturedLoop`` of each chunk made so far."""
+        return [loop for _, loop in self._chunks.values()]
+
+    def _episode_buffers(self, draws: TrainDraws) -> _EpisodeBuffers:
+        cfg, dev = self.config, self.device
+        e, n = cfg.num_envs, cfg.num_snakes
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        params = {k: torch.zeros_like(v)
+                  for k, v in self.net.state_dict().items()}
+        return _EpisodeBuffers(
+            envs=step_kernel.StaticEnvs(self.env_cfg, e, dev),
+            frozen=zeros((e,), torch.bool),
+            ep_rew=zeros((e, n), torch.float32),
+            loss_sum=zeros((), torch.float32),
+            updates=zeros((), torch.int32), steps=zeros((), torch.int32),
+            t=zeros((1,), torch.int64), params=params,
+            target_params={k: torch.zeros_like(v)
+                           for k, v in params.items()},
+            opt_state=optim.adam_init(list(params.values())),
+            buffer=replay.create(cfg.buffer_size,
+                                 self.env_cfg.obs_shape[1:], device=dev),
+            epsilon=zeros((), torch.float32),
+            draws=TrainDraws(*(None if x is None else torch.zeros_like(x)
+                               for x in draws)),
+            flags=zeros((3,), torch.int32))
+
+    def _select_update(self, can_update: torch.Tensor, new, old):
+        """``new`` (params, opt_state) where ``can_update``, else ``old``:
+        the branch-free counterpart of JAX's ``lax.cond``. The Adam count
+        is selected too, or its bias correction would drift."""
+        def sel(a, b):
+            return torch.where(can_update, a, b)
+
+        (p_new, o_new), (p_old, o_old) = new, old
+        params = {k: sel(p_new[k], p_old[k]) for k in p_old}
+        opt = optim.AdamState(
+            sel(o_new.count, o_old.count),
+            [sel(a, b) for a, b in zip(o_new.mu, o_old.mu)],
+            [sel(a, b) for a, b in zip(o_new.nu, o_old.nu)])
+        return params, opt
+
+    def _chunk(self, b: _EpisodeBuffers) -> None:
+        """``chunk_steps`` steps of the episode over the buffers ``b``,
+        with no read-back and no branch on a device value: the body of
+        JAX's ``_episode_impl`` scan, a chunk of it at a time."""
+        cfg = self.config
+        e, n = cfg.num_envs, cfg.num_snakes
+        buffer, eps, target = b.buffer, b.epsilon, b.target_params
+        state, out = b.envs.state, b.envs.out
+        params, opt_state = b.params, b.opt_state
+        frozen, ep_rew, steps, t = b.frozen, b.ep_rew, b.steps, b.t
+        loss_sum, updates = b.loss_sum, b.updates
+
+        def flat(x):
+            return x.reshape((e * n,) + x.shape[2:])
+
+        def learn(can_update, d, acting=None):
+            nonlocal params, opt_state, loss_sum, updates
+            batch = replay.sample(buffer, self.update_batch, d.sample_u,
+                                  idx=d.sample_idx)
+            p2, o2, loss, q_act = self._td_update(params, target, opt_state,
+                                                  batch, acting)
+            params, opt_state = self._select_update(
+                can_update, (p2, o2), (params, opt_state))
+            loss_sum = loss_sum + torch.where(can_update, loss, 0.0)
+            updates = updates + can_update.to(torch.int32)
+            return q_act
+
+        for k in range(self.chunk_steps):
+            d = TrainDraws(*(None if x is None else x.index_select(0, t)[0]
+                             for x in b.draws))
+            obs, dones = out.obs, out.done
+            acting = self._acting_obs(state, obs)
+            if cfg.fused_act_update:
+                # the minibatch comes from the ring as it is before this
+                # step's push; acting and TD rows share one forward, whose
+                # acting rows are taken whether or not the update is kept
+                can_update = ((buffer.size >= cfg.min_buffer_size)
+                              & ~frozen.all())
+                q_act = learn(can_update, d, flat(acting))
+                actions = epsilon_greedy(q_act, dones, eps, d.rand,
+                                         d.explore_u)
+            else:
+                actions = self._select_actions(params, acting, dones, eps, d)
+            # finished envs stand still (the reference loops while not
+            # all done): the step leaves them as they came in; at the
+            # episode's first step no env is frozen
+            new_state, new_out = self._step_env(
+                state, actions, StepDraws(d.fruit_u, None, None),
+                hold=(frozen, out))
+            # early-death shaping while the step count is under the
+            # threshold (the count stops with the last live env)
+            shaped = new_out.reward + torch.where(
+                new_out.done & (steps < cfg.early_death_threshold),
+                cfg.early_death_penalty, 0.0)
+            push_mask = ~dones & ~frozen[:, None]  # alive at step
+            replay.push(buffer, flat(obs), flat(actions), flat(shaped),
+                        flat(new_out.obs), flat(new_out.done),
+                        mask=flat(push_mask))
+            ep_rew = ep_rew + torch.where(push_mask, shaped, 0.0)
+            steps = steps + (~frozen.all()).to(torch.int32)
+            frozen = frozen | new_out.done.all(-1)
+            state, out = new_state, new_out
+            t = t + 1
+            if (not cfg.fused_act_update
+                    and (k + 1) % cfg.update_every == 0):
+                learn((buffer.size >= cfg.min_buffer_size) & ~frozen.all(),
+                      d)
+
+        b.envs.store(state, out)
+        for dst, src in ((b.frozen, frozen), (b.ep_rew, ep_rew),
+                         (b.steps, steps), (b.t, t), (b.loss_sum, loss_sum),
+                         (b.updates, updates)):
+            dst.copy_(src)
+        copy_into(b.params, params)
+        copy_into(b.opt_state, opt_state)
+        b.flags.copy_(torch.stack([(~frozen.all()).to(torch.int32), steps,
+                                   updates]))
+
+    @torch.no_grad()
+    def _train_episode_chunks(self, ts: TrainState,
+                              draws: Optional[TrainDraws],
+                              reset: Optional[ResetDraws], captured: bool
+                              ) -> Tuple[TrainState, EpisodeMetrics]:
+        cfg = self.config
+        draws, reset = self._draws(draws, reset)
+        b, loop = self._chunk_loop(draws)
+        env_states, obs = self._reset_env(reset)
+        b.envs.load(env_states)
+        b.envs.out.obs.copy_(obs)
+        for x in (b.frozen, b.ep_rew, b.loss_sum, b.updates, b.steps, b.t):
+            x.zero_()
+        copy_into(b.params, ts.params)
+        copy_into(b.target_params, ts.target_params)
+        copy_into(b.opt_state, ts.opt_state)
+        copy_into(b.buffer, ts.buffer)
+        b.epsilon.copy_(ts.epsilon)
+        copy_into(b.draws, draws)
+        run = loop if captured else loop.uncaptured
+        steps = updates = 0
+        for _ in range(cfg.max_steps_per_episode // self.chunk_steps):
+            run()
+            # the chunk's one read-back
+            live, steps, updates = b.flags.tolist()
+            if not live:
+                break
+
+        mean_loss = (b.loss_sum / updates if updates
+                     else b.loss_sum.clone())
+        metrics = EpisodeMetrics(
+            mean_reward=mean_of(b.ep_rew), mean_loss=mean_loss,
+            episode_length=float(steps), updates=updates)
+        return self._end_episode(ts, clone_tree(b.params),
+                                 clone_tree(b.opt_state),
+                                 clone_tree(b.buffer), metrics), metrics
+
+    def _end_episode(self, ts: TrainState, params: Params,
+                     opt_state: optim.AdamState,
+                     buffer: replay.ReplayBuffer,
+                     metrics: EpisodeMetrics) -> TrainState:
+        """The state after an episode: its learner state and ring, epsilon
+        decayed, the target synced when it is due, the counters on."""
+        cfg = self.config
+        episode = ts.episode + 1
+        epsilon = torch.clamp(ts.epsilon * cfg.epsilon_decay,
+                              min=cfg.epsilon_end)
+        sync = episode % cfg.target_update_freq == 0
+        return ts.replace(
+            params=params, target_params=params if sync else ts.target_params,
+            opt_state=opt_state, buffer=buffer, epsilon=epsilon,
+            episode=episode, global_step=ts.global_step + metrics.updates)
+
+    @torch.no_grad()
+    def _train_episode_loop(self, ts: TrainState,
+                            draws: Optional[TrainDraws],
+                            reset: Optional[ResetDraws]
+                            ) -> Tuple[TrainState, EpisodeMetrics]:
+        """The data-parallel episode: a Python loop over steps, with the
+        flags read back (after their all-reduce) every step."""
         cfg = self.config
         e, n = cfg.num_envs, cfg.num_snakes
         dev = self.device
         num_steps = cfg.max_steps_per_episode
-        if reset is None:
-            reset = reset_draws(self.env_cfg, e, self.reset_generator, dev)
-        if draws is None:
-            draws = train_draws(self.env_cfg, e, num_steps, cfg.buffer_size,
-                                self.update_batch, self.generator, dev)
+        draws, reset = self._draws(draws, reset)
         env_states, obs = self._reset_env(reset)
         out = None
         dones = torch.zeros((e, n), dtype=torch.bool, device=dev)
@@ -460,24 +732,14 @@ class DQNTrainer:
             if not any_live:
                 break
 
-        episode = ts.episode + 1
-        epsilon = torch.clamp(ts.epsilon * cfg.epsilon_decay,
-                              min=cfg.epsilon_end)
-        sync = episode % cfg.target_update_freq == 0
-        mean_reward = ep_rew.mean()
-        mean_loss = loss_sum / updates if updates else loss_sum
-        episode_length = float(steps)
-        if self.mesh is not None:
-            mean_reward, mean_loss, episode_length, updates = \
-                self._mean_metrics(mean_reward, mean_loss, steps, updates)
+        mean_reward, mean_loss, episode_length, updates = \
+            self._mean_metrics(mean_of(ep_rew), loss_sum / updates
+                               if updates else loss_sum, steps, updates)
         metrics = EpisodeMetrics(
             mean_reward=mean_reward, mean_loss=mean_loss,
             episode_length=episode_length, updates=updates)
-        ts = ts.replace(
-            params=params, target_params=params if sync else ts.target_params,
-            opt_state=opt_state, buffer=buffer, epsilon=epsilon,
-            episode=episode, global_step=ts.global_step + updates)
-        return ts, metrics
+        return self._end_episode(ts, params, opt_state, buffer,
+                                 metrics), metrics
 
     # ------------------------------------------------------------------
     def train(self, num_episodes: Optional[int] = None,

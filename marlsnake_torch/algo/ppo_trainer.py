@@ -12,10 +12,14 @@ loss. Scalars: ``loss/actor``, ``loss/value``, ``policy/entropy``,
 ``env/mean_episode_return``, ``env/episodes_collected``.
 
 Where the JAX package runs the rollout as one ``lax.scan`` program, this
-is a Python loop over steps with no read-back: each step is one forward
-of the (E * N) agents, the action sample ``argmax(logits + gumbel)``, and
-one launch of the CUDA step kernel's auto-reset entry
-(``ops/step_kernel.py``; the plain engine on the CPU). The rollout goes
+runs it as one captured CUDA graph (``utils/cuda_graph.py``; on the CPU
+the same body runs directly): ``rollout_steps`` steps with no read-back,
+each one forward of the (E * N) agents, the action sample
+``argmax(logits + gumbel)``, and one launch of the CUDA step kernel's
+auto-reset entry (``ops/step_kernel.py``; the plain engine on the CPU),
+then the last value and GAE. ``collect`` copies the state and the draws
+into the graph's buffers and hands back copies of what it carries;
+``collect_plain`` runs the same body uncaptured. The rollout goes
 into buffers the trainer allocates once (``trainer.trajectory``: obs as
 (T, E * N, H * W * C) bytes, packed bytes under ``obs_format='packed'``),
 which the next update overwrites. The minibatch epochs are plain torch:
@@ -51,10 +55,13 @@ from marlsnake_torch.core.types import EnvConfig
 from marlsnake_torch.device import resolve_device
 from marlsnake_torch.envs.vector import build_vector_fns
 from marlsnake_torch.models.ppo import make_actor_critic
+from marlsnake_torch.ops import step_kernel
 from marlsnake_torch.ops.obs_pack import unpack_obs
-from marlsnake_torch.rng import (PPODraws, ResetDraws, ppo_draws,
-                                 rank_seed, reset_draws)
+from marlsnake_torch.rng import (PPODraws, ResetDraws, StepDraws,
+                                 ppo_draws, rank_seed, reset_draws)
 from marlsnake_torch.utils import checkpoint as ckpt
+from marlsnake_torch.utils.cuda_graph import (CapturedLoop, clone_tree,
+                                              copy_into)
 from marlsnake_torch.utils.metrics import MetricWriter
 
 Params = Dict[str, torch.Tensor]
@@ -169,6 +176,21 @@ class Minibatch(NamedTuple):
     valid: torch.Tensor     # (M,) bool
 
 
+@dataclasses.dataclass
+class _RolloutBuffers:
+    """What ``collect``'s graph reads and carries, at fixed addresses."""
+    envs: step_kernel.StaticEnvs
+    obs: torch.Tensor
+    agent_done: torch.Tensor
+    ep_return_acc: torch.Tensor
+    finished_return_sum: torch.Tensor
+    finished_count: torch.Tensor
+    episodes: torch.Tensor
+    params: Params
+    step: StepDraws            # step axis first
+    gumbel: torch.Tensor
+
+
 class PPOTrainer:
     """Single-device trainer. ``device`` defaults to the GPU; pass
     ``'cpu'`` to run the plain PyTorch path. With ``mesh``
@@ -205,6 +227,7 @@ class PPOTrainer:
             reward=buf(f32), valid=buf(b8), next_done=buf(b8),
             advantages=buf(f32), returns=buf(f32),
             ended=buf(torch.int32, ()))
+        self._rollout: Optional[Tuple[_RolloutBuffers, CapturedLoop]] = None
 
     # ------------------------------------------------------------------
     def init_state(self, reset: Optional[ResetDraws] = None
@@ -253,25 +276,75 @@ class PPOTrainer:
         return logits.reshape(e, n, -1), value.reshape(e, n)
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
     def collect(self, ts: PPOTrainState, draws: PPODraws) -> PPOTrainState:
         """``rollout_steps`` steps under ``ts.params`` into
-        ``self.trajectory``, then its advantages and returns. Returns
-        ``ts`` with the envs, obs, done flags and episode accumulators
-        where the rollout left them."""
+        ``self.trajectory``, then its advantages and returns, as one replay
+        of the rollout's CUDA graph (on the CPU, the body run directly).
+        Returns ``ts`` with the envs, obs, done flags and episode
+        accumulators where the rollout left them."""
+        return self._collect(ts, draws, captured=True)
+
+    def collect_plain(self, ts: PPOTrainState, draws: PPODraws
+                      ) -> PPOTrainState:
+        """``collect`` with its body run uncaptured (the graph's plain
+        version; the same buffers and the same body)."""
+        return self._collect(ts, draws, captured=False)
+
+    def rollout_loop(self) -> Tuple[_RolloutBuffers, CapturedLoop]:
+        """The rollout's buffers and its ``CapturedLoop``, made on first
+        use."""
+        if self._rollout is None:
+            cfg, dev = self.config, self.device
+            e, n, t = cfg.num_envs, cfg.num_snakes, cfg.rollout_steps
+            like = self.init_state(reset_draws(
+                self.env_cfg, e, torch.Generator(device=dev).manual_seed(0),
+                dev))
+            draws = ppo_draws(self.env_cfg, e, t, 1,
+                              torch.Generator(device=dev).manual_seed(0), dev)
+            bufs = _RolloutBuffers(
+                envs=step_kernel.StaticEnvs(self.env_cfg, e, dev),
+                obs=like.obs, agent_done=like.agent_done,
+                ep_return_acc=like.ep_return_acc,
+                finished_return_sum=like.finished_return_sum,
+                finished_count=like.finished_count, episodes=like.episodes,
+                params=like.params, step=draws.step, gumbel=draws.gumbel)
+            self._rollout = (bufs, CapturedLoop(
+                lambda: self._rollout_body(bufs), dev))
+        return self._rollout
+
+    @torch.no_grad()
+    def _collect(self, ts: PPOTrainState, draws: PPODraws, captured: bool
+                 ) -> PPOTrainState:
+        b, loop = self.rollout_loop()
+        b.envs.load(ts.env_states)
+        for name in ('obs', 'agent_done', 'ep_return_acc',
+                     'finished_return_sum', 'finished_count', 'episodes',
+                     'params'):
+            copy_into(getattr(b, name), getattr(ts, name))
+        copy_into(b.step, draws.step)
+        b.gumbel.copy_(draws.gumbel)
+        (loop if captured else loop.uncaptured)()
+        return ts.replace(env_states=b.envs.clone()[0], **{
+            name: clone_tree(getattr(b, name)) for name in (
+                'obs', 'agent_done', 'ep_return_acc', 'finished_return_sum',
+                'finished_count', 'episodes')})
+
+    def _rollout_body(self, b: _RolloutBuffers) -> None:
+        """The rollout over the buffers ``b``: the steps, the last value
+        and GAE, with no read-back (the body of JAX's rollout scan)."""
         cfg, traj = self.config, self.trajectory
         e, n = cfg.num_envs, cfg.num_snakes
-        env_states, obs, agent_done = ts.env_states, ts.obs, ts.agent_done
-        ep_acc, fin_sum = ts.ep_return_acc, ts.finished_return_sum
-        fin_cnt, episodes = ts.finished_count, ts.episodes
+        env_states, obs, agent_done = b.envs.state, b.obs, b.agent_done
+        ep_acc, fin_sum = b.ep_return_acc, b.finished_return_sum
+        fin_cnt, episodes = b.finished_count, b.episodes
         for t in range(cfg.rollout_steps):
-            logits, value = self._policy(ts.params, obs)
-            action = (logits + draws.gumbel[t]).argmax(-1)
+            logits, value = self._policy(b.params, obs)
+            action = (logits + b.gumbel[t]).argmax(-1)
             logprob = torch.log_softmax(logits, -1).gather(
                 -1, action[..., None])[..., 0]
             action = action.to(torch.int32).masked_fill_(agent_done, 0)
-            env_states, out = self._step_env(env_states, action,
-                                             draws.step_at(t))
+            env_states, out = self._step_env(
+                env_states, action, StepDraws(*(x[t] for x in b.step)))
             valid = ~agent_done
             rew = torch.where(valid, out.reward, 0.0)
             ep_acc = ep_acc + rew
@@ -294,13 +367,16 @@ class PPOTrainer:
             # auto-reset clears the per-agent done at an episode's end
             agent_done = out.done & ~ep_done[:, None]
             obs = out.obs
-        traj.ended.copy_(episodes - ts.episodes)
-        _, last_value = self._policy(ts.params, obs)
+        traj.ended.copy_(episodes - b.episodes)
+        _, last_value = self._policy(b.params, obs)
         self._gae(last_value)
-        return ts.replace(env_states=env_states, obs=obs,
-                          agent_done=agent_done, episodes=episodes,
-                          ep_return_acc=ep_acc, finished_return_sum=fin_sum,
-                          finished_count=fin_cnt)
+        b.envs.store(env_states)
+        for dst, src in ((b.obs, obs), (b.agent_done, agent_done),
+                         (b.ep_return_acc, ep_acc),
+                         (b.finished_return_sum, fin_sum),
+                         (b.finished_count, fin_cnt),
+                         (b.episodes, episodes)):
+            dst.copy_(src)
 
     def _gae(self, last_value: torch.Tensor) -> None:
         """GAE over ``self.trajectory`` into its ``advantages`` and

@@ -86,8 +86,10 @@ def push(buf: ReplayBuffer, obs, action, reward, next_obs, done,
     buf.next_obs.index_copy_(0, slots,
                              next_obs.to(torch.uint8).reshape(n, -1))
     buf.done.index_copy_(0, slots, done.to(torch.bool))
-    buf.ptr = (buf.ptr + num) % cap
-    buf.size = torch.clamp(buf.size + num, max=cap)
+    # in place, as every other field: a captured graph reads and writes
+    # the ring at fixed addresses (utils/cuda_graph.py)
+    buf.ptr.copy_((buf.ptr + num) % cap)
+    buf.size.copy_(torch.clamp(buf.size + num, max=cap))
     return buf
 
 

@@ -8,9 +8,13 @@ and ``--vision-range`` choose the obs, and ``--graph`` the ray-feature
 env. Prints ONE JSON line: ``{"metric", "value", "unit", "vs_baseline",
 "median", "spawn_mode", "obs_format", "frame_stack", "vision_range",
 "graph", "device"}``; ``value`` is the best of three timed blocks and
-``median`` their median. Run ``python -m marlsnake_torch.bench`` on the
-GPU; pass ``--device cpu`` (and small sizes) to run the plain path on the
-CPU.
+``median`` their median. The rollout of ``--num-steps`` steps is one
+replay of a captured CUDA graph (``Rollout``; ``utils/cuda_graph.py``),
+its random actions and step draws drawn before it from the bench's
+generator (``rng.rollout_draws``), so no per-step Python dispatch is in
+the measurement, as the JAX bench's jitted scan keeps it out. Run
+``python -m marlsnake_torch.bench`` on the GPU; pass ``--device cpu``
+(and small sizes) to run the same body uncaptured on the CPU.
 
 ``--mode train`` times DQN training instead: milliseconds per episode and
 env-steps/s of ``DQNTrainer.train_episode`` at 32 and 256 envs (20x20, 4
@@ -38,29 +42,71 @@ import torch
 
 from marlsnake_torch.core.types import EnvConfig
 from marlsnake_torch.envs.vector import VectorSnakeEnv
-from marlsnake_torch.rng import ppo_draws
+from marlsnake_torch.ops.step_kernel import StaticEnvs
+from marlsnake_torch.rng import StepDraws, ppo_draws, rollout_draws
+from marlsnake_torch.utils.cuda_graph import CapturedLoop, copy_into
 
 BASELINE_STEPS_PER_SEC = 783.0  # reference single env on one CPU core
 
 
-def rollout(env: VectorSnakeEnv, states, num_steps: int,
-            generator: torch.Generator):
-    """``num_steps`` random-action steps; returns (states, a checksum of
-    every reward and obs byte)."""
-    cfg = env.cfg
+def rollout_plain(env: VectorSnakeEnv, states, actions: torch.Tensor,
+                  draws: StepDraws):
+    """The rollout's body: a step of every env per row of ``actions``
+    (T, E, N) and ``draws`` (step axis first); returns (states, a checksum
+    of every reward and obs byte)."""
     rew = torch.zeros((), dtype=torch.float32, device=env.device)
     # uint8 obs sum in uint8 (wrapping); ray features are float32
     check = torch.zeros((), device=env.device,
                         dtype=torch.float32 if env.graph else torch.uint8)
-    for _ in range(num_steps):
-        actions = torch.randint(0, cfg.num_actions,
-                                (env.num_envs, cfg.num_snakes),
-                                generator=generator, device=env.device,
-                                dtype=torch.int32)
-        states, out = env.step(states, actions)
+    for t in range(actions.shape[0]):
+        states, out = env.step(states, actions[t],
+                               StepDraws(*(x[t] for x in draws)))
         rew += out.reward.sum()
         check += out.obs.sum(dtype=check.dtype)
     return states, rew + check.to(torch.float32)
+
+
+class Rollout:
+    """``rollout_plain`` over ``num_steps`` steps of ``env`` as one
+    captured CUDA graph (``utils/cuda_graph.py``; on the CPU the body runs
+    directly): the caller's state, actions and draws are copied into the
+    graph's buffers, and the state comes back as a copy."""
+
+    def __init__(self, env: VectorSnakeEnv, num_steps: int):
+        self.env = env
+        self.envs = StaticEnvs(env.cfg, env.num_envs, env.device)
+        self.actions, self.draws = rollout_draws(
+            env.cfg, env.num_envs, num_steps,
+            torch.Generator(device=env.device).manual_seed(0), env.device)
+        self.checksum = torch.zeros((), dtype=torch.float32,
+                                    device=env.device)
+        self.loop = CapturedLoop(self._body, env.device)
+
+    def _body(self) -> None:
+        states, check = rollout_plain(self.env, self.envs.state,
+                                      self.actions, self.draws)
+        self.envs.store(states)
+        self.checksum.copy_(check)
+
+    def __call__(self, states, actions: torch.Tensor, draws: StepDraws,
+                 captured: bool = True):
+        """(states, checksum) after the steps of ``actions`` and
+        ``draws``; ``captured=False`` runs the body uncaptured."""
+        self.envs.load(states)
+        self.actions.copy_(actions)
+        copy_into(self.draws, draws)
+        (self.loop if captured else self.loop.uncaptured)()
+        return self.envs.clone()[0], self.checksum.clone()
+
+    def random(self, states, generator: torch.Generator,
+               captured: bool = True):
+        """The steps with uniform random actions, the actions and draws
+        taken from ``generator`` first (``rng.rollout_draws``)."""
+        env = self.env
+        actions, draws = rollout_draws(env.cfg, env.num_envs,
+                                       self.actions.shape[0], generator,
+                                       env.device)
+        return self(states, actions, draws, captured)
 
 
 def _sync(device: torch.device) -> None:
@@ -71,7 +117,10 @@ def _sync(device: torch.device) -> None:
 def run(num_envs: int = 4096, num_steps: int = 256, iters: int = 4,
         device='cuda', seed: int = 0, spawn_mode: str = 'procedural',
         obs_format: str = 'uint8', frame_stack: int = 1,
-        vision_range=None, graph: bool = False) -> dict:
+        vision_range=None, graph: bool = False,
+        captured: bool = True) -> dict:
+    """The rollout row; ``captured=False`` times the rollout's body
+    uncaptured, the graph's plain version."""
     cfg = EnvConfig(height=20, width=20, num_snakes=4, snake_length=3,
                     spawn_mode=spawn_mode, obs_format=obs_format,
                     frame_stack=frame_stack, vision_range=vision_range)
@@ -80,14 +129,16 @@ def run(num_envs: int = 4096, num_steps: int = 256, iters: int = 4,
     gen = torch.Generator(device=env.device)
     gen.manual_seed(seed + 1)
     states, _ = env.reset()
-    states, r = rollout(env, states, num_steps, gen)  # warm-up, build
+    loop = Rollout(env, num_steps)
+    # warm-up: the build, and the graph's capture
+    states, r = loop.random(states, gen, captured)
     float(r)
     dts = []
     for _ in range(3):
         _sync(env.device)
         t0 = time.perf_counter()
         for _ in range(iters):
-            states, r = rollout(env, states, num_steps, gen)
+            states, r = loop.random(states, gen, captured)
         float(r)
         dts.append(time.perf_counter() - t0)
     total = num_envs * num_steps * iters
@@ -104,6 +155,7 @@ def run(num_envs: int = 4096, num_steps: int = 256, iters: int = 4,
         'frame_stack': cfg.frame_stack,
         'vision_range': cfg.vision_range,
         'graph': graph,
+        'captured': captured,
         'device': _device_name(env.device),
     }
 
@@ -114,11 +166,14 @@ def _device_name(device: torch.device) -> str:
 
 
 def run_train(num_envs: int, update_every: int = 1, episodes: int = 3,
-              device='cuda', **config) -> dict:
+              device='cuda', captured: bool = True, **config) -> dict:
     """Mean wall time of ``episodes`` training episodes after one warm-up
-    episode (which also fills the ring). Episodes end when their last env
-    does, so ``steps_per_episode`` says how long they were. ``config``
-    overrides fields of the ``DQNConfig`` (a small board for a CPU run)."""
+    episode (which also fills the ring and captures the chunk's graph).
+    Episodes end when their last env does, so ``steps_per_episode`` says
+    how long they were, and ``steps_run_per_episode`` how many steps their
+    chunks ran. ``captured=False`` times ``train_episode_plain``, the
+    chunks uncaptured. ``config`` overrides fields of the ``DQNConfig``
+    (a small board for a CPU run)."""
     from marlsnake_torch.algo.dqn_trainer import DQNConfig, DQNTrainer
     cfg = DQNConfig(**{**dict(
         height=20, width=20, num_snakes=4, snake_length=3,
@@ -126,13 +181,17 @@ def run_train(num_envs: int, update_every: int = 1, episodes: int = 3,
         min_buffer_size=512 * 3, buffer_size=10_000,
         update_every=update_every), **config})
     trainer = DQNTrainer(cfg, device=device)
-    ts, m = trainer.train_episode(trainer.init_state())
+    episode = (trainer.train_episode if captured
+               else trainer.train_episode_plain)
+    ts, m = episode(trainer.init_state())
     _sync(trainer.device)
-    steps = updates = 0
+    steps = updates = steps_run = 0
+    k = trainer.chunk_steps
     t0 = time.perf_counter()
     for _ in range(episodes):
-        ts, m = trainer.train_episode(ts)
+        ts, m = episode(ts)
         steps += m.episode_length
+        steps_run += -(-int(m.episode_length) // k) * k
         updates += m.updates
     _sync(trainer.device)
     dt = (time.perf_counter() - t0) / episodes
@@ -142,8 +201,11 @@ def run_train(num_envs: int, update_every: int = 1, episodes: int = 3,
         'num_envs': num_envs, 'update_every': update_every,
         'update_batch_size': trainer.update_batch,
         'episode_ms': dt * 1e3,
+        'ms_per_step': dt * 1e3 * episodes / steps,
         'env_steps_per_s': num_envs * steps / episodes / dt,
         'steps_per_episode': steps / episodes,
+        'chunk_steps': k, 'steps_run_per_episode': steps_run / episodes,
+        'captured': captured,
         'updates_per_episode': updates / episodes,
         'obs_format': cfg.obs_format, 'frame_stack': cfg.frame_stack,
         'vision_range': cfg.vision_range,
@@ -152,15 +214,21 @@ def run_train(num_envs: int, update_every: int = 1, episodes: int = 3,
 
 
 def run_ppo(num_envs: int, updates: int = 3, device='cuda',
-            **config) -> dict:
+            captured: bool = True, **config) -> dict:
     """Mean wall times of ``updates`` PPO updates after one warm-up
-    update, each split at a synchronisation into the rollout with its GAE
-    (``collect``) and the minibatch epochs (``learn``). ``config``
-    overrides fields of the ``PPOConfig``."""
+    update (which also captures the rollout's graph), each split at a
+    synchronisation into the rollout with its GAE (``collect``) and the
+    minibatch epochs (``learn``). ``captured=False`` times
+    ``collect_plain``, the rollout uncaptured. ``config`` overrides fields
+    of the ``PPOConfig``."""
     from marlsnake_torch.algo.ppo_trainer import PPOConfig, PPOTrainer
     cfg = PPOConfig(**{**dict(num_envs=num_envs), **config})
     trainer = PPOTrainer(cfg, device=device)
-    ts, m = trainer.update(trainer.init_state())
+    collect = trainer.collect if captured else trainer.collect_plain
+    ts = trainer.init_state()
+    draws = ppo_draws(trainer.env_cfg, cfg.num_envs, cfg.rollout_steps,
+                      cfg.update_epochs, trainer.generator, trainer.device)
+    ts, m = trainer.learn(collect(ts, draws), draws.perm)
     float(m.loss_value)
     rollout_s = learn_s = 0.0
     for _ in range(updates):
@@ -169,7 +237,7 @@ def run_ppo(num_envs: int, updates: int = 3, device='cuda',
                           trainer.device)
         _sync(trainer.device)
         t0 = time.perf_counter()
-        ts = trainer.collect(ts, draws)
+        ts = collect(ts, draws)
         _sync(trainer.device)
         t1 = time.perf_counter()
         ts, m = trainer.learn(ts, draws.perm)
@@ -189,6 +257,7 @@ def run_ppo(num_envs: int, updates: int = 3, device='cuda',
         'rollout_ms': rollout_s / updates * 1e3,
         'minibatch_ms': learn_s / updates * 1e3,
         'env_steps_per_s': num_envs * cfg.rollout_steps / per_update,
+        'captured': captured,
         'obs_format': cfg.obs_format, 'device': _device_name(trainer.device),
     }
 

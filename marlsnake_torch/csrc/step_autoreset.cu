@@ -929,8 +929,14 @@ static size_t smem_per_env(const StepArgs& a) {
   return static_cast<size_t>((a.H * a.W + 3) / 4 + (a.N * a.CW + 3) / 4) * 16;
 }
 
-static int launch(void (*kernel)(const StepArgs), const StepArgs* args,
-                  void* stream) {
+// The dynamic shared memory each entry was last allowed, by device: the
+// attribute is set only when a launch needs more, so that a launch recorded
+// into a CUDA graph after its first call makes no cudaFuncSetAttribute call.
+constexpr int kMaxDevices = 64;
+static size_t smem_allowed[2][kMaxDevices];
+
+static int launch(void (*kernel)(const StepArgs), int entry,
+                  const StepArgs* args, void* stream) {
   const size_t per_env = smem_per_env(*args);
   const int warps = static_cast<int>(
       per_env * kMaxWarps <= kMaxSmem ? kMaxWarps : kMaxSmem / per_env);
@@ -938,10 +944,18 @@ static int launch(void (*kernel)(const StepArgs), const StepArgs* args,
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = warps * per_env;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
     if (err != cudaSuccess) return static_cast<int>(err);
+    size_t* allowed =
+        device < kMaxDevices ? &smem_allowed[entry][device] : nullptr;
+    if (allowed == nullptr || *allowed < smem) {
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (allowed != nullptr) *allowed = smem;
+    }
   }
   const int blocks = (args->B + warps - 1) / warps;
   kernel<<<blocks, warps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -950,13 +964,13 @@ static int launch(void (*kernel)(const StepArgs), const StepArgs* args,
 }
 
 extern "C" int marlsnake_step_autoreset(const StepArgs* args, void* stream) {
-  return launch(step_autoreset_kernel, args, stream);
+  return launch(step_autoreset_kernel, 0, args, stream);
 }
 
 // The step without auto-reset; the four reset inputs of *args are not read,
 // and `keep` may be null.
 extern "C" int marlsnake_step(const StepArgs* args, void* stream) {
-  return launch(step_noreset_kernel, args, stream);
+  return launch(step_noreset_kernel, 1, args, stream);
 }
 
 extern "C" const char* marlsnake_error_string(int code) {

@@ -32,7 +32,9 @@ def reachable_count_plain(passable: torch.Tensor, start: torch.Tensor,
                           limit: int = 60) -> torch.Tensor:
     """Cells reachable from ``start`` through ``passable``, capped at
     ``limit``. ``passable`` (..., H, W) bool, ``start`` (..., 2) integer
-    (row, col) in the board. Returns int32 (...)."""
+    (row, col). A start off the board seeds no cell and counts
+    ``min(0, limit)``, as the JAX package's fill counts it. Returns int32
+    (...)."""
     h, w = passable.shape[-2:]
     lead = passable.shape[:-2]
     boards = passable.reshape((-1, h, w))
@@ -43,7 +45,10 @@ def reachable_count_plain(passable: torch.Tensor, start: torch.Tensor,
     vis = torch.zeros((m, h + 2, w + 2), dtype=torch.bool,
                       device=passable.device)
     rows = torch.arange(m, device=passable.device)
-    vis[rows, start[:, 0] + 1, start[:, 1] + 1] = True
+    r, c = start[:, 0], start[:, 1]
+    on_board = (r >= 0) & (r < h) & (c >= 0) & (c < w)
+    # an off-board start writes False into the border, which stays False
+    vis[rows, r.clamp(-1, h) + 1, c.clamp(-1, w) + 1] = on_board
     inner = vis[:, 1:-1, 1:-1]
     for _ in range(limit):
         grown = (vis[:, :-2, 1:-1] | vis[:, 2:, 1:-1]

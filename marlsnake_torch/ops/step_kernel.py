@@ -435,3 +435,78 @@ def select_envs(keep: torch.Tensor, old, new):
 
 step_autoreset.launches = 0
 step.launches = 0
+
+
+class StaticEnvs:
+    """A (state, step output) pair of ``num_envs`` envs at fixed
+    addresses, for a captured loop to carry from one replay to the next
+    (``utils/cuda_graph.py``). On CUDA it is one whole output arena of
+    the kernel's layout: ``state`` and ``out`` are the kernel's own views
+    of it, so both entries take the pair as they take a pair they
+    returned, ``hold`` included. On the CPU it is one tensor a field."""
+
+    def __init__(self, cfg: EnvConfig, num_envs: int, device):
+        device = torch.device(device)
+        self.arena = None
+        if device.type == 'cuda':
+            _, nbytes = output_layout(cfg, num_envs)
+            self.arena = torch.zeros(nbytes, dtype=torch.uint8,
+                                     device=device)
+            # the plan of the arena's own device, index and all
+            self.plan = _plan(cfg, num_envs, self.arena.device)
+            self.state = _carved(_CarvedState, self.plan, self.arena)
+            self.out = _carved(_CarvedOutput, self.plan, self.arena)
+            return
+        fields, _ = output_layout(cfg, num_envs)
+        tensors = [torch.zeros(f.shape, dtype=f.dtype, device=device)
+                   for f in fields]
+        cut = len(STATE_FIELDS)
+        self.state = EnvState(*tensors[:cut])
+        self.out = engine.StepOutput(*tensors[cut:])
+
+    def _whole(self, state, out) -> bool:
+        arena = getattr(state, '_arena', None)
+        return (self.arena is not None and arena is not None
+                and arena.numel() == self.arena.numel()
+                and state._plan.fields == self.plan.fields
+                and (out is None or getattr(out, '_arena', None) is arena))
+
+    def load(self, state: EnvState) -> None:
+        """Copy ``state`` in and zero the output part (a reset's pair)."""
+        if self._whole(state, None):
+            cut = self.plan.state_nbytes
+            self.arena[:cut].copy_(state._arena[:cut])
+        else:
+            for (_, dst), (_, src) in zip(self.state.fields(),
+                                          state.fields(), strict=True):
+                dst.copy_(src)
+        for _, dst in self.out.fields():
+            dst.zero_()
+
+    def store(self, state: EnvState,
+              out: Optional[engine.StepOutput] = None) -> None:
+        """Copy a step's result in, inside a captured body: the pair the
+        kernel returned is one arena copy; without ``out`` the output part
+        is left as it is."""
+        if self._whole(state, out):
+            cut = self.arena.numel() if out is not None \
+                else self.plan.state_nbytes
+            self.arena[:cut].copy_(state._arena[:cut])
+            return
+        for (_, dst), (_, src) in zip(self.state.fields(), state.fields(),
+                                      strict=True):
+            dst.copy_(src)
+        if out is not None:
+            for (_, dst), (_, src) in zip(self.out.fields(), out.fields(),
+                                          strict=True):
+                dst.copy_(src)
+
+    def clone(self) -> Tuple[EnvState, engine.StepOutput]:
+        """The pair as new tensors: on CUDA a copy of the arena, which
+        the kernel takes back as its own."""
+        if self.arena is not None:
+            arena = self.arena.clone()
+            return (_carved(_CarvedState, self.plan, arena),
+                    _carved(_CarvedOutput, self.plan, arena))
+        return (EnvState(*[t.clone() for _, t in self.state.fields()]),
+                engine.StepOutput(*[t.clone() for _, t in self.out.fields()]))

@@ -42,6 +42,7 @@ import torch
 
 from marlsnake_torch.parallel import distributed
 from marlsnake_torch.parallel.mesh import make_mesh, map_tensors
+from marlsnake_torch.utils import cuda_graph
 
 
 def run_job(job: dict, world: int, workdir: str,
@@ -74,14 +75,17 @@ def _attach_checks(trainer, mesh, calls: int) -> dict:
     that they count the env steps the trainer takes and keep, on the CPU,
     the arguments and local results of its first ``calls`` learner calls
     and what the gradient all-reduce of each of those returned. Returns
-    the dict they fill: 'env_steps' (a running count), 'args', 'local'
-    and 'reduced' (lists, one entry a call)."""
-    seen = {'env_steps': 0, 'args': [], 'local': [], 'reduced': []}
+    the dict they fill: 'env_steps' (a running count, a tracked
+    ``cuda_graph.Counter``, so that a captured rollout's replays count
+    their steps), 'args', 'local' and 'reduced' (lists, one entry a
+    call)."""
+    seen = {'env_steps': cuda_graph.track(cuda_graph.Counter('env_steps')),
+            'args': [], 'local': [], 'reduced': []}
     step_env, loss_and_grads, mean = (trainer._step_env,
                                       trainer.loss_and_grads, mesh.mean)
 
     def counted_step(*args, **kwargs):
-        seen['env_steps'] += 1
+        seen['env_steps'].launches += 1
         return step_env(*args, **kwargs)
 
     def recorded_call(*args):
@@ -117,7 +121,7 @@ def _run_learner(task: dict, mesh, trainer, init, advance, count: int):
     for i in range(count):
         args = () if task.get('draws') is None else map_tensors(
             lambda t: t.to(dev), task['draws'][i][mesh.rank])
-        steps0 = checks['env_steps'] if checks is not None else 0
+        steps0 = checks['env_steps'].launches if checks is not None else 0
         launches0 = _launches()
         window = (profile(activities=[ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if cuda else []))
@@ -139,7 +143,8 @@ def _run_learner(task: dict, mesh, trainer, init, advance, count: int):
         result['launches'].append(tuple(
             b - a for a, b in zip(launches0, _launches())))
         if checks is not None:
-            result['env_steps'].append(checks['env_steps'] - steps0)
+            result['env_steps'].append(checks['env_steps'].launches
+                                       - steps0)
     if checks is not None:
         result['record'] = {k: checks[k]
                             for k in ('args', 'local', 'reduced')}

@@ -17,10 +17,12 @@ drawn before the episode starts and read by step index, so that an
 episode that stops early leaves the generator where a full one does.
 
 A PPO update takes ``PPODraws``, drawn up front the same way: the step
-draws of every rollout step, the Gumbel noise of the action sample
-(``argmax(logits + gumbel)`` is a sample of ``softmax(logits)``, the very
-computation of JAX's ``random.categorical``) and one permutation of the
-rollout's samples for each epoch of minibatches.
+draws of every rollout step (one ``torch.rand``, ``step_draws_seq``),
+the Gumbel noise of the action sample (``argmax(logits + gumbel)`` is a
+sample of ``softmax(logits)``, the very computation of JAX's
+``random.categorical``) and one permutation of the rollout's samples for
+each epoch of minibatches. The bench's random-action rollout takes
+``rollout_draws``.
 
 The evolution trainers (``algo/neat_hybrid.py``) take ``EpisodeDraws``
 for each fitness, validation or hold-out episode (a reset and the fruit
@@ -40,7 +42,8 @@ its draws are its own.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -88,6 +91,33 @@ def step_draws(cfg: EnvConfig, num_envs: int, generator: torch.Generator,
                      _rand(spawn_draw_shape(cfg, num_envs), generator,
                            device),
                      _rand((num_envs, nf), generator, device))
+
+
+def step_draws_seq(cfg: EnvConfig, num_envs: int, steps: int,
+                   generator: torch.Generator, device) -> StepDraws:
+    """The step draws of ``steps`` steps, step axis first, from ONE
+    ``torch.rand``: each field is a contiguous run of it, so one step's
+    draws (``x[t]``) are contiguous, as the step kernel takes them."""
+    n, nf = cfg.num_snakes, cfg.resolved_num_fruits
+    shapes = [(steps, num_envs, n),
+              (steps,) + spawn_draw_shape(cfg, num_envs),
+              (steps, num_envs, nf)]
+    sizes = [math.prod(shape) for shape in shapes]
+    flat = _rand((sum(sizes),), generator, device)
+    return StepDraws(*(run.view(shape) for run, shape in zip(
+        flat.split(sizes), shapes)))
+
+
+def rollout_draws(cfg: EnvConfig, num_envs: int, steps: int,
+                  generator: torch.Generator, device
+                  ) -> Tuple[torch.Tensor, StepDraws]:
+    """Uniform random actions (T, E, N) int32 and the step draws
+    (``step_draws_seq``) of a random-action rollout of ``steps`` steps."""
+    actions = torch.randint(0, cfg.num_actions,
+                            (steps, num_envs, cfg.num_snakes),
+                            generator=generator, device=device,
+                            dtype=torch.int32)
+    return actions, step_draws_seq(cfg, num_envs, steps, generator, device)
 
 
 class TrainDraws(NamedTuple):
@@ -143,11 +173,8 @@ def _gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
 def ppo_draws(cfg: EnvConfig, num_envs: int, rollout_steps: int,
               update_epochs: int, generator: torch.Generator,
               device) -> PPODraws:
-    t, n, nf = rollout_steps, cfg.num_snakes, cfg.resolved_num_fruits
-    step = StepDraws(_rand((t, num_envs, n), generator, device),
-                     _rand((t,) + spawn_draw_shape(cfg, num_envs),
-                           generator, device),
-                     _rand((t, num_envs, nf), generator, device))
+    t, n = rollout_steps, cfg.num_snakes
+    step = step_draws_seq(cfg, num_envs, t, generator, device)
     noise = _gumbel((t, num_envs, n, cfg.num_actions), generator, device)
     samples = t * num_envs * n
     perm = torch.stack([torch.randperm(samples, generator=generator,

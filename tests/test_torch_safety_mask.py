@@ -74,6 +74,29 @@ def test_reachable_count_plain_matches_jax_and_bfs(h, w, limit):
         assert min(want) < limit <= max(want)
 
 
+@pytest.mark.parametrize('limit', [0, 7, 60])
+@pytest.mark.parametrize('where', ['row-1', 'row-h', 'col-1', 'col-w',
+                                   'row-h+5'])
+def test_reachable_count_plain_off_the_board_matches_jax(where, limit):
+    """A start off the board seeds no cell: JAX counts ``min(0, limit)``
+    and so does the plain fill, on open and blocked boards alike."""
+    h, w = 11, 9
+    rng = np.random.default_rng(limit)
+    passable = rng.random((4, h, w)) > 0.35
+    passable[1] = True                  # the whole board open
+    along = rng.integers(0, min(h, w), 4)
+    off = {'row-1': (-1, None), 'row-h': (h, None), 'col-1': (None, -1),
+           'col-w': (None, w), 'row-h+5': (h + 5, None)}[where]
+    start = np.stack([along if off[0] is None else np.full(4, off[0]),
+                      along if off[1] is None else np.full(4, off[1])],
+                     -1).astype(np.int32)
+    got = floodfill.reachable_count(_t(passable), _t(start), limit)
+    jfn = jax.jit(jax.vmap(lambda p, s: jax_reachable(p, s, limit)))
+    want = np.asarray(jfn(jnp.asarray(passable), jnp.asarray(start)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want, np.zeros(4, np.int32))
+
+
 # --- the plain mask against JAX ---------------------------------------------
 
 SHAPES = {'40x40x8': (40, 40, 8), '11x9x3': (11, 9, 3)}
