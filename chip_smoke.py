@@ -23,8 +23,15 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    20x20 from starts off the board (row -1, row 20, column -1, column 20,
    row 25: both count 0, as JAX does); safety_mask (act,
    new_dir, next_pos, head_exists) on 8 steps each at 40x40x8, at N=1
-   with a claim board, at E=1 and at 11x9x3, and on random 9-byte cells
-   at 32 snakes of 20x20 and 8 snakes of 216x216;
+   with a claim board, at E=1, at 11x9x3, at 10 and 11 snakes of 20x20
+   (on either side of the block's 32 warps), on an obs at an odd cell
+   offset into a larger tensor (its base and env stride not multiples of
+   16 bytes) and on the battle's seat 0 (E=128, N=1: a view of a 4-snake
+   obs with claims), and on random 9-byte cells at 32 snakes of 20x20, 8
+   snakes of 216x216 and 12 of 200x200 (whose planes beyond the deadly
+   ones overflow shared memory into scratch); before that, each entry's
+   registers, spills and shared memory as ptxas reports them for every
+   instance, with no spill allowed at the 20x20 instance;
 4. the main path: VectorSnakeEnv with 4096 envs of 20x20 with 4 snakes
    and the reference-width DQN (random weights from a seed, float32, TF32
    off) acting epsilon-greedily for 16 steps; the launch counter is set
@@ -227,10 +234,14 @@ phases need the NEAT phase's ``neat.pkl`` in ``d`` and PPO parameters
 
 ``python3 chip_smoke.py --masked-paths [DIR]`` times the three masked
 paths alone (``masked_paths``: ms per step and a 16-step profiler window
-of evaluate_batch, build_battle_batch and DQNEvaluator) against the
+of evaluate_batch, build_battle_batch and DQNEvaluator) and both mask
+entries at those paths' shapes (``mask_kernel_times``) against the
 marlsnake_torch package in DIR, by default this checkout's: a parent
 tree unpacked with ``git archive`` into a git-ignored directory gives
 the parent's numbers on the same card, run in turns with this tree's.
+``python3 chip_smoke.py --mask-phases`` does the same for this checkout,
+then times masked_actions built to stop after each of its phases
+(``mask_phase_times``).
 
 Exits non-zero without a result when CUDA is not available.
 """
@@ -1198,6 +1209,43 @@ def mask_rollout(cfg, num_envs: int, steps: int, seed: int, claims=0.0,
         obs, dirs, done = step.obs, out.new_dir, done | step.done
 
 
+def ptxas_summary(build_log: str) -> dict:
+    """Each kernel instance's registers, stack, spills and static shared
+    memory from nvcc's ``-Xptxas -v`` report, by name (``masked_actions
+    _kernel<1, 1, shared>``: rows a lane, words a row, where the planes
+    beyond the deadly ones are); dynamic shared memory is the launch's.
+    Empty when the library was built before this run."""
+    import re
+    out, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r'(masked_actions_kernel|reachable_count_kernel)'
+                          r'ILi(\d+)ELi(\d+)E(Lb(\d)E)?', m.group(1))
+            name = None if k is None else (
+                f'{k.group(1)}<{k.group(2)}, {k.group(3)}'
+                + ('' if k.group(4) is None
+                   else ', scratch' if k.group(5) == '1' else ', shared')
+                + '>')
+            if name:
+                out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r'Used (\d+) registers', line)
+        if m:
+            smem = re.search(r'(\d+) bytes smem', line)
+            out[name].update(registers=int(m.group(1)),
+                             static_smem=int(smem.group(1)) if smem else 0)
+    return out
+
+
 def mask_parity_phase(smi: str) -> dict:
     """Both entries of csrc/safety_mask.cu against their plain versions on
     the card, tolerance 0. reachable_count at the evaluator's 3,072 and the
@@ -1206,9 +1254,14 @@ def mask_parity_phase(smi: str) -> dict:
     and 0.95 (random starts, some on blocked cells). safety_mask on 8
     steps of envs driven by its own choices at 40x40x8 (64 envs), at N=1
     with a claim board (128 envs of 20x20, one snake each), at E=1
-    (20x20x4) and at 11x9x3, then once on random cells at the widest
-    instances: 32 snakes of 20x20 and 8 of 216x216 (over 48 KB of shared
-    memory a block)."""
+    (20x20x4), at 11x9x3 and at 10 and 11 snakes of 20x20 (30 and 32
+    warps a block); on 4 steps of the evaluator's 20x20x4 obs copied to
+    an odd cell offset into a larger tensor (base and snake stride 8
+    bytes past a multiple of 16) and of the battle's seat 0 (a view of
+    the first snake of 128 envs of 20x20x4, with a claim board); then
+    once on random cells at the widest instances: 32 snakes of 20x20, 8
+    of 216x216 (over 48 KB of shared memory a block) and 12 of 200x200
+    (the planes beyond the deadly ones in scratch)."""
     from marlsnake_torch.core.types import EnvConfig
     from marlsnake_torch.ops import safety_mask as SM
     from marlsnake_torch.ops.floodfill import (reachable_count,
@@ -1271,7 +1324,13 @@ def mask_parity_phase(smi: str) -> dict:
              ('E=1, 20x20x4', EnvConfig(height=20, width=20, num_snakes=4,
                                         snake_length=5), 1, 0.0),
              ('11x9x3, 64 envs', EnvConfig(height=11, width=9, num_snakes=3,
-                                           snake_length=3), 64, 0.0))
+                                           snake_length=3), 64, 0.0),
+             ('N=10, 64 envs of 20x20', EnvConfig(
+                 height=20, width=20, num_snakes=10, snake_length=3), 64,
+              0.0),
+             ('N=11, 64 envs of 20x20', EnvConfig(
+                 height=20, width=20, num_snakes=11, snake_length=3), 64,
+              0.02))
     steps, mask_err = 0, 0.0
     for i, (name, cfg, num_envs, claims) in enumerate(cases):
         for inputs in mask_rollout(cfg, num_envs, 8, seed=61 + i,
@@ -1280,10 +1339,36 @@ def mask_parity_phase(smi: str) -> dict:
                 SM.safety_mask(*inputs), SM.masked_actions_plain(*inputs),
                 f'safety_mask {name}'))
             steps += 1
-    # the widest instances: 32 snakes an env, and 216x216 boards whose
-    # block needs more than 48 KB of shared memory; random channel values
-    # (0-2) in 9-byte cells, so the cells are read a byte at a time
-    soups = ((16, 32, 20, 20), (4, 8, 216, 216))
+    # layouts: the obs at an odd cell offset into a larger tensor, and the
+    # battle's seat 0 (env stride 4 snakes, snake stride unused, claims)
+    layouts = ('odd cell offset, 256 envs of 20x20x4',
+               'seat 0 of 128 envs of 20x20x4 with claims')
+    cfg = EnvConfig(height=20, width=20, num_snakes=4, snake_length=5)
+    for inputs in mask_rollout(cfg, 256, 4, seed=71):
+        obs, q, dirs, active, _ = inputs
+        e, n, h, w, c = obs.shape
+        big = torch.zeros((e, n, h * w + 1, c), dtype=torch.uint8,
+                          device='cuda')
+        big[:, :, 1:] = obs.reshape(e, n, h * w, c)
+        odd = big[:, :, 1:].view(e, n, h, w, c)
+        assert odd.data_ptr() % 16 == 8 and odd.stride(1) % 16 == 8
+        mask_err = max(mask_err, same_mask(
+            SM.safety_mask(odd, q, dirs, active),
+            SM.masked_actions_plain(obs, q, dirs, active),
+            f'safety_mask {layouts[0]}'))
+        steps += 1
+    for inputs in mask_rollout(cfg, 128, 4, seed=72, claims=0.05):
+        obs, q, dirs, active, board = inputs
+        seat0 = (obs[:, :1], q[:, :1], dirs[:, :1], active[:, :1], board)
+        mask_err = max(mask_err, same_mask(
+            SM.safety_mask(*seat0), SM.masked_actions_plain(*seat0),
+            f'safety_mask {layouts[1]}'))
+        steps += 1
+    # the widest instances: 32 snakes an env, 216x216 boards whose block
+    # needs more than 48 KB of shared memory, and 12 snakes of 200x200
+    # whose planes beyond the deadly ones go to scratch; random channel
+    # values (0-2) in 9-byte cells, so the cells are read a byte at a time
+    soups = ((16, 32, 20, 20), (4, 8, 216, 216), (2, 12, 200, 200))
     for e, n, h, w in soups:
         obs = torch.randint(0, 3, (e, n, h, w, 9), generator=gen,
                             device='cuda', dtype=torch.uint8)
@@ -1304,6 +1389,7 @@ def mask_parity_phase(smi: str) -> dict:
         steps += 1
     log(f'safety_mask EQUAL to the plain version (act, new_dir, next_pos, '
         f'head_exists) on {steps} steps: ' + '; '.join(c[0] for c in cases)
+        + '; ' + '; '.join(layouts)
         + '; ' + '; '.join(f'{e} envs x {n} snakes of {h}x{w}x9 random '
                            f'cells' for e, n, h, w in soups))
     return {'reachable_count_boards': fills,
@@ -3092,10 +3178,99 @@ def masked_paths(smi: str, steps: int = 128) -> dict:
     return result
 
 
-def masked_paths_main(root: str) -> int:
-    """``python3 chip_smoke.py --masked-paths [DIR]``: ``masked_paths``
-    against the marlsnake_torch package in DIR (default: this checkout),
-    one JSON line."""
+def mask_kernel_times(smi: str) -> dict:
+    """Both safety-mask entries timed (``time_mask``, ``time_fill``) at the
+    shapes of the masked paths, on the 8th step of envs driven by the
+    mask's own choices (``mask_rollout``), through the public entries that
+    a parent tree's package has too: the evaluator's E=256 x N=4 and
+    DQNEvaluator's E=1 x N=4 of 20x20 (the DQN trainer's env config), the
+    battle's seat 0 (E=128, N=1: a view of the first snake of 20x20x4,
+    length 5), and the fill of the first and the last's post-move boards
+    (3,072 and 384)."""
+    from marlsnake_torch.algo.dqn_trainer import DQNConfig
+    from marlsnake_torch.core.types import EnvConfig
+
+    def eighth(cfg, num_envs, seed):
+        return next(inputs for t, inputs in enumerate(
+            mask_rollout(cfg, num_envs, 8, seed=seed)) if t == 7)
+
+    cfg = DQNConfig().env_config()
+    evaluator = eighth(cfg, 256, 81)
+    dqn_evaluator = eighth(cfg, 1, 82)
+    obs, q, dirs, active, _ = eighth(
+        EnvConfig(height=20, width=20, num_snakes=4, snake_length=5), 128,
+        83)
+    seat0 = (obs[:, :1], q[:, :1], dirs[:, :1], active[:, :1], None)
+    rows = {}
+    for name, inputs in (('E=256, N=4', evaluator), ('E=128, N=1', seat0),
+                         ('E=1, N=4', dqn_evaluator)):
+        rows[f'masked_actions {name}'] = time_mask(
+            f'safety_mask at {name}, 20x20', inputs, 60, smi)
+    for inputs in (evaluator, seat0):
+        _, boards, starts, _ = plain_fill_inputs(inputs, 60)
+        rows[f'reachable_count {boards.shape[0]} boards'] = time_fill(
+            f'reachable_count at {boards.shape[0]} boards of 20x20, limit 60',
+            boards, starts, 60, smi)
+    return rows
+
+
+def mask_phase_times(smi: str) -> dict:
+    """Where masked_actions' time goes: its device time (torch.profiler)
+    when built to return after its first k phases (``-DMARLSNAKE_MASK_PHASES
+    =k``: 0 the launch alone, 1 the load and scan, 2 the vetoes, 3 the
+    fills, 4 the claims and outputs, the whole kernel) at the evaluator's
+    E=256 x N=4 and DQNEvaluator's E=1 x N=4 of 20x20, on the inputs of
+    ``mask_kernel_times``. The cut copies are built, one nvcc each, all at
+    once, into build/mask_phases/."""
+    from marlsnake_torch.algo.dqn_trainer import DQNConfig
+    from marlsnake_torch.ops import cuda_build, mask_kernel
+    from marlsnake_torch.ops import safety_mask as SM
+
+    out = os.path.join(os.path.dirname(cuda_build.BUILD_DIR), 'mask_phases')
+    os.makedirs(out, exist_ok=True)
+    procs = []
+    for k in range(4):
+        path = os.path.join(out, f'safety_mask_phases{k}.so')
+        procs.append((path, subprocess.Popen(
+            [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS,
+             f'-DMARLSNAKE_MASK_PHASES={k}', '-o', path, mask_kernel.SOURCE],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = []
+    for path, proc in procs:
+        log_text = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f'nvcc failed for {path}:\n{log_text}')
+        libs.append(mask_kernel.bind_library(path))
+    libs.append(mask_kernel.load_library())
+    cfg = DQNConfig().env_config()
+    shapes = {}
+    for name, num_envs, seed in (('E=256, N=4', 256, 81), ('E=1, N=4', 1, 82)):
+        shapes[name] = next(inputs for t, inputs in enumerate(
+            mask_rollout(cfg, num_envs, 8, seed=seed)) if t == 7)
+    phases = ('launch', 'load and scan', 'vetoes', 'fills',
+              'claims and outputs')
+    real = mask_kernel.load_library
+    result = {}
+    try:
+        for name, inputs in shapes.items():
+            row = {}
+            for phase, lib in zip(phases, libs):
+                mask_kernel.load_library = lambda lib=lib: lib
+                row[phase] = kernel_device_us(
+                    lambda: SM.safety_mask(*inputs), MASK_KERNEL_NAME, 100)
+            result[name] = row
+            log(f'masked_actions at {name}, 20x20, device us up to the end '
+                f'of each phase: {json.dumps(row)} [{smi}]')
+    finally:
+        mask_kernel.load_library = real
+    return result
+
+
+def masked_paths_main(root: str, phases: bool = False) -> int:
+    """``python3 chip_smoke.py --masked-paths [DIR]``: ``masked_paths`` and
+    ``mask_kernel_times`` against the marlsnake_torch package in DIR
+    (default: this checkout), one JSON line; ``--mask-phases``: then
+    ``mask_phase_times`` of this checkout's kernel."""
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 2
@@ -3109,8 +3284,12 @@ def masked_paths_main(root: str) -> int:
     package = os.path.dirname(os.path.abspath(marlsnake_torch.__file__))
     log(f'package: {package}')
     result = masked_paths(smi)
-    log(json.dumps({'masked_paths': result, 'package': package,
-                    'device': smi}))
+    kernels = mask_kernel_times(smi)
+    log(json.dumps({'masked_paths': result, 'mask_kernels': kernels,
+                    'package': package, 'device': smi}))
+    if phases:
+        log(json.dumps({'mask_phases': mask_phase_times(smi),
+                        'device': smi}))
     return 0
 
 
@@ -3152,10 +3331,23 @@ def main() -> int:
         f'{", ".join(os.path.relpath(p) for p, _ in built)}')
     for line in built[0][1].splitlines():
         log(f'  nvcc: {line}')
-    # the safety mask's 32 instances: registers, stack and spills
-    for line in built[1][1].splitlines():
-        if 'Compiling entry' in line or 'Used' in line or 'spill' in line:
-            log(f'  nvcc: {line.strip()}')
+    # the safety mask's 48 instances: registers, stack, spills, smem
+    ptxas = ptxas_summary(built[1][1])
+    for name, info in ptxas.items():
+        log(f'  ptxas {name}: {json.dumps(info)}')
+    # the instances a 20x20 board runs (its planes all fit shared memory)
+    for name in ('masked_actions_kernel<1, 1, shared>',
+                 'reachable_count_kernel<1, 1>'):
+        if not ptxas:
+            log('  ptxas: the library was built before, no report')
+            break
+        if ptxas[name]['spill_stores'] or ptxas[name]['spill_loads']:
+            raise AssertionError(f'{name} (20x20) spills: {ptxas[name]}')
+    log('  dynamic shared memory of a masked_actions block: ' + ', '.join(
+        f'{n} snakes of {h}x{w} {mask_kernel.smem_per_env(n, h, w)} B + '
+        f'{mask_kernel.extra_planes_bytes(n, h, w)} B of other planes'
+        for n, h, w in ((4, 20, 20), (1, 20, 20), (8, 40, 40)))
+        + '; reachable_count uses none')
 
     # --- 3. kernel against the plain version ---
     small = dict(height=10, width=10, num_snakes=2, snake_length=3)
@@ -3829,4 +4021,7 @@ if __name__ == '__main__':
         sys.exit(masked_paths_main(
             sys.argv[2] if len(sys.argv) > 2
             else os.path.dirname(os.path.abspath(__file__))))
+    if sys.argv[1:2] == ['--mask-phases']:
+        sys.exit(masked_paths_main(
+            os.path.dirname(os.path.abspath(__file__)), phases=True))
     sys.exit(main())

@@ -199,12 +199,15 @@ def huber_loss(pred: torch.Tensor, target: torch.Tensor,
     return 0.5 * quadratic ** 2 + delta * (abs_err - quadratic)
 
 
-def mean_of(x: torch.Tensor) -> torch.Tensor:
-    """The mean as the JAX trainer's compiled ``jnp.mean`` gives it: XLA
-    turns the division of the sum by the count into a product with the
-    count's float32 reciprocal. ``Tensor.mean`` divides, and differs in
-    the last bit where the count is no power of two."""
-    return x.sum() * (1.0 / x.numel())
+def mean_of(x: torch.Tensor, dim: Optional[int] = None) -> torch.Tensor:
+    """The mean (over ``dim``, or of every element) as the JAX trainers'
+    compiled ``jnp.mean`` gives it: XLA turns the division of the sum by
+    the count into a product with the count's float32 reciprocal.
+    ``Tensor.mean`` divides, and differs in the last bit where the count
+    is no power of two."""
+    if dim is None:
+        return x.sum() * (1.0 / x.numel())
+    return x.sum(dim) * (1.0 / x.shape[dim])
 
 
 def chunk_steps(max_steps: int, update_every: int, most: int = 8) -> int:

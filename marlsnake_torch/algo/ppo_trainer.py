@@ -50,6 +50,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from marlsnake_torch.algo import optim
+from marlsnake_torch.algo.dqn_trainer import mean_of
 from marlsnake_torch.core.state import EnvState
 from marlsnake_torch.core.types import EnvConfig
 from marlsnake_torch.device import resolve_device
@@ -349,7 +350,7 @@ class PPOTrainer:
             rew = torch.where(valid, out.reward, 0.0)
             ep_acc = ep_acc + rew
             ep_done = out.done_all                        # (E,)
-            fin_sum = fin_sum + torch.where(ep_done, ep_acc.mean(-1),
+            fin_sum = fin_sum + torch.where(ep_done, mean_of(ep_acc, -1),
                                             0.0).sum()
             ended = ep_done.sum(dtype=torch.int32)
             fin_cnt = fin_cnt + ended
@@ -475,7 +476,7 @@ class PPOTrainer:
                 params, opt_state = self.apply_gradients(params, opt_state,
                                                          grads)
                 auxs.append(aux)
-        aux = torch.stack(auxs).mean(0)
+        aux = mean_of(torch.stack(auxs), 0)
         traj = self.trajectory
         rew_sum = (traj.reward * traj.valid).sum()
         valid_sum = traj.valid.sum(dtype=torch.int32)

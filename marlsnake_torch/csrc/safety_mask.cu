@@ -25,16 +25,17 @@
 // length after the move; that is min(|region|, min(limit, need)) < need, so
 // the mask's fills stop at the smaller cap: a few rounds for a short snake.
 //
-// What bounds them on an H100: bytes, and at the main path's sizes latency.
-// masked_actions reads each snake's obs once (at the evaluator's 256 envs x
-// 4 snakes of 20x20x8, 3.3 MB: ~1 us at 3.35 TB/s) and writes a few bytes a
-// snake; its integer work (~16 operations a cell to scan the obs, ~9 a
-// board word a round of fill) takes about half that at the int32 rate (64
-// a clock on each SM, ~16.7 T/s). The standalone fill reads one byte a cell
-// and does ~9 operations a board word a round, fewer than its bytes take
-// on the boards the mask builds (a few rounds each; more on open boards and
-// wide ones). Both run a few us, latency-bound: the point of one launch is
-// to replace the plain versions' ~578 small launches a step.
+// What bounds them on an H100: latency. masked_actions reads each snake's
+// obs once (at the evaluator's 256 envs x 4 snakes of 20x20x8, 3.3 MB: ~1 us
+// at 3.35 TB/s) and writes a few bytes a snake; its integer work (~16
+// operations a cell to scan the obs, ~9 a board word a round of fill) takes
+// about half that at the int32 rate (64 a clock on each SM, ~16.7 T/s). The
+// standalone fill reads one byte a cell and does ~9 operations a board word
+// a round. Both run a few us: one env takes about as long as 256, so the
+// time is the chain of dependent steps in one block (a launch, one trip to
+// device memory, the instructions of the scan, three barriers, the fills,
+// the claims), and the design keeps it to one trip to device memory, then
+// shared memory and registers.
 //
 // Design.
 // - A board is held by one warp as bit rows of 32-bit words: bit b of word k
@@ -45,25 +46,48 @@
 //   shifts with the carries of the row's neighbouring words, the words of the
 //   rows above and below (in registers, or one __shfl_up_sync or
 //   __shfl_down_sync at a lane's first and last row), an AND with the
-//   passable word and an OR. The count is __popc and __reduce_add_sync. The
-//   fill uses no shared memory.
-// - reachable_count: one warp a board, 8 boards a block.
-// - masked_actions: one block an env, min(3N, 8) warps.
-//   (1) Warp w scans the obs of snakes w, w + 8, ...: each lane reads its
-//   rows' 8-byte cells into deadly bit rows (channels 0, 2, 3, 4, 6, 7) and
-//   finds the head and the tail as the first maximum of their planes (one
-//   __reduce_max_sync of value << 24 | (2^24 - 1 - index)) and the length.
-//   The deadly rows with the old head set go to shared memory. Lane 0 then
-//   infers an unknown direction, and computes the three moves' targets and
-//   every veto except the fill and the claims.
-//   (2) Warp w takes the (snake, move) boards w, w + 8, ... not vetoed yet:
-//   the post-move board from shared memory (the tail cleared unless the move
-//   eats, the target cleared), filled from the clamped target.
-//   (3) Thread 0 walks the snakes in order: the claims (the initial claim
-//   board, then the cells claimed so far, a list of at most 32), the argmax
-//   with a strict > from move 0 (the first maximum, as torch.argmax and
-//   jnp.argmax take it; a NaN counts as the maximum, as in torch), and the
-//   outputs.
+//   passable word and an OR. The count is __popc and __reduce_add_sync.
+// - reachable_count: one warp a board, 8 boards a block. Lane l reads its
+//   rows' bytes, 4 a load where the rows are 4-byte aligned (a 20-byte row
+//   is 5 loads, all out before the first use; the start goes out first),
+//   turns each load into 4 bits with one multiply and fills.
+// - masked_actions: one block an env, min(3N, 32) warps for boards up to
+//   32 x 64 and 64 x 32 (fewer on wider ones, whose fills need more
+//   registers), and one more for the claim board where there is one.
+//   (1) Load: the env's obs is read once. A unit is 32 cells of a snake in
+//   row-major order, lane l reading cell 32u + l as one 8-byte load (eight
+//   single bytes where the cells or the strides are not 8-byte aligned), so
+//   a unit is one run of addresses; the warps of a snake (three, two or
+//   one, as many as fit) split its units, and a lane issues up to 8 loads
+//   before the first use. Each unit becomes, by __ballot_sync, a word of
+//   each of the snake's planes in shared memory, in the same row-major
+//   order: deadly (channels 0, 2, 3, 4, 6, 7), other head (2), fruit (1)
+//   and, for a snake whose direction is unknown, own body or tail (6, 7);
+//   the channels are tested 4 at a time (the bytes of a 32-bit half of the
+//   cell equal to 1). The lanes keep the first maximum of the head and the
+//   tail plane (the largest value << 24 | (2^24 - 1 - index)), the length
+//   and whether a head and a tail are there, and each warp leaves them in
+//   the snake's record. The same pass loads q, the directions and the
+//   active flags, and the claim warp turns the claim board into bit rows
+//   as reachable_count reads a board.
+//   (2) Vetoes: thread 3s + m takes move m of snake s, from shared memory
+//   only: the head and the tail from the warps' keys, an unknown direction
+//   from the own plane, the target, and the deadly, head-to-head and fruit
+//   bits around it.
+//   (3) Fills: warp w takes the (snake, move) boards w, w + warps, ... not
+//   vetoed yet: the post-move board's rows from the deadly plane (the old
+//   head set, the tail cleared unless the move eats, the target cleared),
+//   filled from the clamped target.
+//   (4) Claims: lane s of warp 0 takes snake s. In snake order, lane t takes
+//   its best move left (the argmax with a strict > from move 0: the first
+//   maximum, as torch.argmax and jnp.argmax take it; a NaN counts as the
+//   maximum, as in torch) and hands the cell it claims to the later lanes,
+//   which veto their moves onto that cell or onto a cell of the claim
+//   board; then each lane writes its snake's outputs.
+//   A block needs 112 bytes and a deadly plane (H x WPR words) a snake in
+//   shared memory (what the wrapper checks); the other planes go there too
+//   where they fit, else to scratch in device memory that the wrapper
+//   allocates.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -71,10 +95,23 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = 8;              // warps a block, both entries
+constexpr int kFillWarps = 8;          // reachable_count: boards a block
+constexpr int kBatch = 8;              // masked_actions: loads in flight
 constexpr int kMaxSnakes = 32;
 constexpr int kSmemDefault = 48 * 1024;
 constexpr float kNegInf = -__builtin_huge_valf();
+
+// A build flag for measurement only (chip_smoke.py --mask-phases):
+// masked_actions returns after its first MARLSNAKE_MASK_PHASES phases.
+#ifndef MARLSNAKE_MASK_PHASES
+#define MARLSNAKE_MASK_PHASES 4
+#endif
+
+// masked_actions' warps a block, by the board words a lane holds: all 32
+// where the fill's registers fit in 64 a thread, fewer where they need more
+__host__ __device__ constexpr int max_warps(int words_a_lane) {
+  return words_a_lane <= 4 ? 32 : words_a_lane <= 16 ? 16 : 8;
+}
 
 // obs channels (core/types.py)
 constexpr int CH_WALL = 0, CH_FRUIT = 1, CH_OTHER_HEAD = 2, CH_OTHER_BODY = 3,
@@ -145,32 +182,59 @@ __device__ int flood_count(const uint32_t (&pass)[RPL][WPR], int sy, int sx,
 // ---------------------------------------------------------------------------
 // reachable_count
 
+// The 0/1 bytes of x as bits 0-3 (byte i to bit i): each byte's bit lands
+// in the top byte of the product, with no carry from the bytes below.
+__device__ __forceinline__ uint32_t byte_bits(uint32_t x) {
+  return ((x & 0x01010101u) * 0x01020408u) >> 24;
+}
+
+// Lane `lane`'s rows of an h x w board of 0/1 bytes as bit rows (rows and
+// columns beyond the board 0): 4 bytes a load where vec4 (the board's rows
+// are 4-byte aligned), else 1; all of a word's loads go out before the
+// first use.
 template <int RPL, int WPR>
-__global__ void __launch_bounds__(kWarps * 32)
-reachable_count_kernel(const uint8_t* __restrict__ passable,
-                       const int32_t* __restrict__ start, int M, int H, int W,
-                       int limit, int32_t* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (b >= M) return;   // the whole warp
-  const uint8_t* board = passable + static_cast<size_t>(b) * H * W;
-  uint32_t pass[RPL][WPR];
+__device__ __forceinline__ void board_rows(const uint8_t* board, int h, int w,
+                                           bool vec4, int lane,
+                                           uint32_t (&out)[RPL][WPR]) {
 #pragma unroll
   for (int j = 0; j < RPL; ++j) {
     const int r = lane * RPL + j;
+    const uint8_t* row = board + r * w;
 #pragma unroll
     for (int k = 0; k < WPR; ++k) {
       uint32_t word = 0u;
-      if (r < H) {
-        const int x1 = min(W, 32 * k + 32);
-        for (int x = 32 * k; x < x1; ++x) {
-          word |= static_cast<uint32_t>(board[r * W + x] != 0) << (x & 31);
+      if (vec4) {
+        uint32_t v[8];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const int x = 32 * k + 4 * t;
+          v[t] = r < h && x < w
+                     ? *reinterpret_cast<const uint32_t*>(row + x) : 0u;
+        }
+#pragma unroll
+        for (int t = 0; t < 8; ++t) word |= byte_bits(v[t]) << (4 * t);
+      } else {
+        for (int x = 32 * k; r < h && x < min(w, 32 * k + 32); ++x) {
+          word |= static_cast<uint32_t>(row[x] != 0) << (x & 31);
         }
       }
-      pass[j][k] = word;
+      out[j][k] = word;
     }
   }
-  const int sy = start[2 * b], sx = start[2 * b + 1];
+}
+
+template <int RPL, int WPR>
+__global__ void __launch_bounds__(kFillWarps * 32)
+reachable_count_kernel(const uint8_t* __restrict__ passable,
+                       const int32_t* __restrict__ start, int M, int H, int W,
+                       int limit, int vec4, int32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kFillWarps + (threadIdx.x >> 5);
+  if (b >= M) return;   // the whole warp
+  const int sy = start[2 * b], sx = start[2 * b + 1];   // out first
+  uint32_t pass[RPL][WPR];
+  board_rows<RPL, WPR>(passable + static_cast<size_t>(b) * H * W, H, W,
+                       vec4 != 0, lane, pass);
   int count;
   if (sy < 0 || sy >= H || sx < 0 || sx >= W) {
     count = min(0, limit);   // no start cell on the board (as in JAX)
@@ -195,6 +259,9 @@ struct MaskArgs {
   int32_t* new_dir;          // (E, N, 2) int32
   int32_t* next_pos;         // (E, N, 2) int32: head + the chosen move
   uint8_t* head_exists;      // (E, N) bool
+  uint32_t* scratch;         // (E, 3N + 1, H, WPR) words for the planes
+                             // beyond the deadly ones, or null: in shared
+                             // memory
   int64_t s_env;             // obs strides in bytes
   int64_t s_snake;
   int E;
@@ -208,190 +275,308 @@ struct MaskArgs {
 
 namespace {
 
-// One snake's scan and vetoes, in shared memory.
+// One snake's record in shared memory, 112 bytes (the size the wrapper's
+// shared-memory check counts). Written in (1) by the snake's warps (a slot
+// each) and thread s, in (2) by threads 3s..3s+2, dead in (3) by the warp of
+// the move's fill.
 struct SnakeInfo {
-  int head_y, head_x, tail_y, tail_x;
-  int head_exists, tail_exists;
+  int head_key[3];           // (1): each warp's largest head key, unsigned
+  int tail_key[3];           //      and tail key
+  int cells[3];              //      own cells | kSawHead | kSawTail
+  int q[3];                  //      Q-values, float bits
+  int dir[2];                //      the direction handed in
+  int active;
+  int head_y, head_x;        // (2)
+  int tail;                  //      tail cell, y * W + x
   int len;
-  int my[3], mx[3];          // the moves: straight, left, right
-  int ty[3], tx[3];          // targets, clamped to the board
-  int inb[3];                // the target is on the board
-  int eat[3];                // fruit at the clamped target
-  int dead[3];               // vetoed, claims aside
+  int exists;                //      kSawHead | kSawTail
+  int dy, dx;                //      the direction the moves turn from
+  int target[3];             //      clamped target, y << 16 | x
+  int flags[3];              //      kInBoard | kEats | kDead
+};
+
+constexpr int kSawHead = 1 << 29, kSawTail = 1 << 30;
+constexpr int kInBoard = 1, kEats = 2, kDead = 4;
+
+// Bit 7 of byte i of a cell's word (channels 0-3, or 4-7)
+constexpr uint32_t kByte0 = 0x80u, kByte1 = 0x8000u, kByte2 = 0x800000u,
+                   kByte3 = 0x80000000u;
+
+// The env's planes, `size` words apart. A snake's plane is the board's cells
+// in row-major order, 32 a word (bit b of word u is cell 32u + b); the claim
+// plane is H rows of WPR words.
+struct Planes {
+  uint32_t* deadly;          // N planes
+  uint32_t* other_head;      // N planes
+  uint32_t* fruit;           // N planes
+  uint32_t* own;             // N planes: own body or tail
+  uint32_t* claimed;         // 1 plane: claimed cells
+  int size;                  // H * WPR
+  int words;                 // words of a snake's plane: ceil(H * W / 32)
 };
 
 __device__ __forceinline__ bool in_board(int y, int x, int h, int w) {
   return y >= 0 && y < h && x >= 0 && x < w;
 }
 
-__device__ __forceinline__ uint8_t channel(const uint8_t* obs, int y, int x,
-                                           int w, int c, int ch) {
-  return obs[(static_cast<int64_t>(y) * w + x) * c + ch];
+template <int WPR>
+__device__ __forceinline__ bool bit_at(const uint32_t* plane, int y, int x) {
+  return (plane[y * WPR + (x >> 5)] >> (x & 31)) & 1u;
 }
 
-__device__ __forceinline__ bool deadly_at(const uint8_t* o, int y, int x,
-                                          int w, int c) {
-  const uint8_t* cell = o + (static_cast<int64_t>(y) * w + x) * c;
-  return cell[CH_WALL] == 1 || cell[CH_OTHER_HEAD] == 1 ||
-         cell[CH_OTHER_BODY] == 1 || cell[CH_OTHER_TAIL] == 1 ||
-         cell[CH_MY_BODY] == 1 || cell[CH_MY_TAIL] == 1;
+// Cell `cell` of a snake's plane.
+__device__ __forceinline__ bool flat_bit(const uint32_t* plane, int cell) {
+  return (plane[cell >> 5] >> (cell & 31)) & 1u;
 }
 
-// The 8 channels of cell (r, x) as bytes of one word (channel i = byte i).
-__device__ __forceinline__ uint64_t load_cell(const uint8_t* o, int r, int x,
-                                              int w, int c, bool vec8) {
-  const uint8_t* cell = o + (static_cast<int64_t>(r) * w + x) * c;
-  if (vec8) return *reinterpret_cast<const uint64_t*>(cell);
-  uint64_t v = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) v |= static_cast<uint64_t>(cell[i]) << (8 * i);
-  return v;
-}
-
-__device__ __forceinline__ unsigned byte_of(uint64_t v, int i) {
-  return static_cast<unsigned>((v >> (8 * i)) & 0xff);
-}
-
-// (1) the scan of snake s by one warp, then lane 0's vetoes.
+// Lane `lane`'s rows of the h x w board in the snake plane `flat` (`words`
+// words) as bit rows; the columns past w hold the next row's cells.
 template <int RPL, int WPR>
-__device__ void scan_snake(const MaskArgs& a, int e, int s, int lane,
-                           uint32_t* base, SnakeInfo* info) {
-  const int H = a.H, W = a.W, C = a.C;
-  const bool vec8 = a.vec8 != 0;
-  const uint8_t* o = a.obs + e * a.s_env + s * a.s_snake;
-  uint32_t deadly[RPL][WPR];
-  unsigned head_key = 0u, tail_key = 0u;
-  bool head_one = false, tail_one = false;
-  int len = 0;
+__device__ __forceinline__ void flat_rows(const uint32_t* flat, int words,
+                                          int h, int w, int lane,
+                                          uint32_t (&out)[RPL][WPR]) {
 #pragma unroll
   for (int j = 0; j < RPL; ++j) {
     const int r = lane * RPL + j;
 #pragma unroll
     for (int k = 0; k < WPR; ++k) {
+      const int f = r * w + 32 * k, u = f >> 5;
       uint32_t word = 0u;
-      if (r < H) {
-        const int x1 = min(W, 32 * k + 32);
-        for (int x = 32 * k; x < x1; ++x) {
-          const uint64_t v = load_cell(o, r, x, W, C, vec8);
-          const bool bad = byte_of(v, CH_WALL) == 1 ||
-                           byte_of(v, CH_OTHER_HEAD) == 1 ||
-                           byte_of(v, CH_OTHER_BODY) == 1 ||
-                           byte_of(v, CH_OTHER_TAIL) == 1 ||
-                           byte_of(v, CH_MY_BODY) == 1 ||
-                           byte_of(v, CH_MY_TAIL) == 1;
-          word |= static_cast<uint32_t>(bad) << (x & 31);
-          const unsigned rev = 0xffffffu - static_cast<unsigned>(r * W + x);
-          const unsigned hv = byte_of(v, CH_MY_HEAD);
-          const unsigned tv = byte_of(v, CH_MY_TAIL);
-          head_key = max(head_key, (hv << 24) | rev);
-          tail_key = max(tail_key, (tv << 24) | rev);
-          head_one |= hv == 1;
-          tail_one |= tv == 1;
-          len += (hv == 1) + (byte_of(v, CH_MY_BODY) == 1) + (tv == 1);
-        }
+      if (r < h && 32 * k < w) {
+        word = __funnelshift_r(flat[u], u + 1 < words ? flat[u + 1] : 0u,
+                               f & 31);
       }
-      deadly[j][k] = word;
+      out[j][k] = word;
     }
   }
-  head_key = __reduce_max_sync(kFull, head_key);
-  tail_key = __reduce_max_sync(kFull, tail_key);
-  const bool head_exists = __any_sync(kFull, head_one);
-  const bool tail_exists = __any_sync(kFull, tail_one);
-  len = static_cast<int>(__reduce_add_sync(kFull, static_cast<unsigned>(len)));
-  const int head = static_cast<int>(0xffffffu - (head_key & 0xffffffu));
-  const int tail = static_cast<int>(0xffffffu - (tail_key & 0xffffffu));
-  const int hy = head / W, hx = head % W;
-  // the post-move board's blocked cells: the deadly ones and the old head
-  uint32_t* rows = base + static_cast<size_t>(s) * H * WPR;
+}
+
+// Channels 0-3 (x) and 4-7 (y) of a cell, channel i in byte i % 4.
+__device__ __forceinline__ uint2 load_cell(const uint8_t* cell, bool vec8) {
+  if (vec8) return *reinterpret_cast<const uint2*>(cell);
+  uint2 v = make_uint2(0u, 0u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v.x |= static_cast<uint32_t>(cell[i]) << (8 * i);
+    v.y |= static_cast<uint32_t>(cell[4 + i]) << (8 * i);
+  }
+  return v;
+}
+
+// Bit 7 of each byte of x that is 1, every other bit 0 (exact per byte: no
+// carry crosses a byte).
+__device__ __forceinline__ uint32_t ones(uint32_t x) {
+  const uint32_t y = x ^ 0x01010101u;
+  return ~(((y & 0x7f7f7f7fu) + 0x7f7f7f7fu) | y) & 0x80808080u;
+}
+
+// Warps a snake in (1): as many as split the block's warps evenly, at most 3.
+__device__ __forceinline__ int warps_per_snake(int warps, int n) {
+  return min(3, max(1, warps / n));
+}
+
+// (1) the load. A unit is 32 cells of a snake in row-major order, lane l
+// reading cell 32u + l, so a warp's loads of a unit are one run of
+// addresses. The warps of a snake split its units in runs (warp `part` of
+// `wps` takes units part * run .. part * run + run - 1); a warp takes snakes
+// w / wps, w / wps + warps / wps, ... (more than one only where an env has
+// more snakes than the block has warps). A lane issues kBatch loads before
+// the first use. The own plane is built only for a snake whose direction
+// is unknown: only its probe reads it.
+template <int RPL, int WPR>
+__device__ __forceinline__ void load_snakes(const MaskArgs& a, int e,
+                                            int lane, int warp, int warps,
+                                            SnakeInfo* info,
+                                            const Planes& p) {
+  const int N = a.N, C = a.C, cells_a_board = a.H * a.W;
+  const bool vec8 = a.vec8 != 0;
+  const int wps = warps_per_snake(warps, N), part = warp % wps;
+  const int run = (p.words + wps - 1) / wps;
+  const int first = part * run;
+  const int n = max(0, min(run, p.words - first));
+  for (int s = warp / wps; s < N; s += warps / wps) {
+    const int i = e * N + s;
+    const bool need_own = a.dirs[2 * i] == 0 && a.dirs[2 * i + 1] == 0;
+    const uint8_t* o = a.obs + e * a.s_env + s * a.s_snake;
+    uint32_t* deadly = p.deadly + s * p.size + first;
+    uint32_t* other = p.other_head + s * p.size + first;
+    uint32_t* fruit = p.fruit + s * p.size + first;
+    uint32_t* own = p.own + s * p.size + first;
+    unsigned head_key = 0u, tail_key = 0u;
+    int cells = 0;
+    for (int j0 = 0; j0 < n; j0 += kBatch) {
+      uint2 v[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int cell = 32 * (first + j0 + i) + lane;
+        v[i] = make_uint2(0u, 0u);
+        if (j0 + i < n && cell < cells_a_board) {
+          v[i] = load_cell(o + cell * C, vec8);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int j = j0 + i;
+        if (j >= n) break;   // the same for the whole warp
+        // a lane past the board loaded zeros: no channel is 1 there
+        const uint32_t lo = ones(v[i].x), hi = ones(v[i].y);
+        const uint32_t d = __ballot_sync(
+            kFull, ((lo | hi) & (kByte0 | kByte2 | kByte3)) != 0);
+        const uint32_t oh = __ballot_sync(kFull, (lo & kByte2) != 0);
+        const uint32_t f = __ballot_sync(kFull, (lo & kByte1) != 0);
+        if (lane == 0) deadly[j] = d;
+        if (lane == 1) other[j] = oh;
+        if (lane == 2) fruit[j] = f;
+        if (need_own) {
+          const uint32_t ob =
+              __ballot_sync(kFull, (hi & (kByte2 | kByte3)) != 0);
+          if (lane == 3) own[j] = ob;
+        }
+        const int cell = 32 * (first + j) + lane;
+        if (cell < cells_a_board) {
+          // the first maximum of the head (channel 5) and the tail (7)
+          const unsigned rev = 0xffffffu - static_cast<unsigned>(cell);
+          head_key = max(head_key, ((v[i].y << 16) & 0xff000000u) | rev);
+          tail_key = max(tail_key, (v[i].y & 0xff000000u) | rev);
+          cells += __popc(hi & (kByte1 | kByte2 | kByte3));
+          if (hi & kByte1) cells |= kSawHead;
+          if (hi & kByte3) cells |= kSawTail;
+        }
+      }
+    }
+    head_key = __reduce_max_sync(kFull, head_key);
+    tail_key = __reduce_max_sync(kFull, tail_key);
+    const unsigned seen = __reduce_or_sync(
+        kFull, static_cast<unsigned>(cells & (kSawHead | kSawTail)));
+    const unsigned len = __reduce_add_sync(
+        kFull, static_cast<unsigned>(cells & (kSawHead - 1)));
+    if (lane == 0) {
+      info[s].head_key[part] = static_cast<int>(head_key);
+      info[s].tail_key[part] = static_cast<int>(tail_key);
+      info[s].cells[part] = static_cast<int>(len | seen);
+    }
+  }
+}
+
+// (1) the claim board of env e as the claim plane, by one warp.
+template <int RPL, int WPR>
+__device__ __forceinline__ void load_claims(const MaskArgs& a, int e,
+                                            int lane, const Planes& p) {
+  const int H = a.H, W = a.W;
+  const uint8_t* board = a.claims + static_cast<int64_t>(e) * H * W;
+  const bool vec4 = ((reinterpret_cast<uintptr_t>(a.claims) | W) & 3) == 0;
+  uint32_t rows[RPL][WPR];
+  board_rows<RPL, WPR>(board, H, W, vec4, lane, rows);
 #pragma unroll
   for (int j = 0; j < RPL; ++j) {
     const int r = lane * RPL + j;
-    if (r < H) {
 #pragma unroll
-      for (int k = 0; k < WPR; ++k) {
-        uint32_t word = deadly[j][k];
-        if (r == hy && (hx >> 5) == k) word |= 1u << (hx & 31);
-        rows[r * WPR + k] = word;
-      }
+    for (int k = 0; k < WPR; ++k) {
+      if (r < H) p.claimed[r * WPR + k] = rows[j][k];
     }
   }
-  if (lane != 0) return;
+}
 
+// idx / w and idx % w for idx < 2^16 and w <= 256, with inv =
+// ceil(2^24 / w): the error of inv times idx stays below 2^24, so the
+// product's top bits are the quotient.
+__device__ __forceinline__ int2 div_w(int idx, int w, unsigned inv) {
+  const int q = static_cast<int>(__umulhi(static_cast<unsigned>(idx) << 8,
+                                          inv));
+  return make_int2(q, idx - q * w);
+}
+
+// (2) the vetoes of move m of snake s, one thread, from shared memory.
+__device__ __forceinline__ void veto_move(const MaskArgs& a, int s, int m,
+                                          int wps, unsigned inv,
+                                          SnakeInfo* info, const Planes& p) {
+  const int H = a.H, W = a.W;
   SnakeInfo& in = info[s];
-  in.head_y = hy;
-  in.head_x = hx;
-  in.tail_y = tail / W;
-  in.tail_x = tail % W;
-  in.head_exists = head_exists;
-  in.tail_exists = tail_exists;
-  in.len = len;
-  int dy = a.dirs[(e * a.N + s) * 2], dx = a.dirs[(e * a.N + s) * 2 + 1];
+  unsigned head_key = 0u, tail_key = 0u;
+  int len = 0, seen = 0;
+  for (int i = 0; i < wps; ++i) {
+    head_key = max(head_key, static_cast<unsigned>(in.head_key[i]));
+    tail_key = max(tail_key, static_cast<unsigned>(in.tail_key[i]));
+    len += in.cells[i] & (kSawHead - 1);
+    seen |= in.cells[i] & (kSawHead | kSawTail);
+  }
+  const int2 head = div_w(0xffffff - static_cast<int>(head_key & 0xffffffu),
+                          W, inv);
+  const int hy = head.x, hx = head.y;
+  int dy = in.dir[0], dx = in.dir[1];
   if (dy == 0 && dx == 0) {
     // the first probe that finds an own body or tail cell next to the head
     // gives the direction; UP where none does
     dy = -1;
     dx = 0;
-    for (int p = 0; p < 4; ++p) {
-      const int by = hy - kProbeY[p], bx = hx - kProbeX[p];
-      if (in_board(by, bx, H, W) &&
-          (channel(o, by, bx, W, C, CH_MY_BODY) == 1 ||
-           channel(o, by, bx, W, C, CH_MY_TAIL) == 1)) {
-        dy = kProbeY[p];
-        dx = kProbeX[p];
+    const uint32_t* own = p.own + s * p.size;
+    for (int i = 0; i < 4; ++i) {
+      const int by = hy - kProbeY[i], bx = hx - kProbeX[i];
+      if (in_board(by, bx, H, W) && flat_bit(own, by * W + bx)) {
+        dy = kProbeY[i];
+        dx = kProbeX[i];
         break;
       }
     }
   }
-  const int my[3] = {dy, -dx, dx};
-  const int mx[3] = {dx, dy, -dy};
-  for (int m = 0; m < 3; ++m) {
-    const int y = hy + my[m], x = hx + mx[m];
-    const bool inb = in_board(y, x, H, W);
-    const int ty = min(max(y, 0), H - 1), tx = min(max(x, 0), W - 1);
-    bool dead = !inb;
-    if (inb) {
-      dead = deadly_at(o, ty, tx, W, C);
-      // head-to-head: a 4-neighbour of the target holds an enemy head
-      for (int p = 0; p < 4; ++p) {
-        const int ny = ty + kProbeY[p], nx = tx + kProbeX[p];
-        if (in_board(ny, nx, H, W) &&
-            channel(o, ny, nx, W, C, CH_OTHER_HEAD) == 1) {
-          dead = true;
-        }
-      }
+  const int my = m == 0 ? dy : m == 1 ? -dx : dx;
+  const int mx = m == 0 ? dx : m == 1 ? dy : -dy;
+  const int y = hy + my, x = hx + mx;
+  const bool inb = in_board(y, x, H, W);
+  const int ty = min(max(y, 0), H - 1), tx = min(max(x, 0), W - 1);
+  bool dead = !inb;
+  if (inb) {
+    dead = flat_bit(p.deadly + s * p.size, ty * W + tx);
+    // head-to-head: a 4-neighbour of the target holds an enemy head
+    const uint32_t* other = p.other_head + s * p.size;
+    for (int i = 0; i < 4; ++i) {
+      const int ny = ty + kProbeY[i], nx = tx + kProbeX[i];
+      if (in_board(ny, nx, H, W) && flat_bit(other, ny * W + nx)) dead = true;
     }
-    in.my[m] = my[m];
-    in.mx[m] = mx[m];
-    in.ty[m] = ty;
-    in.tx[m] = tx;
-    in.inb[m] = inb;
-    in.eat[m] = channel(o, ty, tx, W, C, CH_FRUIT) == 1;
-    in.dead[m] = dead;
+  }
+  const bool eat = flat_bit(p.fruit + s * p.size, ty * W + tx);
+  in.target[m] = ty << 16 | tx;
+  in.flags[m] = (inb ? kInBoard : 0) | (eat ? kEats : 0) | (dead ? kDead : 0);
+  if (m == 0) {
+    in.head_y = hy;
+    in.head_x = hx;
+    in.tail = 0xffffff - static_cast<int>(tail_key & 0xffffffu);
+    in.len = len;
+    in.exists = seen;
+    in.dy = dy;
+    in.dx = dx;
   }
 }
 
-// (2) the fill of move m of snake s by one warp: vetoed when the space from
+// (3) the fill of move m of snake s by one warp: vetoed when the space from
 // the target on the post-move board is less than the length after the move.
 template <int RPL, int WPR>
-__device__ void fill_move(const MaskArgs& a, int s, int m, int lane,
-                          const uint32_t* base, SnakeInfo* info) {
+__device__ __forceinline__ void fill_move(const MaskArgs& a, int s, int m,
+                                          int lane, unsigned inv,
+                                          SnakeInfo* info, const Planes& p) {
   SnakeInfo& in = info[s];
-  if (in.dead[m]) return;   // the fill cannot change a vetoed move
+  const int flags = in.flags[m];
+  if (flags & kDead) return;   // the fill cannot change a vetoed move
   const int H = a.H, W = a.W;
-  const int ty = in.ty[m], tx = in.tx[m];
-  const int need = in.len + in.eat[m];
-  const bool clear_tail = in.tail_exists && !in.eat[m];
-  const uint32_t* rows = base + static_cast<size_t>(s) * H * WPR;
+  const int ty = in.target[m] >> 16, tx = in.target[m] & 0xffff;
+  const int hy = in.head_y, hx = in.head_x;
+  const int eat = (flags & kEats) != 0;
+  const int need = in.len + eat;
+  const bool clear_tail = (in.exists & kSawTail) && !eat;
+  const int2 tail = div_w(in.tail, W, inv);
   uint32_t pass[RPL][WPR];
+  flat_rows<RPL, WPR>(p.deadly + s * p.size, p.words, H, W, lane, pass);
 #pragma unroll
   for (int j = 0; j < RPL; ++j) {
     const int r = lane * RPL + j;
 #pragma unroll
     for (int k = 0; k < WPR; ++k) {
-      uint32_t blocked = r < H ? rows[r * WPR + k] : kFull;
-      // the tail retracts unless the move eats; the target is the new head
-      if (clear_tail && r == in.tail_y && (in.tail_x >> 5) == k) {
-        blocked &= ~(1u << (in.tail_x & 31));
+      uint32_t blocked = r < H ? pass[j][k] : kFull;
+      // the old head is body now; the tail retracts unless the move eats;
+      // the target is the new head
+      if (r == hy && (hx >> 5) == k) blocked |= 1u << (hx & 31);
+      if (clear_tail && r == tail.x && (tail.y >> 5) == k) {
+        blocked &= ~(1u << (tail.y & 31));
       }
       if (r == ty && (tx >> 5) == k) blocked &= ~(1u << (tx & 31));
       pass[j][k] = ~blocked & col_mask(k, W);
@@ -399,80 +584,134 @@ __device__ void fill_move(const MaskArgs& a, int s, int m, int lane,
   }
   const int space = flood_count<RPL, WPR>(pass, ty, tx, min(a.limit, need),
                                           lane);
-  if (lane == 0 && space < need) in.dead[m] = 1;
+  if (lane == 0 && space < need) in.flags[m] = flags | kDead;
 }
 
-__device__ __forceinline__ bool claimed_before(const int* cy, const int* cx,
-                                               int n, int y, int x) {
-  for (int i = 0; i < n; ++i) {
-    if (cy[i] == y && cx[i] == x) return true;
+// (4) the claims, the argmax and the outputs by warp 0, lane s for snake s.
+// Snake by snake, lane t takes the best move left to it and hands its
+// cell to the lanes after it, which veto the moves that target that cell.
+template <int WPR>
+__device__ __forceinline__ void claim_moves(const MaskArgs& a, int e, int s,
+                                            const SnakeInfo* info,
+                                            const Planes& p) {
+  const int H = a.H, W = a.W, N = a.N;
+  const bool mine = s < N;
+  const SnakeInfo& in = info[mine ? s : 0];
+  float v[3];
+  int target[3];   // the cell a claim would veto, or -1
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    const int flags = in.flags[m], ty = in.target[m] >> 16,
+              tx = in.target[m] & 0xffff;
+    const bool open = !(flags & kDead) && (flags & kInBoard);
+    const bool dead = (flags & kDead) ||
+                      (open && a.claims && bit_at<WPR>(p.claimed, ty, tx));
+    v[m] = dead ? kNegInf : __int_as_float(in.q[m]);
+    target[m] = open ? ty * W + tx : -1;
   }
-  return false;
+  const bool head_exists = (in.exists & kSawHead) != 0;
+  const bool active = in.active != 0;
+  int act = 0;
+  for (int t = 0; t < N; ++t) {
+    int cell = -1;
+    if (s == t) {
+      float best = v[0];
+#pragma unroll
+      for (int m = 1; m < 3; ++m) {
+        if (v[m] > best || (v[m] != v[m] && best == best)) {
+          best = v[m];   // strict: a tie keeps the earlier move
+          act = m;
+        }
+      }
+      if (head_exists && active) {
+        const int y = in.head_y + (act == 0   ? in.dy
+                                   : act == 1 ? -in.dx
+                                              : in.dx);
+        const int x = in.head_x + (act == 0   ? in.dx
+                                   : act == 1 ? in.dy
+                                              : -in.dy);
+        cell = min(max(y, 0), H - 1) * W + min(max(x, 0), W - 1);
+      }
+    }
+    cell = __shfl_sync(kFull, cell, t);
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      if (cell >= 0 && target[m] == cell) v[m] = kNegInf;
+    }
+  }
+  if (!mine) return;
+  const int i = e * N + s;
+  const int my = act == 0 ? in.dy : act == 1 ? -in.dx : in.dx;
+  const int mx = act == 0 ? in.dx : act == 1 ? in.dy : -in.dy;
+  a.act[i] = active && head_exists ? act : 0;
+  a.new_dir[2 * i] = active ? (head_exists ? my : 0) : in.dir[0];
+  a.new_dir[2 * i + 1] = active ? (head_exists ? mx : 0) : in.dir[1];
+  a.next_pos[2 * i] = in.head_y + my;
+  a.next_pos[2 * i + 1] = in.head_x + mx;
+  a.head_exists[i] = static_cast<uint8_t>(head_exists);
 }
 
-template <int RPL, int WPR>
-__global__ void __launch_bounds__(kWarps * 32)
+// SCRATCH: the planes beyond the deadly ones are in a.scratch (device
+// memory), else in shared memory after the deadly planes.
+template <int RPL, int WPR, bool SCRATCH>
+__global__ void __launch_bounds__(32 * max_warps(RPL * WPR))
 masked_actions_kernel(MaskArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int N = a.N, e = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, warps = blockDim.x >> 5;
   SnakeInfo* info = reinterpret_cast<SnakeInfo*>(smem);
-  uint32_t* base = reinterpret_cast<uint32_t*>(smem + sizeof(SnakeInfo) * a.N);
-  const int e = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
+  Planes p;
+  p.size = a.H * WPR;
+  p.words = (a.H * a.W + 31) / 32;
+  p.deadly = reinterpret_cast<uint32_t*>(smem + sizeof(SnakeInfo) * N);
+  uint32_t* extra =
+      SCRATCH ? a.scratch + static_cast<size_t>(e) * (3 * N + 1) * p.size
+              : p.deadly + N * p.size;
+  p.other_head = extra;
+  p.fruit = extra + N * p.size;
+  p.own = extra + 2 * N * p.size;
+  p.claimed = extra + 3 * N * p.size;
 
-  for (int s = warp; s < a.N; s += warps) {
-    scan_snake<RPL, WPR>(a, e, s, lane, base, info);
+  if (MARLSNAKE_MASK_PHASES < 1) return;
+  // (1) the per-snake inputs go out first and reach shared memory after
+  // the boards' loads
+  int q[3], dir[2], active;
+  if (tid < N) {
+    const int i = e * N + tid;
+    for (int m = 0; m < 3; ++m) q[m] = __float_as_int(a.q[3 * i + m]);
+    dir[0] = a.dirs[2 * i];
+    dir[1] = a.dirs[2 * i + 1];
+    active = a.active[i];
+  }
+  // the last warp takes the claim board, where there is one
+  const int snake_warps = warps - (a.claims ? 1 : 0);
+  if (warp < snake_warps) {
+    load_snakes<RPL, WPR>(a, e, lane, warp, snake_warps, info, p);
+  } else {
+    load_claims<RPL, WPR>(a, e, lane, p);
+  }
+  if (tid < N) {
+    SnakeInfo& in = info[tid];
+    for (int m = 0; m < 3; ++m) in.q[m] = q[m];
+    in.dir[0] = dir[0];
+    in.dir[1] = dir[1];
+    in.active = active;
   }
   __syncthreads();
-  for (int t = warp; t < 3 * a.N; t += warps) {
-    fill_move<RPL, WPR>(a, t / 3, t % 3, lane, base, info);
+  if (MARLSNAKE_MASK_PHASES < 2) return;
+  const unsigned inv = (0x1000000u + a.W - 1) / a.W;
+  if (tid < 3 * N) {
+    veto_move(a, tid / 3, tid % 3, warps_per_snake(snake_warps, N), inv,
+              info, p);
   }
   __syncthreads();
-  if (threadIdx.x != 0) return;
-
-  const int H = a.H, W = a.W, N = a.N;
-  const uint8_t* claims =
-      a.claims ? a.claims + static_cast<int64_t>(e) * H * W : nullptr;
-  int cy[kMaxSnakes], cx[kMaxSnakes];
-  int claimed = 0;
-  for (int s = 0; s < N; ++s) {
-    const SnakeInfo& in = info[s];
-    const int i = e * N + s;
-    const float* q = a.q + i * 3;
-    int act = 0;
-    float best = 0.f;
-    for (int m = 0; m < 3; ++m) {
-      bool dead = in.dead[m];
-      if (!dead && in.inb[m]) {
-        const int y = in.ty[m], x = in.tx[m];
-        dead = (claims && claims[y * W + x]) ||
-               claimed_before(cy, cx, claimed, y, x);
-      }
-      const float v = dead ? kNegInf : q[m];
-      if (m == 0) {
-        best = v;
-      } else if (v > best || (v != v && best == best)) {
-        best = v;   // strict: a tie keeps the earlier move
-        act = m;
-      }
-    }
-    const int ny = in.head_y + in.my[act], nx = in.head_x + in.mx[act];
-    const bool active = a.active[i] != 0;
-    if (in.head_exists && active) {
-      cy[claimed] = min(max(ny, 0), H - 1);
-      cx[claimed] = min(max(nx, 0), W - 1);
-      ++claimed;
-    }
-    const int out_act = in.head_exists ? act : 0;
-    const int out_dy = in.head_exists ? in.my[act] : 0;
-    const int out_dx = in.head_exists ? in.mx[act] : 0;
-    a.act[i] = active ? out_act : 0;
-    a.new_dir[2 * i] = active ? out_dy : a.dirs[2 * i];
-    a.new_dir[2 * i + 1] = active ? out_dx : a.dirs[2 * i + 1];
-    a.next_pos[2 * i] = ny;
-    a.next_pos[2 * i + 1] = nx;
-    a.head_exists[i] = static_cast<uint8_t>(in.head_exists);
+  if (MARLSNAKE_MASK_PHASES < 3) return;
+  for (int t = warp; t < 3 * N; t += warps) {
+    fill_move<RPL, WPR>(a, t / 3, t % 3, lane, inv, info, p);
   }
+  __syncthreads();
+  if (MARLSNAKE_MASK_PHASES < 4) return;
+  if (warp == 0) claim_moves<WPR>(a, e, lane, info, p);
 }
 
 // Rows a lane and words a row of the smallest instance that holds the board.
@@ -502,6 +741,15 @@ int dispatch(int h, int w, F f) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Lets `kernel` take `bytes` of dynamic shared memory where that is more
+// than the default.
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= kSmemDefault) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
 struct LaunchReachable {
   const uint8_t* passable;
   const int32_t* start;
@@ -510,9 +758,11 @@ struct LaunchReachable {
   cudaStream_t stream;
   template <int R, int K>
   int operator()() const {
-    const int blocks = (M + kWarps - 1) / kWarps;
-    reachable_count_kernel<R, K><<<blocks, kWarps * 32, 0, stream>>>(
-        passable, start, M, H, W, limit, out);
+    const int blocks = (M + kFillWarps - 1) / kFillWarps;
+    const int vec4 =
+        reinterpret_cast<uintptr_t>(passable) % 4 == 0 && W % 4 == 0;
+    reachable_count_kernel<R, K><<<blocks, kFillWarps * 32, 0, stream>>>(
+        passable, start, M, H, W, limit, vec4, out);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -522,17 +772,21 @@ struct LaunchMask {
   cudaStream_t stream;
   template <int R, int K>
   int operator()() const {
+    return args->scratch ? launch<R, K, true>() : launch<R, K, false>();
+  }
+  template <int R, int K, bool SCRATCH>
+  int launch() const {
     const MaskArgs& a = *args;
+    const int planes = SCRATCH ? a.N : 4 * a.N + 1;
     const int bytes = static_cast<int>(sizeof(SnakeInfo) * a.N +
-                                       sizeof(uint32_t) * a.H * K * a.N);
-    if (bytes > kSmemDefault) {
-      const cudaError_t rc = cudaFuncSetAttribute(
-          masked_actions_kernel<R, K>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-      if (rc != cudaSuccess) return static_cast<int>(rc);
-    }
-    const int warps = min(3 * a.N, kWarps);
-    masked_actions_kernel<R, K><<<a.E, warps * 32, bytes, stream>>>(a);
+                                       sizeof(uint32_t) * a.H * K * planes);
+    const int rc = allow_smem(masked_actions_kernel<R, K, SCRATCH>, bytes);
+    if (rc != 0) return rc;
+    // 3N warps at most for the snakes, and one for the claim board
+    const int claims = a.claims ? 1 : 0;
+    const int warps = min(3 * a.N, max_warps(R * K) - claims) + claims;
+    masked_actions_kernel<R, K, SCRATCH><<<a.E, warps * 32, bytes, stream>>>(
+        a);
     return static_cast<int>(cudaGetLastError());
   }
 };

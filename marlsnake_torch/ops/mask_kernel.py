@@ -44,7 +44,7 @@ class _MaskArgs(ctypes.Structure):
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
             'obs', 'q', 'dirs', 'active', 'claims', 'act', 'new_dir',
-            'next_pos', 'head_exists')]
+            'next_pos', 'head_exists', 'scratch')]
         + [('s_env', ctypes.c_int64), ('s_snake', ctypes.c_int64)]
         + [(name, ctypes.c_int) for name in (
             'E', 'N', 'H', 'W', 'C', 'limit', 'vec8')])
@@ -57,7 +57,12 @@ def build_library() -> Tuple[str, str]:
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build_library()[0])
+    return bind_library(build_library()[0])
+
+
+def bind_library(path: str) -> ctypes.CDLL:
+    """The library at ``path`` with its entries' argument types set."""
+    lib = ctypes.CDLL(path)
     lib.marlsnake_reachable_count.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
@@ -77,9 +82,17 @@ def words_per_row(w: int) -> int:
 
 
 def smem_per_env(n: int, h: int, w: int) -> int:
-    """Shared memory of one env's block in ``masked_actions``: each snake's
-    record and its post-move board's blocked cells as bit rows."""
+    """Shared memory that one env's block in ``masked_actions`` needs: each
+    snake's record and its deadly plane (the blocked cells of its post-move
+    boards, a bit a cell, H x words_per_row(W) words)."""
     return n * (SNAKE_INFO_BYTES + 4 * h * words_per_row(w))
+
+
+def extra_planes_bytes(n: int, h: int, w: int) -> int:
+    """The block's other planes (each snake's other heads, fruit and own
+    body, and the env's claimed cells), in shared memory beside
+    ``smem_per_env``'s where both fit, else in scratch in device memory."""
+    return (3 * n + 1) * 4 * h * words_per_row(w)
 
 
 def check_board(h: int, w: int) -> None:
@@ -214,6 +227,11 @@ def launch_masked_actions(inp: MaskInputs, limit: int) -> MaskOut:
                   torch.empty((e, n, 2), dtype=torch.int32, device=dev),
                   torch.empty((e, n, 2), dtype=torch.int32, device=dev),
                   torch.empty((e, n), dtype=torch.bool, device=dev))
+    scratch = None
+    if smem_per_env(n, h, w) + extra_planes_bytes(n, h, w) \
+            > MAX_SMEM_PER_ENV:
+        scratch = torch.empty(e * extra_planes_bytes(n, h, w) // 4,
+                              dtype=torch.int32, device=dev)
     # a stride of an axis of size 1 is never used
     s_env = obs.stride(0) if e > 1 else 0
     s_snake = obs.stride(1) if n > 1 else 0
@@ -226,6 +244,7 @@ def launch_masked_actions(inp: MaskInputs, limit: int) -> MaskOut:
         act=out.act.data_ptr(), new_dir=out.new_dir.data_ptr(),
         next_pos=out.next_pos.data_ptr(),
         head_exists=out.head_exists.data_ptr(),
+        scratch=None if scratch is None else scratch.data_ptr(),
         s_env=s_env, s_snake=s_snake, E=e, N=n, H=h, W=w, C=c,
         limit=_limit(limit), vec8=int(vec8))
     lib = load_library()

@@ -20,14 +20,12 @@ averaged (``test_jax_default_shard_map_sums_replicated_gradients``). The
 port averages, as the trainers' ``pmean`` means to (``ROADMAP.md`` §3).
 """
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
 import torch
-import torch.nn.functional as F
 from jax.sharding import PartitionSpec as P
 
 from marlsnake_tpu.algo.dqn_trainer import DQNConfig as JConfig
@@ -35,13 +33,13 @@ from marlsnake_tpu.algo.dqn_trainer import DQNTrainer as JTrainer
 from marlsnake_tpu.parallel import dqn_dp as jax_dqn_dp_module
 from marlsnake_tpu.parallel.mesh import make_mesh as jax_mesh
 from marlsnake_torch.algo.dqn_trainer import DQNConfig, DQNTrainer
-from marlsnake_torch.models.dqn import prepare_obs
 from marlsnake_torch.models.weights import (dp_train_states_from_flax,
                                             dqn_to_flax)
 from marlsnake_torch.parallel.runner import run_job
 from test_torch_dqn_trainer import (SMALL, assert_grads_close,
                                     assert_params_close, episode_draws,
-                                    jax_loss_and_grads, numpy_state)
+                                    jax_grads_with_port_gates, numpy_state,
+                                    port_preacts)
 from test_torch_replay import assert_rings_equal
 
 torch.backends.cudnn.allow_tf32 = False
@@ -183,63 +181,6 @@ def test_two_episodes_on_two_ranks_match_jax(tmp_path, mode):
 
 # --- ReLU gates at a kink ---------------------------------------------------
 
-RELU_LAYERS = ('conv1', 'conv2', 'conv3', 'fc1', 'fc2')
-
-
-def port_preacts(tr, params, obs):
-    """The pre-activations of the port's five ReLU layers, float32 on one
-    thread, computed as ``DQN._trunk`` computes them in a rank; NHWC, by
-    flax's layer names."""
-    x = prepare_obs(tr._prep(obs), torch.float32,
-                    tr.config.assume_binary_obs).permute(0, 3, 1, 2)
-    pre = {}
-    for name in RELU_LAYERS:
-        if name == 'fc1':
-            x = x.flatten(1)
-        w, b = params[f'{name}.weight'], params[f'{name}.bias']
-        y = F.conv2d(x, w, b, padding=1) if w.dim() == 4 else F.linear(x,
-                                                                      w, b)
-        pre[name] = (y.permute(0, 2, 3, 1) if y.dim() == 4 else y).numpy()
-        x = F.relu(y)
-    return pre
-
-
-def jax_grads_with_port_gates(jtr, params, target, batch, port_pre):
-    """``jax_loss_and_grads`` with the port's ReLU gates: in the online
-    forward (the first ``net.apply``; not the target's), a unit whose JAX
-    pre-activation lies on the other side of zero from the port's takes
-    the port's value, in the forward only, so that its gate is the
-    port's. Returns (gradients, the number of such units, the largest
-    |JAX pre-activation| among them)."""
-    obs = batch[0]
-    _, inter = jtr.net.apply(params, jtr._prep(obs),
-                             capture_intermediates=True,
-                             mutable=['intermediates'])
-    flips, largest = {}, 0.0
-    for name, want in port_pre.items():
-        y = np.asarray(inter['intermediates'][name]['__call__'][0])
-        flips[name] = (want > 0) != (y > 0)
-        if flips[name].any():
-            largest = max(largest, float(np.abs(y[flips[name]]).max()))
-    applies = [0]
-
-    def interceptor(next_fun, args, kwargs, context):
-        if context.module.name is None:
-            if context.method_name == '__call__':
-                applies[0] += 1
-            return next_fun(*args, **kwargs)
-        y = next_fun(*args, **kwargs)
-        name = context.module.name
-        if applies[0] == 1 and name in flips:
-            y = y + jnp.where(flips[name], jax.lax.stop_gradient(
-                jnp.asarray(port_pre[name]) - y), 0.0)
-        return y
-
-    with nn.intercept_methods(interceptor):
-        grads = jax_loss_and_grads(jtr, params, target, batch)[1]
-    return grads, sum(int(f.sum()) for f in flips.values()), largest
-
-
 def replay_with_port_gates(jtr, tr, start, ranks, hw):
     """Every TD update of the ranks' episode again in JAX, on the
     minibatches each rank recorded: (1) at the port's parameters, JAX's
@@ -255,7 +196,7 @@ def replay_with_port_gates(jtr, tr, start, ranks, hw):
         grads = []
         for rec in recs:
             p, target, batch = rec['args'][k][:3]
-            g, n, big = jax_grads_with_port_gates(
+            _, g, n, big = jax_grads_with_port_gates(
                 jtr, dqn_to_flax(p, hw), dqn_to_flax(target, hw),
                 tuple(jnp.asarray(x.numpy()) for x in batch),
                 port_preacts(tr, p, batch[0]))

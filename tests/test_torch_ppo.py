@@ -37,6 +37,7 @@ import torch
 
 from marlsnake_tpu.algo.ppo_trainer import PPOConfig as JConfig
 from marlsnake_tpu.algo.ppo_trainer import PPOTrainer as JTrainer
+from marlsnake_torch.algo.dqn_trainer import mean_of
 from marlsnake_torch.algo.ppo_trainer import PPOConfig, PPOTrainer
 from marlsnake_torch.models.weights import (actor_critic_to_flax,
                                             ppo_train_state_from_flax)
@@ -205,6 +206,72 @@ def test_two_updates_match_jax(mode):
     for name in ('mu', 'nu'):
         assert_params_close(getattr(adam, name), dict(zip(
             ts.params, getattr(ts.opt_state, name))), 1e-3, name)
+
+
+def test_metric_means_are_xla_s_means_exactly(monkeypatch):
+    """The update's means as the JAX trainer's compiled ``jnp.mean`` gives
+    them, the sum times the count's float32 reciprocal
+    (``dqn_trainer.mean_of``), pinned with ``==``: at 3 snakes, where
+    ``Tensor.mean``'s division differs in the last bit in about a third
+    of the rows, and 3 epochs x 1 minibatch, 3 losses a metric. The
+    episode return's per-env mean over the snakes (ppo_trainer.py:204)
+    goes through the trainer on JAX's own rollout, whose returns are
+    EQUAL, so the whole metric is compared with JAX's. A time penalty
+    makes the returns other than whole numbers; a loss of -2 puts a
+    finished env's sum of returns near -6, where a division and the
+    product disagree for every other hundredth (near -3 they agree for
+    most); and the test checks that a division would have given another
+    metric in at least one update
+    (the reward per step is a sum of 48 rows, whose order differs, and
+    ``test_two_updates_match_jax`` holds it within 1e-4).
+    The four loss metrics agree with JAX's only within 1e-4 (each
+    minibatch's loss does), so their mean (ppo_trainer.py:326) is held
+    against the JAX program's mean of the port's own minibatch losses.
+    At 5 or more values a sum's order differs between XLA and torch as
+    well, and equality is out of reach there."""
+    kwargs = dict(SMALL, num_snakes=3, num_envs=2, num_minibatches=1,
+                  update_epochs=3, reward_dict=dict(
+                      fruit=1.0, kill=0.0, lose=-2.0, win=0.0, time=-0.01))
+    jtr, tr = trainers(**kwargs)
+    jts = jtr.init_state()
+    ts = ppo_train_state_from_flax(numpy_state(jts), 'cpu')
+    auxs = []
+    loss_and_grads = tr.loss_and_grads
+
+    def recorded(params, mb):
+        out = loss_and_grads(params, mb)
+        auxs.append(out[1].numpy())
+        return out
+
+    monkeypatch.setattr(tr, 'loss_and_grads', recorded)
+    jmean = jax.jit(lambda x: x.mean(0))
+    episodes, division_differs = 0, False
+    for u in range(2):
+        acc = ts.ep_return_acc
+        draws, rec, _, _ = replay_jax_rollout(jtr, jts, tr.env_cfg)
+        jts, jm = jtr._update(jts)
+        auxs.clear()
+        ts, m = tr.update(ts, draws)
+        assert len(auxs) == 3
+        want = np.asarray(jmean(jnp.asarray(np.stack(auxs))))
+        got = np.array([float(getattr(m, name)) for name in LOSSES],
+                       np.float32)
+        np.testing.assert_array_equal(got, want, err_msg=f'update {u}')
+        for name in ('mean_episode_return', 'episodes_collected'):
+            assert float(getattr(m, name)) == float(getattr(jm, name)), \
+                (name, u)
+        # the finished episodes' returns summed with each mean taken both
+        # ways (done_mode 'all': an env ends when all its snakes are done)
+        sums = torch.zeros(2)
+        for reward, done in zip(_t(rec['reward']), _t(rec['next_done'])):
+            acc = acc + reward
+            ended = done.all(-1)[:, None]
+            sums += torch.where(ended, torch.stack(
+                [acc.mean(-1), mean_of(acc, -1)], -1), 0.0).sum(0)
+            acc = acc.masked_fill(ended, 0.0)
+        division_differs |= bool(sums[0] != sums[1])
+        episodes += int(m.episodes_collected)
+    assert episodes > 0 and division_differs
 
 
 def test_one_minibatch_loss_and_gradients_match_jax():

@@ -432,6 +432,33 @@ def test_mask_launch_path_hands_over_its_layout(stand_in, layout):
         0 if layout == 'seat0-claims' else obs.stride(1))
 
 
+@pytest.mark.parametrize('n,h,w,scratch', [
+    (3, 11, 9, False), (8, 216, 216, False), (32, 57, 256, True)],
+    ids=['11x9x3', '216x216x8', '57x256x32'])
+def test_mask_launch_path_puts_the_planes_where_they_fit(stand_in,
+                                                         monkeypatch, n, h,
+                                                         w, scratch):
+    """The kernel's deadly planes and records always take shared memory
+    (``smem_per_env``, the check); the other planes go there too where
+    they fit beside them, else the launcher hands the kernel scratch in
+    device memory. 32 snakes of 57x256 pass the check but overflow with
+    the other planes."""
+    seen = []
+
+    def record(args_ref, stream):
+        seen.append(args_ref._obj.scratch)
+        return 0
+
+    monkeypatch.setattr(stand_in, 'marlsnake_masked_actions', record)
+    args = _mask_args(e=1, n=n, h=h, w=w)
+    inp = mask_kernel.check_mask_args(**args)
+    mask_kernel.launch_masked_actions(inp, 60)
+    total = (mask_kernel.smem_per_env(n, h, w)
+             + mask_kernel.extra_planes_bytes(n, h, w))
+    assert (total > mask_kernel.MAX_SMEM_PER_ENV) == scratch
+    assert bool(seen[0]) == scratch
+
+
 def test_fill_launch_path_hands_over_its_boards(stand_in):
     rng = np.random.default_rng(3)
     passable = torch.from_numpy(rng.random((2, 5, 11, 9)) < 0.6)
