@@ -209,10 +209,26 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    graph and uncaptured (device busy, idle share, device events, graph
    and kernel launches and read-backs a step, each kernel's device time a
    launch inside the graph); each capture's seconds and pool bytes;
-18. one JSON line of kernels (every entry and variant; the auto-reset
+18. the learning-curve and battle programs (``showcase_phase``, after
+   the CLI phase): first both step entries against the plain engine at
+   the programs' shapes and configs (run_ppo's B=128, run_ppo20's B=256,
+   run_dqn's B=32 with its hold, the battle's B=128 of 20x20x4 length 3
+   with its hold; tolerance 0); then run_dqn's config (32 envs, ring 50,000, batch 256)
+   for 12 episodes through ``examples/train_showcase.py``'s program, one
+   captured chunk graph for the cold and the warm ring, EQUAL (cuDNN
+   deterministic, tolerance 0: state, ring, epsilon, rows) to the same
+   12 episodes uncaptured; 3 updates of run_ppo's config (128 envs)
+   EQUAL to the uncaptured rollout; 2 of run_ppo20's (256 envs); ms per
+   episode, step and update; ``tools/battle_batch_run.py``'s main at 128
+   envs x 512 steps of 20x20x4 (length 3) on the NEAT phase's checkpoint
+   (flax-init weights of seed 0), one step and one mask launch a loop
+   step, ms per step and a 16-step profiler window. It reads nothing
+   under ``artifacts/``;
+19. one JSON line of kernels (every entry and variant; the auto-reset
    entry's row carries the PPO numbers, the step entry's the evaluator's,
-   the evolution's, the adapters', the battles', the CLI's and the
-   data-parallel trainers', with its launches on every path;
+   the evolution's, the adapters', the battles', the CLI's, the
+   data-parallel trainers' and the programs', with its launches on every
+   path;
    masked_actions with its launches on every masked path and its times
    at E=256 x N=4, 128 x 1 and 1 x 4; reachable_count with its own path's
    launches and its times at 3,072 and 384 boards), then, as the last
@@ -307,46 +323,11 @@ def host_us(fn, blocks: int = 5, iters: int = 100) -> list:
 
 
 def profile_device(fn, iters: int) -> dict:
-    """Run ``fn()`` ``iters`` times under torch.profiler (CPU and CUDA).
-    Returns {'kernels': {name: [device us, count]}, 'busy_us', 'span_us',
-    'idle_share', 'wall_us', 'dtoh'} from the device-side events: busy is
-    their summed duration, span the time from the first start to the last
-    end (one stream, so they do not overlap), dtoh the number of
-    device-to-host copies, each of which the host waits for;
-    'graph_launches' and 'kernel_launches' count the host's
-    cudaGraphLaunch and cudaLaunchKernel calls."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels, busy, first, last = {}, 0.0, None, None
-    runtime = {'cudaGraphLaunch': 0, 'cudaLaunchKernel': 0}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            for name in runtime:
-                runtime[name] += name in e.name
-            continue
-        start, end = e.time_range.start, e.time_range.end
-        kernels.setdefault(e.name, [0.0, 0])
-        kernels[e.name][0] += end - start
-        kernels[e.name][1] += 1
-        busy += end - start
-        first = start if first is None else min(first, start)
-        last = end if last is None else max(last, end)
-    span = (last - first) if kernels else 0.0
-    return {'kernels': kernels, 'busy_us': busy, 'span_us': span,
-            'idle_share': 1.0 - busy / span if span > 0 else None,
-            'wall_us': wall_us,
-            'dtoh': sum(v[1] for k, v in kernels.items()
-                        if 'Memcpy DtoH' in k),
-            'graph_launches': runtime['cudaGraphLaunch'],
-            'kernel_launches': runtime['cudaLaunchKernel']}
+    """``marlsnake_torch.utils.profiling.device_profile``: ``iters`` calls
+    of ``fn()`` under torch.profiler, after one to warm up (imported
+    here, once the port is on the path)."""
+    from marlsnake_torch.utils.profiling import device_profile
+    return device_profile(fn, iters)
 
 
 def kernel_device_us(fn, kernel_name: str, iters: int) -> float:
@@ -1524,13 +1505,10 @@ def evaluator_phase(smi: str) -> dict:
 
 
 def window_summary(window, steps: int) -> dict:
-    """A profiler window's numbers a step."""
-    return {'busy_us_per_step': window['busy_us'] / steps,
-            'idle_share': window['idle_share'],
-            'device_events_per_step': sum(
-                v[1] for v in window['kernels'].values()) / steps,
-            'dtoh_per_step': window['dtoh'] / steps,
-            'wall_ms_per_step': window['wall_us'] / steps / 1e3}
+    """A profiler window's numbers a step
+    (``marlsnake_torch.utils.profiling.per_step``)."""
+    from marlsnake_torch.utils.profiling import per_step
+    return per_step(window, steps)
 
 
 class Stopwatch:
@@ -3089,6 +3067,248 @@ def graph_phase(smi: str) -> dict:
     return out
 
 
+def showcase_phase(smi: str, tmp: str) -> dict:
+    """The learning-curve programs (``marlsnake_torch/examples/
+    train_showcase.py``) and the battle program (``marlsnake_torch/tools/
+    battle_batch_run.py``) at their full widths, each run's launch
+    counters set to 0 before it and read after.
+
+    First both step entries against the plain engine, tolerance 0, at the
+    shapes and configs the programs give them: the auto-reset entry at
+    run_ppo's (B=128) and run_ppo20's (B=256) configs, the step entry
+    with its hold at run_dqn's (B=32) and the battle's (B=128, 20x20x4,
+    length 3).
+
+    DQN: run_dqn's config (10x10x2, 32 envs, 128 steps, batch 256, ring
+    50,000), 12 episodes chained through the program from a fresh state
+    (the ring turns warm in the first), every chunk a replay of the one
+    graph captured for all of them; then the same 12 through
+    ``train_episode_plain`` from the same state and draws. cuDNN
+    deterministic, tolerance 0: the state (parameters, target, Adam
+    state, ring, epsilon, counters) and every row EQUAL; the step entry's
+    launches equal the steps the chunks ran. PPO: 3 updates of run_ppo's
+    config (128 envs) through the program against the uncaptured rollout
+    (state, trajectories, metrics EQUAL; the auto-reset entry launched
+    once a rollout step), then 2 updates of run_ppo20's (256 envs); ms
+    per update. The battle program's ``main`` at 128 envs x 512 steps of
+    20x20 with 4 snakes of length 3, on the NEAT phase's checkpoint in
+    ``tmp`` (the flax-init DQN of seed 0, not a trained one): the step
+    entry and the mask launched once a loop step (warm-up and profiler
+    window included), no auto-reset launch; ms per step and a profiler
+    window of 16 steps."""
+    from marlsnake_torch.algo.dqn_trainer import DQNTrainer
+    from marlsnake_torch.algo.ppo_trainer import PPOTrainer
+    from marlsnake_torch.examples import train_showcase as S
+    from marlsnake_torch.ops import safety_mask as SM
+    from marlsnake_torch.ops import step_kernel
+    from marlsnake_torch.rng import ppo_draws, reset_draws, train_draws
+    from marlsnake_torch.tools import battle_batch_run as R
+    from marlsnake_torch.utils.cuda_graph import clone_tree
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    def zero_counts():
+        step_kernel.step.launches = 0
+        step_kernel.step_autoreset.launches = 0
+        SM.safety_mask.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return (step_kernel.step.launches,
+                step_kernel.step_autoreset.launches,
+                SM.safety_mask.launches)
+
+    def check_equal(got, want, what):
+        bad = first_difference(got, want, what)
+        if bad is not None:
+            raise AssertionError(f'showcase: captured against uncaptured: '
+                                 f'{bad}')
+
+    # --- both step entries against the plain engine at this phase's
+    # shapes and configs (each run's rewards, the DQN's and the battle's
+    # hold), tolerance 0 ---
+    out['max_abs_err'] = {
+        'step_autoreset run_ppo B=128': parity(
+            S.ppo_config(0).env_config(), 128, 64, seed=81),
+        'step_autoreset run_ppo20 B=256': parity(
+            S.ppo20_config(0, 2, tmp).env_config(), 256, 64, seed=82),
+        'step run_dqn B=32 hold': parity_step(
+            S.dqn_config(0, tmp).env_config(), 32, 64, seed=83, hold=True),
+        'step battle B=128 hold': parity_step(
+            R.battle_config(), 128, 64, seed=84, hold=True)}
+    if any(out['max_abs_err'].values()):
+        raise AssertionError(f'showcase parity: {out["max_abs_err"]}')
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # --- DQN: 12 episodes through the program, then uncaptured ---
+        tr = DQNTrainer(S.dqn_config(0, tmp), device='cuda')
+        cfg, ecfg = tr.config, tr.env_cfg
+        gen = torch.Generator(device='cuda')
+        gen.manual_seed(71)
+        draws = [(reset_draws(ecfg, cfg.num_envs, gen, 'cuda'),
+                  train_draws(ecfg, cfg.num_envs, cfg.max_steps_per_episode,
+                              cfg.buffer_size, tr.update_batch, gen, 'cuda'))
+                 for _ in range(12)]
+        start = tr.init_state()
+
+        def uncaptured():
+            ts = start
+            for ep, (reset, d) in enumerate(draws, 1):
+                ts, m = tr.train_episode_plain(ts, d, reset)
+                yield ep, ts, m
+
+        runs = {}
+        for name, episodes in (('graph', S.dqn_episodes(tr, start, 12,
+                                                        draws)),
+                               ('uncaptured', uncaptured())):
+            zero_counts()
+            t0 = time.perf_counter()
+            rows, run, live = [], 0, 0
+            for ep, ts, m in episodes:
+                rows.append(S.dqn_row(ep, ts, m, 0.0))
+                run += chunked_steps(tr, m)
+                live += int(m.episode_length)
+            step, auto, mask = counts()
+            seconds = time.perf_counter() - t0
+            if (step, auto, mask) != (run, 0, 0):
+                raise AssertionError(
+                    f'showcase DQN {name}: {run} steps run, launches: step '
+                    f'{step}, step_autoreset {auto}, safety_mask {mask}')
+            runs[name] = (ts, rows)
+            out[f'dqn_{name}'] = {'seconds': seconds, 'steps_run': run,
+                                  'live_steps': live,
+                                  'ms_per_live_step': 1e3 * seconds / live,
+                                  'step_launches': step}
+        check_equal(runs['graph'], runs['uncaptured'], 'DQN 12 episodes')
+        loops = tr.captured_loops()
+        if len(loops) != 1 or not loops[0].replays:
+            raise AssertionError(f'showcase DQN: {len(loops)} captured '
+                                 f'loops; the cold and the warm ring must '
+                                 f'replay one graph')
+        rows = runs['graph'][1]
+        if not all(math.isfinite(v) for r in rows for v in r.values()) \
+                or rows[-1]['loss'] <= 0.0 or int(runs['graph'][0].buffer
+                                                  .size) < cfg.min_buffer_size:
+            raise AssertionError(f'showcase DQN rows: {rows}')
+        out['dqn_rows'] = rows
+        out['dqn_capture'] = loops[0].stats()
+        log(f'showcase DQN (run_dqn config: 10x10x2, 32 envs, ring '
+            f'50,000, batch 256), 12 episodes: the graph EQUAL to the '
+            f'uncaptured chunks (cuDNN deterministic; state, ring, epsilon '
+            f'and rows), one graph for the cold and the warm ring '
+            f'({json.dumps(loops[0].stats())}); graph '
+            f'{json.dumps(out["dqn_graph"])}, uncaptured '
+            f'{json.dumps(out["dqn_uncaptured"])} [{smi}]')
+        for r in rows:
+            log(f'  showcase dqn row {json.dumps(r)}')
+        del tr, start, draws, runs
+        torch.cuda.empty_cache()
+
+        # --- PPO: 3 updates through the program, then uncaptured ---
+        tr = PPOTrainer(S.ppo_config(0, 3), device='cuda')
+        cfg = tr.config
+        gen = torch.Generator(device='cuda')
+        gen.manual_seed(72)
+        draws = [ppo_draws(tr.env_cfg, cfg.num_envs, cfg.rollout_steps,
+                           cfg.update_epochs, gen, 'cuda') for _ in range(3)]
+        start = tr.init_state()
+        runs = {}
+        for name in ('graph', 'uncaptured'):
+            zero_counts()
+            record, times, cur = [], [], start
+            t0 = time.perf_counter()
+            if name == 'graph':
+                for _, cur, m in S.ppo_updates(tr, start, 3, draws):
+                    record.append((clone_tree(tr.trajectory), m))
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+            else:
+                for d in draws:
+                    cur = tr.collect_plain(cur, d)
+                    traj = clone_tree(tr.trajectory)
+                    cur, m = tr.learn(cur, d.perm)
+                    record.append((traj, m))
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+            step, auto, mask = counts()
+            if (step, auto, mask) != (0, 3 * cfg.rollout_steps, 0):
+                raise AssertionError(
+                    f'showcase PPO {name}: launches step {step}, '
+                    f'step_autoreset {auto} for {3 * cfg.rollout_steps} '
+                    f'rollout steps, safety_mask {mask}')
+            runs[name] = (cur, record)
+            out[f'ppo_{name}'] = {
+                'ms_per_update': [1e3 * (b - a) for a, b in
+                                  zip([0.0] + times[:-1], times)],
+                'step_autoreset_launches': auto}
+        check_equal(runs['graph'], runs['uncaptured'], 'PPO 3 updates')
+        rows = [S.ppo_row(u, m, 0.0)
+                for u, (_, m) in enumerate(runs['graph'][1], 1)]
+        if not all(math.isfinite(v) for r in rows for v in r.values()):
+            raise AssertionError(f'showcase PPO rows: {rows}')
+        out['ppo_rows'] = rows
+        log(f'showcase PPO (run_ppo config: 10x10x2, 128 envs, 64 steps), '
+            f'3 updates: the rollout graph EQUAL to its uncaptured body '
+            f'(states, trajectories, metrics; cuDNN deterministic); graph '
+            f'{json.dumps(out["ppo_graph"])}, uncaptured '
+            f'{json.dumps(out["ppo_uncaptured"])}; rows {json.dumps(rows)} '
+            f'[{smi}]')
+        del tr, start, draws, runs
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    # --- PPO at 20x20x4: 2 updates through the program ---
+    tr = PPOTrainer(S.ppo20_config(0, 2, tmp), device='cuda')
+    zero_counts()
+    times, t0 = [], time.perf_counter()
+    rows = []
+    for u, _, m in S.ppo_updates(tr, tr.init_state(), 2):
+        rows.append(S.ppo_row(u, m, 0.0))
+        times.append(time.perf_counter() - t0)
+    step, auto, mask = counts()
+    if (step, auto, mask) != (0, 2 * tr.config.rollout_steps, 0) or not all(
+            math.isfinite(v) for r in rows for v in r.values()):
+        raise AssertionError(f'showcase PPO20: launches step {step}, '
+                             f'step_autoreset {auto}, safety_mask {mask}; '
+                             f'rows {rows}')
+    out['ppo20'] = {'ms_per_update': [1e3 * (b - a) for a, b in
+                                      zip([0.0] + times[:-1], times)],
+                    'step_autoreset_launches': auto, 'rows': rows}
+    log(f'showcase PPO20 (run_ppo20 config: 20x20x4, length 5, 256 envs, '
+        f'128 steps), 2 updates: {json.dumps(out["ppo20"])} [{smi}]')
+    del tr
+    torch.cuda.empty_cache()
+
+    # --- the battle program: 128 envs x 512 steps ---
+    zero_counts()
+    summary = R.main(['--hybrid', os.path.join(tmp, 'neat.pkl'),
+                      '--out', os.path.join(tmp, 'battle_run'),
+                      '--profile-steps', '16'])
+    step, auto, mask = counts()
+    # the warm-up battle's 4 steps, the battle, the window's two battles
+    want = 4 + summary['steps'] + 2 * 16
+    if (step, auto, mask) != (want, 0, want):
+        raise AssertionError(f'battle program: {summary["steps"]} steps, '
+                             f'launches: step {step}, step_autoreset {auto}, '
+                             f'safety_mask {mask} (want {want})')
+    if not all(math.isfinite(v) for v in summary['mean_reward']) \
+            or (smi and summary['card'] != smi):
+        raise AssertionError(f'battle program: {summary}')
+    with open(summary['table']) as f:
+        log(f.read())
+    out['battle'] = {k: v for k, v in summary.items() if k != 'table'}
+    out['battle']['step_launches'] = step
+    out['battle']['mask_launches'] = mask
+    log(f'showcase battle program: {json.dumps(out["battle"])} [{smi}]')
+    out['seconds'] = time.perf_counter() - t_phase
+    log(f'showcase phase: {out["seconds"]:.1f} s')
+    return out
+
+
 def masked_paths(smi: str, steps: int = 128) -> dict:
     """ms per step (host clock) and a profiler window of 16 steps (device
     events, busy us, idle share a step) of the three masked paths, through
@@ -3269,17 +3489,17 @@ def mask_phase_times(smi: str) -> dict:
 def masked_paths_main(root: str, phases: bool = False) -> int:
     """``python3 chip_smoke.py --masked-paths [DIR]``: ``masked_paths`` and
     ``mask_kernel_times`` against the marlsnake_torch package in DIR
-    (default: this checkout), one JSON line; ``--mask-phases``: then
+    (default: this checkout; the package must have the profiler window
+    and card label of ``utils/profiling.py``, ``device_profile`` and
+    ``card_label``), one JSON line; ``--mask-phases``: then
     ``mask_phase_times`` of this checkout's kernel."""
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(root))
     import marlsnake_torch
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True).stdout.strip()
+    from marlsnake_torch.utils.profiling import card_label
+    smi = card_label('cuda:0')
     log(smi)
     package = os.path.dirname(os.path.abspath(marlsnake_torch.__file__))
     log(f'package: {package}')
@@ -3311,12 +3531,10 @@ def main() -> int:
     from marlsnake_torch.ops import cuda_build, mask_kernel, step_kernel
     from marlsnake_torch.ops.obs_pack import unpack_obs
     from marlsnake_torch.rng import reset_draws, step_draws, train_draws
+    from marlsnake_torch.utils.profiling import card_label
 
     # --- 1. the card ---
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True).stdout.strip()
+    smi = card_label('cuda:0')
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f'torch {torch.__version__} cuda {torch.version.cuda} '
@@ -3863,6 +4081,10 @@ def main() -> int:
         battle = battle_phase(smi, evo_dir, trained['ppo_params'])
         torch.cuda.empty_cache()
         cli_runs = cli_phase(smi, evo_dir, trained['ppo_params'])
+        torch.cuda.empty_cache()
+        # the learning-curve programs and the battle program
+        showcase = showcase_phase(smi, evo_dir)
+    log(f'showcase: {json.dumps(showcase)}')
     torch.cuda.empty_cache()
 
     # --- 16. data-parallel training ---
@@ -3895,13 +4117,19 @@ def main() -> int:
         source='marlsnake_torch/csrc/step_autoreset.cu',
         replaces='marlsnake_tpu/ops/pallas_step.py:54',
         launches=launches,
-        max_abs_err=err,
+        max_abs_err=max([err] + [v for k, v in showcase['max_abs_err'].items()
+                                 if k.startswith('step_autoreset ')]),
         acting_forward_ms=forward_ms,
         bench_env_steps_per_s=b['value'],
         bench_idle_share=bench_idle,
         vector_adapter_launches=adapters['vector_adapter_launches'],
         max_abs_err_vector_adapter_b8=adapters[
             'step_autoreset_max_abs_err_b8'],
+        showcase_launches={
+            'run_ppo (B=128, 3 updates)': showcase['ppo_graph'][
+                'step_autoreset_launches'],
+            'run_ppo20 (B=256, 2 updates)': showcase['ppo20'][
+                'step_autoreset_launches']},
         distributed_ppo_launches={
             'world 1, NCCL (B=256)': dp['ppo_world1'][
                 'step_autoreset_launches'],
@@ -3911,6 +4139,8 @@ def main() -> int:
             'step_autoreset ppo B=128'],
         max_abs_err_scaling_b512=dp['max_abs_err'][
             'step_autoreset scaling B=512'],
+        max_abs_err_showcase={k: v for k, v in showcase['max_abs_err'].items()
+                              if k.startswith('step_autoreset ')},
         device_us_per_launch_in_windows=in_graphs(KERNEL_NAME),
         graph_bench_env_steps_per_s=graphs['bench'],
         graph_ppo=graphs['ppo'],
@@ -3923,10 +4153,15 @@ def main() -> int:
         replaces='marlsnake_tpu/core/engine.py:987 (step, an XLA path, '
                  'not a Pallas kernel)',
         launches=train_launches,
-        max_abs_err=train_step_err,      # at the training path's shape
+        # at the training path's shape and the showcase programs'
+        max_abs_err=max([train_step_err] + [
+            v for k, v in showcase['max_abs_err'].items()
+            if k.startswith('step ')]),
         max_abs_err_other_shapes=step_err,
         max_abs_err_distributed_dqn_b128=dp['max_abs_err'][
             'step dqn B=128 hold'],
+        max_abs_err_showcase={k: v for k, v in showcase['max_abs_err'].items()
+                              if k.startswith('step ')},
         num_envs=256,
         at_4096_envs={k: step_rows[4096][k] for k in (
             'device_ms', 'host_us', 'call_ms', 'plain_ms', 'bound_ms',
@@ -3957,6 +4192,9 @@ def main() -> int:
             'render_winner (B=1)': adapters['render_winner_launches'],
             'battle_batch (B=128)': battle['battle_launches'],
             'battle_arena (B=1)': battle['arena_launches'],
+            'showcase run_dqn (B=32, 12 episodes)': showcase['dqn_graph'][
+                'step_launches'],
+            'battle_batch_run (B=128)': showcase['battle']['step_launches'],
             'cli': {k: {e: v[e] for e in ('step', 'step_autoreset')}
                     for k, v in cli_runs.items()},
             'distributed_dqn world 1, NCCL (B=256)': dp['dqn_world1'][
@@ -3992,6 +4230,8 @@ def main() -> int:
             'dqn_evaluator (E=1, N=4)': adapters[
                 'dqn_evaluator_mask_launches'],
             'battle_arena (E=1, N=4)': battle['arena_mask_launches'],
+            'battle_batch_run (E=128, N=1)': showcase['battle'][
+                'mask_launches'],
             'cli': {k: v['safety_mask'] for k, v in cli_runs.items()}},
     ), dict(
         fill_rows['evaluator (3,072 boards)'],
