@@ -223,12 +223,34 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    envs x 512 steps of 20x20x4 (length 3) on the NEAT phase's checkpoint
    (flax-init weights of seed 0), one step and one mask launch a loop
    step, ms per step and a 16-step profiler window. It reads nothing
-   under ``artifacts/``;
-19. one JSON line of kernels (every entry and variant; the auto-reset
-   entry's row carries the PPO numbers, the step entry's the evaluator's,
+   under ``artifacts/`` (the flagship phase reads the trained DQN's
+   pickle there);
+19. the config matrix and evolution at the flagship scale (after the
+   showcase phase): ``bench_table_phase`` holds the auto-reset entry
+   against the plain engine over 64 steps (tolerance 0) at each config
+   of ``marlsnake_torch/bench_table.py`` it had not met (20x20_cross and
+   30x30_pillars with 8 snakes and a frame stack of 4, uint8 and packed;
+   40x40_ml2; 10x10x1; vision 5 with procedural spawn; procedural spawn
+   in both orientations) at 512 or 1,024 envs, times one short block of
+   every row of the table (launches equal the steps of every call,
+   replays included; graph pool and allocator peak), then the entry's
+   device_ms, bytes and bound at those configs at the table's widths;
+   ``flagship_phase`` holds the step entry against engine.step at the
+   evolution programs' widths (B=100, 257, 32, 128), runs
+   ``tools/neat_flagship.py`` (2 generations, pop 100, K=4, 512 steps)
+   and ``tools/es_flagship.py`` (2 generations, pop 256, 32 validation
+   episodes, a holdout of 64) over the trained DQN of
+   ``artifacts/hybrid_neat_20x20.pkl`` (the step entry once an env step,
+   tallied by width), one fitness episode of 8 genomes on the trained
+   features card against CPU, and profiler windows of 16 trained fitness
+   steps at B=100 and B=257;
+20. one JSON line of kernels (every entry and variant; the auto-reset
+   entry's row carries the PPO numbers and the config matrix's launches,
+   the step entry's the evaluator's,
    the evolution's, the adapters', the battles', the CLI's, the
-   data-parallel trainers' and the programs', with its launches on every
-   path;
+   data-parallel trainers', the programs' and the flagship programs',
+   with its launches on every
+   path; a row of the auto-reset entry at each new config of the matrix;
    masked_actions with its launches on every masked path and its times
    at E=256 x N=4, 128 x 1 and 1 x 4; reachable_count with its own path's
    launches and its times at 3,072 and 384 boards), then, as the last
@@ -666,6 +688,47 @@ def drive_steps(cfg, num_envs: int, steps: int, seed: int) -> tuple:
     return launches, int(keep.sum())
 
 
+def time_autoreset(name: str, cfg, num_envs: int, seed: int, smi: str):
+    """The auto-reset entry's times at ``num_envs`` envs of ``cfg``, on a
+    state 8 steps past a reset (so that it has dead snakes and resets).
+    Each of the 8 steps and the timed one are first held against the
+    plain engine on the same inputs at this width (tolerance 0; raises on
+    a difference). Returns (the ``kernels`` row's numbers, the (state,
+    actions, draws) timed, the max abs difference at this width)."""
+    from marlsnake_torch.core import engine
+    from marlsnake_torch.ops import step_kernel
+    from marlsnake_torch.rng import reset_draws, step_draws
+
+    dev = torch.device('cuda')
+    tables = engine.spawn_tables(cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    st, _ = engine.reset(cfg, tables, reset_draws(cfg, num_envs, gen, dev))
+    acts = torch.randint(0, cfg.num_actions, (num_envs, cfg.num_snakes),
+                         generator=gen, device=dev, dtype=torch.int32)
+    d = step_draws(cfg, num_envs, gen, dev)
+    where = f'{describe(cfg)} B={num_envs}'
+    err, resets = 0.0, 0
+    for t in range(9):
+        got = step_kernel.step_autoreset(cfg, tables, st, acts, d)
+        want = engine.step_autoreset(cfg, tables, st, acts, d)
+        torch.cuda.synchronize()
+        err = max(err, compare(got, want, f'{where} t={t}'))
+        resets += int(got[1].done_all.sum())
+        del want
+        if t < 8:
+            st = got[0]
+    log(f'parity {where} (the timed width) over 9 steps: equal, {resets} '
+        f'auto-resets, max_abs_err={err}')
+    auto = time_entry(
+        f'step_autoreset [{name}] at B={num_envs} {describe(cfg)}',
+        KERNEL_NAME,
+        lambda x: step_kernel.step_autoreset(cfg, tables, x, acts, d),
+        lambda: engine.step_autoreset(cfg, tables, st, acts, d), st,
+        kernel_traffic(cfg, st, acts, d, got), smi)
+    return auto, (st, acts, d), err
+
+
 def run_variant(name: str, cfg, num_envs: int, parity_envs: int, seed: int,
                 smi: str) -> list:
     """One config variant through both entries: parity over 64 steps,
@@ -673,7 +736,6 @@ def run_variant(name: str, cfg, num_envs: int, parity_envs: int, seed: int,
     Returns the two rows of the kernels line."""
     from marlsnake_torch.core import engine
     from marlsnake_torch.ops import step_kernel
-    from marlsnake_torch.rng import reset_draws, step_draws
 
     log(f'--- variant {name}: {describe(cfg)} ---')
     err_auto = parity(cfg, parity_envs, 64, seed)
@@ -686,24 +748,10 @@ def run_variant(name: str, cfg, num_envs: int, parity_envs: int, seed: int,
         f'launches of step, {held} envs held in the last; last steps equal '
         f'to the plain versions')
 
-    dev = torch.device('cuda')
-    tables = engine.spawn_tables(cfg, dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed + 5)
-    st, _ = engine.reset(cfg, tables, reset_draws(cfg, num_envs, gen, dev))
-    acts = torch.randint(0, cfg.num_actions, (num_envs, cfg.num_snakes),
-                         generator=gen, device=dev, dtype=torch.int32)
-    d = step_draws(cfg, num_envs, gen, dev)
-    # a few steps on, so that the timed state has dead snakes and resets
-    for _ in range(8):
-        st, _ = step_kernel.step_autoreset(cfg, tables, st, acts, d)
+    auto, (st, acts, d), err_wide = time_autoreset(name, cfg, num_envs,
+                                                   seed + 5, smi)
+    err_auto = max(err_auto, err_wide)
     size = f'B={num_envs} {describe(cfg)}'
-    auto = time_entry(
-        f'step_autoreset [{name}] at {size}', KERNEL_NAME,
-        lambda x: step_kernel.step_autoreset(cfg, tables, x, acts, d),
-        lambda: engine.step_autoreset(cfg, tables, st, acts, d), st,
-        kernel_traffic(cfg, st, acts, d, step_kernel.step_autoreset(
-            cfg, tables, st, acts, d)), smi)
     plain = time_entry(
         f'step (no reset) [{name}] at {size}', STEP_KERNEL_NAME,
         lambda x: step_kernel.step(cfg, x, acts, d.fruit_u),
@@ -1511,42 +1559,6 @@ def window_summary(window, steps: int) -> dict:
     return per_step(window, steps)
 
 
-class Stopwatch:
-    """Seconds and calls of wrapped functions, by label, each call ended
-    by a synchronisation so that device work is counted where it ran.
-    ``patch(obj, name, label)`` wraps an attribute until ``restore()``."""
-
-    def __init__(self):
-        self.seconds, self.calls, self._saved = {}, {}, []
-
-    def wrap(self, label, fn):
-        def timed(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                torch.cuda.synchronize()
-                self.seconds[label] = (self.seconds.get(label, 0.0)
-                                       + time.perf_counter() - t0)
-                self.calls[label] = self.calls.get(label, 0) + 1
-        return timed
-
-    def patch(self, obj, name, label):
-        self._saved.append((obj, name, obj.__dict__.get(name)))
-        setattr(obj, name, self.wrap(label, getattr(obj, name)))
-
-    def restore(self):
-        for obj, name, old in reversed(self._saved):
-            if old is None:
-                delattr(obj, name)
-            else:
-                setattr(obj, name, old)
-        self._saved = []
-
-    def snapshot(self):
-        return dict(self.seconds)
-
-
 def top_block(values: torch.Tensor):
     """(where each decision's values equal its maximum, the gap from that
     maximum to the largest value below it): argmax takes the block's first
@@ -1663,35 +1675,33 @@ def evolution_phase(smi: str, tmp: str) -> dict:
     tr = H.HybridNEATTrainer(net, env_cfg, neat_cfg, episode_steps=512,
                              result_file=os.path.join(tmp, 'neat.pkl'),
                              seed=0, device='cuda')
-    sw = Stopwatch()
     gens = []
     inner = tr.eval_genomes
+    # speciation and reproduction: from the end of one evaluation to the
+    # start of the next, or of the return
+    repro = {'s': 0.0, 'end': None}
 
     def eval_genomes(genomes, cfg, *args):
-        before, steps = sw.snapshot(), tr.env_steps
+        before, steps = dict(tr.seconds), tr.env_steps
         t0 = time.perf_counter()
+        if repro['end'] is not None:
+            repro['s'] += t0 - repro['end']
         inner(genomes, cfg, *args)
         torch.cuda.synchronize()
-        gens.append({'eval_s': time.perf_counter() - t0,
+        repro['end'] = time.perf_counter()
+        gens.append({'eval_s': repro['end'] - t0,
                      'steps': tr.env_steps - steps,
                      'genomes': [g for _, g in genomes],
                      **{k: v - before.get(k, 0.0)
-                        for k, v in sw.snapshot().items()}})
+                        for k, v in tr.seconds.items()}})
 
     tr.eval_genomes = eval_genomes
-    sw.patch(H, 'PaddedNetBatch', 'batch_build')
-    sw.patch(H, 'save_checkpoint_safe', 'checkpoint')
-    sw.patch(tr, '_episode', 'episodes')
-    sw.patch(N.Population, '_speciate', 'reproduction')
-    sw.patch(N.Population, '_reproduce', 'reproduction')
     step_kernel.step.launches = 0
     step_kernel.step_autoreset.launches = 0
     t0 = time.perf_counter()
-    try:
-        best = tr.run(num_generations=3, verbose=True)
-        torch.cuda.synchronize()
-    finally:
-        sw.restore()
+    best = tr.run(num_generations=3, verbose=True)
+    torch.cuda.synchronize()
+    repro['s'] += time.perf_counter() - repro['end']
     wall = time.perf_counter() - t0
     launches = step_kernel.step.launches
     auto = step_kernel.step_autoreset.launches
@@ -1708,7 +1718,7 @@ def evolution_phase(smi: str, tmp: str) -> dict:
         'eval_s', 'episodes', 'batch_build', 'checkpoint')},
         steps=rec['steps']) for rec in gens]
     # speciation and reproduction follow each generation's evaluation
-    repro_total = sw.seconds.get('reproduction', 0.0)
+    repro_total = repro['s']
     hidden = [sum(1 for k in g.nodes if k not in neat_cfg.output_keys)
               for g in gens[-1]['genomes']]
     gen1 = H.PaddedNetBatch(gens[-1]['genomes'], neat_cfg, device='cuda')
@@ -1716,7 +1726,7 @@ def evolution_phase(smi: str, tmp: str) -> dict:
         f'builds, checkpoint writes; env steps): {json.dumps(neat_gens)}; '
         f'speciation '
         f'and reproduction {repro_total * 1e3:.1f} ms over all three; '
-        f'{sw.calls.get("checkpoint", 0)} checkpoint writes; generation 2: '
+        f'{tr.calls.get("checkpoint", 0)} checkpoint writes; generation 2: '
         f'{sum(h > 0 for h in hidden)} genomes with hidden nodes (up to '
         f'{max(hidden)}), batch m={gen1.m} sweeps={gen1.num_sweeps} [{smi}]')
     if max(hidden) == 0:
@@ -1793,43 +1803,28 @@ def evolution_phase(smi: str, tmp: str) -> dict:
                                device='cuda')
 
     es = es_trainer('es.pkl')
-    es_launch = {'fitness': 0, 'validation': 0}
-    es_sw = Stopwatch()
-    for name, label in (('_fitness', 'fitness'), ('validate', 'validation')):
-        fn = getattr(es, name)
-
-        def counted(*args, fn=fn, label=label, **kwargs):
-            before = step_kernel.step.launches
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                es_launch[label] += step_kernel.step.launches - before
-
-        setattr(es, name, es_sw.wrap(label, counted))
-    es_sw.patch(H, 'save_checkpoint_safe', 'checkpoint')
     step_kernel.step.launches = 0
     step_kernel.step_autoreset.launches = 0
     t0 = time.perf_counter()
-    try:
-        best_theta, best_val, hist = es.run(num_generations=2,
-                                            val_episodes=8)
-        torch.cuda.synchronize()
-    finally:
-        es_sw.restore()
+    best_theta, best_val, hist = es.run(num_generations=2, val_episodes=8)
+    torch.cuda.synchronize()
     es_wall = time.perf_counter() - t0
     es_launches = step_kernel.step.launches
     auto = step_kernel.step_autoreset.launches
     es_steps = es.env_steps
+    # fitness episodes at B=129, validation at B=8
+    es_launch = {str(k): v for k, v in es.env_steps_by_width.items()}
     log(f'ES path: 2 generations of {es.pop_size} + 1 members, '
-        f'{es_steps} env steps, step launches={es_launches} (fitness '
-        f'episodes at B=129: {es_launch["fitness"]}, validation at B=8: '
-        f'{es_launch["validation"]}), step_autoreset launches={auto}, '
-        f'{es_wall:.2f} s; history {json.dumps(hist)}')
-    if es_launches != es_steps or auto != 0:
-        raise AssertionError(f'ES: {es_steps} env steps but '
-                             f'{es_launches} launches of step, {auto} of '
-                             f'step_autoreset')
-    es_times = {k: v * 1e3 for k, v in es_sw.seconds.items()}
+        f'{es_steps} env steps, step launches={es_launches} (env steps by '
+        f'width: {json.dumps(es_launch)}), step_autoreset '
+        f'launches={auto}, {es_wall:.2f} s; history {json.dumps(hist)}')
+    if es_launches != es_steps or auto != 0 \
+            or set(es_launch) != {'129', '8'}:
+        raise AssertionError(f'ES: {es_steps} env steps ({es_launch} by '
+                             f'width) but {es_launches} launches of step, '
+                             f'{auto} of step_autoreset')
+    es_times = {k: es.seconds[k] * 1e3
+                for k in ('fitness', 'validation', 'checkpoint')}
     log(f'ES times over 2 generations (ms; validation includes the seed\'s '
         f'before generation 0): {json.dumps(es_times)}; the rest of the '
         f'wall (ranks, update, host) '
@@ -1879,8 +1874,8 @@ def evolution_phase(smi: str, tmp: str) -> dict:
     # host clock, after generation 0 (which holds the first calls' set-up)
     fitness_ms = {'neat': sum(g.get('episodes', 0.0) for g in gens[1:])
                   * 1e3 / max(sum(g['steps'] for g in gens[1:]), 1),
-                  'es': es_sw.seconds['fitness'] * 1e3
-                  / max(es_launch['fitness'], 1),
+                  'es': es.seconds['fitness'] * 1e3
+                  / max(es_launch['129'], 1),
                   'neat_window': windows['neat']['wall_us'] / 1e3
                   / windows['neat']['steps'],
                   'es_window': windows['es']['wall_us'] / 1e3
@@ -1893,10 +1888,9 @@ def evolution_phase(smi: str, tmp: str) -> dict:
         'neat_launches': launches, 'neat_env_steps': neat_steps,
         'neat_ms_by_generation': neat_gens,
         'neat_reproduction_ms_three_generations': repro_total * 1e3,
-        'neat_checkpoint_writes': sw.calls.get('checkpoint', 0),
+        'neat_checkpoint_writes': tr.calls.get('checkpoint', 0),
         'es_launches': es_launches,
-        'es_launches_by_width': {'129': es_launch['fitness'],
-                                 '8': es_launch['validation']},
+        'es_launches_by_width': es_launch,
         'es_ms_two_generations': es_times, 'es_wall_ms': es_wall * 1e3,
         'fitness_ms_per_step': fitness_ms,
         'fitness_launches_per_step': (launches + es_launches)
@@ -3309,6 +3303,260 @@ def showcase_phase(smi: str, tmp: str) -> dict:
     return out
 
 
+# the config matrix's configs that K1 had not met on the card before it
+# (bench_table.py's tags), each with its env count for the reduced parity
+# run
+BENCH_TABLE_NEW_K1 = {
+    '20x20cross_x8_framestack4': 512,
+    '30x30walls_x8_framestack4': 512,
+    '20x20cross_x8_framestack4_packedobs': 512,
+    '30x30walls_x8_framestack4_packedobs': 512,
+    '40x40ml2_x4': 512,
+    '10x10x1': 1024,
+    '20x20x4_vision5_procedural': 1024,
+    '20x20x4_full_obs_procedural_both': 1024,
+}
+
+
+def acting_opt_breakdown(smi: str) -> dict:
+    """Where the device time of the config matrix's ``_opt`` acting row
+    goes: a profiler window of one replay of its graph (64 steps at 4096
+    envs of 20x20x4), K1's part of it, and a window of 64 of the row's
+    re-encodes (``bench.acting_input``: ``engine.encode_frame`` from the
+    grid, then the zero channels) on the same envs, uncaptured. The env
+    step still writes its uint8 obs, which this row does not read: its
+    bytes a step and their least time at the memory rate are beside."""
+    from marlsnake_torch import bench
+    from marlsnake_torch import bench_table as BT
+    from marlsnake_torch.envs.vector import VectorSnakeEnv
+    from marlsnake_torch.rng import step_draws_seq
+
+    cfg, n, steps = BT.ACTING_CONFIG, BT.ACTING_ENVS, 64
+    env = VectorSnakeEnv(cfg, n, device='cuda', seed=0)
+    states, obs = env.reset()
+    loop = bench.ActingRollout(env, bench.acting_net(cfg, True, env.device),
+                               steps, True, states, obs)
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(1)
+    draws = step_draws_seq(cfg, n, steps, gen, env.device)
+    graph = profile_device(lambda: float(loop(draws)), 1)
+    k1_us = sum(v[0] for k, v in graph['kernels'].items()
+                if KERNEL_NAME in k)
+
+    @torch.no_grad()
+    def reencode():
+        for _ in range(steps):
+            bench.acting_input(cfg, loop.envs.state, loop.envs.out.obs,
+                               True)
+
+    enc = profile_device(reencode, 1)
+    obs_bytes = loop.envs.out.obs.numel()
+    out = {'graph_busy_us_per_step': graph['busy_us'] / steps,
+           'graph_idle_share': graph['idle_share'],
+           'k1_us_per_step': k1_us / steps,
+           'reencode_us_per_step': enc['busy_us'] / steps,
+           'reencode_share': enc['busy_us'] / graph['busy_us'],
+           'k1_share': k1_us / graph['busy_us'],
+           'obs_write_bytes_per_step': obs_bytes,
+           'obs_write_bound_us_per_step': obs_bytes / HBM_BYTES_PER_S * 1e6}
+    log(f'_opt acting row at {n} envs ({steps}-step graph): '
+        f'{json.dumps(out)} [{smi}]')
+    log_window('profile of one replay of the _opt acting graph', graph,
+               steps, smi, also=(KERNEL_NAME,))
+    log_window(f'profile of {steps} _opt re-encodes, uncaptured', enc,
+               steps, smi)
+    return out
+
+
+def bench_table_phase(smi: str) -> dict:
+    """The config matrix (``marlsnake_torch/bench_table.py``): K1 against
+    the plain engine over 64 steps (tolerance 0) at each config of
+    ``BENCH_TABLE_NEW_K1``, at a reduced env count and at the table's,
+    with its shared memory an env; then one short timed block of every row of the table (the
+    auto-reset entry's launches set to 0 before a row and read after:
+    every step of every call, replays included), with its graph's pool
+    and the allocator's peak; where the ``_opt`` acting row's device
+    time goes (``acting_opt_breakdown``); then K1's device_ms, bytes,
+    bound and % of bound at the new configs at the table's env counts,
+    on inputs first held against the plain engine (``time_autoreset``)."""
+    from marlsnake_torch import bench_table as BT
+    from marlsnake_torch.ops import step_kernel
+
+    configs = {tag: (n, cfg) for tag, n, cfg, _ in BT.CONFIGS}
+    errs = {}
+    for i, (tag, parity_envs) in enumerate(BENCH_TABLE_NEW_K1.items()):
+        cfg = configs[tag][1]
+        log(f'--- bench_table config {tag}: {describe(cfg)}, '
+            f'{step_kernel.smem_per_env(cfg)} B of shared memory an env ---')
+        # at a reduced env count, then at the table's own
+        errs[tag] = max(parity(cfg, parity_envs, 64, seed=300 + i),
+                        parity(cfg, configs[tag][0], 64, seed=340 + i))
+        torch.cuda.empty_cache()
+
+    rows, launches = [], {}
+    for row in BT.table():
+        step_kernel.step_autoreset.launches = 0
+        t0 = time.perf_counter()
+        measured = BT.measure_row(row, 'cuda', iters=1, blocks=1)
+        torch.cuda.synchronize()
+        launches[row.tag] = step_kernel.step_autoreset.launches
+        calls = 2 if row.kind == 'acting' else 3
+        if launches[row.tag] != calls * row.scan_steps:
+            raise AssertionError(f'bench_table {row.tag}: '
+                                 f'{launches[row.tag]} launches for '
+                                 f'{calls * row.scan_steps} steps')
+        log(f'bench_table row ({time.perf_counter() - t0:.1f} s, '
+            f'{launches[row.tag]} launches of step_autoreset): '
+            f'{json.dumps(measured)} [{smi}]')
+        rows.append(measured)
+        torch.cuda.empty_cache()
+
+    acting_opt = acting_opt_breakdown(smi)
+    torch.cuda.empty_cache()
+
+    timed = []
+    for i, tag in enumerate(BENCH_TABLE_NEW_K1):
+        n, cfg = configs[tag]
+        auto, _, err_wide = time_autoreset(f'bt:{tag}', cfg, n, 320 + i,
+                                           smi)
+        errs[tag] = max(errs[tag], err_wide)
+        timed.append(dict(
+            auto, name=f'step_autoreset[bt:{tag}]', route='cuda',
+            source='marlsnake_torch/csrc/step_autoreset.cu',
+            replaces='marlsnake_tpu/ops/pallas_step.py:54',
+            variant=describe(cfg), num_envs=n, launches=launches[tag],
+            max_abs_err=errs[tag], max_abs_err_at_num_envs=err_wide,
+            parity_envs=BENCH_TABLE_NEW_K1[tag],
+            smem_per_env=step_kernel.smem_per_env(cfg)))
+        torch.cuda.empty_cache()
+    return {'max_abs_err': errs, 'launches': launches, 'rows': rows,
+            'acting_opt': acting_opt, 'kernel_rows': timed}
+
+
+def flagship_phase(smi: str, tmp: str) -> dict:
+    """Evolution at the flagship scale over the trained DQN
+    (``artifacts/hybrid_neat_20x20.pkl``'s ``dqn_params``; 20x20x4,
+    length 5, DEFAULT_REWARD, 512-step episodes): first the step entry
+    against the plain engine at the programs' widths (B=100, 257, 32,
+    128; tolerance 0); then ``tools/neat_flagship.py``'s program for 2
+    generations at pop 100, K=4, and ``tools/es_flagship.py``'s for 2
+    generations at pop 256, K=4, 32 validation episodes and a holdout of
+    64, each with the step entry launched once an env step (the counter
+    set to 0 before and read after, against the program's env steps,
+    which it reports by width); one fitness
+    episode of 8 genomes on the trained features card against CPU; and
+    16-step profiler windows of a trained fitness step at B=100 and
+    B=257."""
+    from marlsnake_torch.algo import neat as N
+    from marlsnake_torch.algo import neat_hybrid as H
+    from marlsnake_torch.ops import step_kernel
+    from marlsnake_torch.rng import episode_draws
+    from marlsnake_torch.tools import es_flagship as EF
+    from marlsnake_torch.tools import neat_flagship as NF
+
+    hybrid = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          NF.HYBRID)
+    env_cfg = H._default_env_cfg()
+    errs = {f'step B={b}': parity_step(env_cfg, b, 64, seed=400 + i)
+            for i, b in enumerate((100, 257, 32, 128))}
+
+    # each program's env steps by the episodes' env count
+    want_widths = {'neat': {'100'}, 'es': {'257', '32', '128'}}
+    runs = {}
+    for name, program, kwargs in (
+            ('neat', NF.run, dict(generations=2)),
+            ('es', EF.run, dict(generations=2, holdout=64))):
+        step_kernel.step.launches = 0
+        step_kernel.step_autoreset.launches = 0
+        t0 = time.perf_counter()
+        summary = program(out=os.path.join(tmp, name), hybrid=hybrid,
+                          device='cuda', **kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = step_kernel.step.launches
+        auto = step_kernel.step_autoreset.launches
+        widths = summary['env_steps_by_width']
+        log(f'{name} flagship program, 2 generations: {wall:.1f} s, '
+            f'{summary["env_steps"]} env steps ({json.dumps(widths)} by '
+            f'width), step launches={launches}, step_autoreset '
+            f'launches={auto}; summary {json.dumps(summary)} [{smi}]')
+        if launches != summary['env_steps'] or auto != 0 \
+                or set(widths) != want_widths[name]:
+            raise AssertionError(f'{name} flagship: '
+                                 f'{summary["env_steps"]} env steps '
+                                 f'({widths} by width) but {launches} '
+                                 f'launches of step and {auto} of '
+                                 f'step_autoreset')
+        runs[name] = dict(summary, wall_s=wall, launches=launches,
+                          launches_by_width=widths)
+
+    # one fitness episode of 8 genomes on the trained features, card
+    # against CPU
+    dqn_params = NF.load_dqn_params(hybrid)
+    neat_cfg = NF.neat_config()
+    tr = H.HybridNEATTrainer(dqn_params, neat_cfg=neat_cfg,
+                             episode_steps=512,
+                             result_file=os.path.join(tmp, 'f.pkl'),
+                             device='cuda')
+    cpu_tr = H.HybridNEATTrainer(dqn_params, neat_cfg=neat_cfg,
+                                 episode_steps=512,
+                                 result_file=os.path.join(tmp, 'fc.pkl'),
+                                 device='cpu')
+    seed_genome = H.fc3_to_genome(tr.net, neat_cfg)
+    eight = mutated_genomes(N, neat_cfg, seed_genome, 8, seed=41)
+    d8 = episode_draws(env_cfg, 1, 512, torch.Generator().manual_seed(42),
+                       'cpu')
+    t0 = time.perf_counter()
+    episode_check = episode_card_vs_cpu(tr, cpu_tr, eight, d8)
+    log(f'one fitness episode of 8 genomes on the trained features (the '
+        f'fc3 seed and mutants) card against CPU: '
+        f'{json.dumps(episode_check)} ({time.perf_counter() - t0:.1f} s)')
+    del cpu_tr
+
+    # profiler windows of 16 trained fitness steps at B=100 and B=257
+    hundred = H.PaddedNetBatch(mutated_genomes(N, neat_cfg, seed_genome,
+                                               100, seed=43), neat_cfg,
+                               device='cuda')
+    windows = {}
+    for label, width, make in (
+            ('neat', 100, lambda: H.HybridNEATTrainer(
+                dqn_params, neat_cfg=neat_cfg, episode_steps=16,
+                result_file=os.path.join(tmp, 's.pkl'), device='cuda')),
+            ('es', 257, lambda: H.HeadESTrainer(
+                dqn_params, neat_cfg=neat_cfg, episode_steps=16,
+                pop_size=256, result_file=os.path.join(tmp, 's.pkl'),
+                device='cuda'))):
+        short = make()
+        rows = torch.zeros(width, dtype=torch.long)
+        if label == 'neat':
+            def one(short=short, rows=rows):
+                short._episode(hundred.acts, short._draws(1).take(rows))
+        else:
+            zeros_k = torch.zeros((128, 128, 3), device='cuda')
+            zeros_b = torch.zeros((128, 3), device='cuda')
+
+            def one(short=short, rows=rows, zk=zeros_k, zb=zeros_b):
+                short._run(*short._member_batch(short._seed_theta, zk, zb),
+                           short._draws(1).take(rows))
+        counts = []
+
+        def fitness_steps(short=short, one=one, counts=counts):
+            before = short.env_steps
+            one()
+            counts.append(short.env_steps - before)
+
+        window = profile_device(fitness_steps, 1)
+        steps = counts[-1]
+        windows[f'B={width}'] = dict(window_summary(window, steps),
+                                     steps=steps)
+        log_window(f'profile of {steps} trained fitness steps at B={width} '
+                   f'[{label}]', window, steps, smi,
+                   also=(STEP_KERNEL_NAME,))
+    return {'max_abs_err': errs, 'runs': runs,
+            'fitness_episode_card_vs_cpu': episode_check,
+            'fitness_windows': windows}
+
+
 def masked_paths(smi: str, steps: int = 128) -> dict:
     """ms per step (host clock) and a profiler window of 16 steps (device
     events, busy us, idle share a step) of the three masked paths, through
@@ -4087,13 +4335,22 @@ def main() -> int:
     log(f'showcase: {json.dumps(showcase)}')
     torch.cuda.empty_cache()
 
-    # --- 16. data-parallel training ---
+    # --- 16. the config matrix and evolution at the flagship scale ---
+    table = bench_table_phase(smi)
+    log(f'bench_table: {json.dumps({k: v for k, v in table.items() if k != "kernel_rows"})}')
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as flagship_dir:
+        flagship = flagship_phase(smi, flagship_dir)
+    log(f'flagship: {json.dumps(flagship)}')
+    torch.cuda.empty_cache()
+
+    # --- 17. data-parallel training ---
     with tempfile.TemporaryDirectory() as dp_dir:
         dp = parallel_phase(smi, dp_dir)
     log(f'parallel: {json.dumps(dp)}')
     torch.cuda.empty_cache()
 
-    # --- 17. the captured loops against their bodies, and their times ---
+    # --- 18. the captured loops against their bodies, and their times ---
     graphs = graph_phase(smi)
     log(f'graphs: {json.dumps(graphs)}')
     torch.cuda.empty_cache()
@@ -4110,7 +4367,7 @@ def main() -> int:
                  'DQNEvaluator (E=1, N=4)': adapters['mask_dqn_evaluator']}
     fill_rows = {'evaluator (3,072 boards)': evaluation['fill_evaluator'],
                  'battle (384 boards)': battle['fill_battle']}
-    log(json.dumps({'kernels': variant_rows + [dict(
+    log(json.dumps({'kernels': variant_rows + table['kernel_rows'] + [dict(
         auto,
         name='step_autoreset',
         route='cuda',
@@ -4141,6 +4398,8 @@ def main() -> int:
             'step_autoreset scaling B=512'],
         max_abs_err_showcase={k: v for k, v in showcase['max_abs_err'].items()
                               if k.startswith('step_autoreset ')},
+        bench_table_launches=table['launches'],
+        max_abs_err_bench_table=table['max_abs_err'],
         device_us_per_launch_in_windows=in_graphs(KERNEL_NAME),
         graph_bench_env_steps_per_s=graphs['bench'],
         graph_ppo=graphs['ppo'],
@@ -4162,6 +4421,7 @@ def main() -> int:
             'step dqn B=128 hold'],
         max_abs_err_showcase={k: v for k, v in showcase['max_abs_err'].items()
                               if k.startswith('step ')},
+        max_abs_err_flagship=flagship['max_abs_err'],
         num_envs=256,
         at_4096_envs={k: step_rows[4096][k] for k in (
             'device_ms', 'host_us', 'call_ms', 'plain_ms', 'bound_ms',
@@ -4195,6 +4455,12 @@ def main() -> int:
             'showcase run_dqn (B=32, 12 episodes)': showcase['dqn_graph'][
                 'step_launches'],
             'battle_batch_run (B=128)': showcase['battle']['step_launches'],
+            'neat_flagship (2 generations)': {
+                k: flagship['runs']['neat'][k]
+                for k in ('launches', 'launches_by_width')},
+            'es_flagship (2 generations, holdout 64)': {
+                k: flagship['runs']['es'][k]
+                for k in ('launches', 'launches_by_width')},
             'cli': {k: {e: v[e] for e in ('step', 'step_autoreset')}
                     for k, v in cli_runs.items()},
             'distributed_dqn world 1, NCCL (B=256)': dp['dqn_world1'][
@@ -4207,6 +4473,9 @@ def main() -> int:
         cli_seconds={k: v['seconds'] for k, v in cli_runs.items()},
         evolution={k: v for k, v in evolution.items()
                    if k not in ('neat_launches', 'es_launches')},
+        flagship_fitness_windows=flagship['fitness_windows'],
+        flagship_episode_card_vs_cpu=flagship[
+            'fitness_episode_card_vs_cpu'],
         adapters={k: v for k, v in adapters.items()
                   if k not in ('vector_adapter_launches',
                                'step_autoreset_max_abs_err_b8',

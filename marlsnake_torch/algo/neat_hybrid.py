@@ -38,10 +38,12 @@ only by the functions that need them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import pickle
 import random
+import time
 from typing import Mapping, Optional, Sequence
 
 import numpy as np
@@ -414,6 +416,22 @@ class _FitnessEpisodes:
         self._reset_env, self._step_env = build_vector_fns(
             self.env_cfg, autoreset=False, device=self.device)
         self.env_steps = 0  # env steps taken, one kernel launch each on CUDA
+        self.env_steps_by_width = {}   # the same, by the episodes' env count
+        # wall seconds and calls by phase: 'episodes', 'batch_build' (the
+        # NEAT trainer's PaddedNetBatch), 'checkpoint', and the ES
+        # trainer's 'fitness' and 'validation'; each phase ends in a
+        # read-back or on the host, so its device work is in its time
+        self.seconds, self.calls = {}, {}
+
+    @contextlib.contextmanager
+    def _timed(self, phase: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.seconds[phase] = (self.seconds.get(phase, 0.0)
+                                   + time.perf_counter() - t0)
+            self.calls[phase] = self.calls.get(phase, 0) + 1
 
     def _draws(self, num_envs: int) -> EpisodeDraws:
         return episode_draws(self.env_cfg, num_envs, self.episode_steps,
@@ -424,27 +442,33 @@ class _FitnessEpisodes:
         """One episode of every member: ``head(emb (P, N, I)) -> actions
         (P, N) int32``; ``draws`` has one env a member. Returns each
         (member, snake)'s summed reward, (P, N) float32."""
-        states, obs = self._reset_env(draws.reset)
-        p, n = obs.shape[:2]
-        done = torch.zeros((p, n), dtype=torch.bool, device=self.device)
-        ret = torch.zeros((p, n), dtype=torch.float32, device=self.device)
-        for t in range(self.episode_steps):
-            emb = self.net.features(obs.reshape((p * n,) + obs.shape[2:]))
-            actions = torch.where(done, 0, head(emb.view(p, n, -1)))
-            states, out = self._step_env(
-                states, actions, StepDraws(draws.fruit_u[t], None, None))
-            self.env_steps += 1
-            obs = out.obs
-            done = done | out.done
-            ret = ret + out.reward
-            if bool(done.all()):
-                break
-        return ret.cpu().numpy()
+        with self._timed('episodes'):
+            states, obs = self._reset_env(draws.reset)
+            p, n = obs.shape[:2]
+            done = torch.zeros((p, n), dtype=torch.bool, device=self.device)
+            ret = torch.zeros((p, n), dtype=torch.float32,
+                              device=self.device)
+            for t in range(self.episode_steps):
+                emb = self.net.features(obs.reshape((p * n,)
+                                                    + obs.shape[2:]))
+                actions = torch.where(done, 0, head(emb.view(p, n, -1)))
+                states, out = self._step_env(
+                    states, actions, StepDraws(draws.fruit_u[t], None, None))
+                self.env_steps += 1
+                self.env_steps_by_width[p] = (
+                    self.env_steps_by_width.get(p, 0) + 1)
+                obs = out.obs
+                done = done | out.done
+                ret = ret + out.reward
+                if bool(done.all()):
+                    break
+            return ret.cpu().numpy()
 
     def _save(self, genome: Genome, filename: str):
-        save_checkpoint_safe({'dqn_params': self.dqn_params,
-                              'neat_genome': genome,
-                              'neat_config': self.neat_cfg}, filename)
+        with self._timed('checkpoint'):
+            save_checkpoint_safe({'dqn_params': self.dqn_params,
+                                  'neat_genome': genome,
+                                  'neat_config': self.neat_cfg}, filename)
 
 
 class HybridNEATTrainer(_FitnessEpisodes):
@@ -471,7 +495,9 @@ class HybridNEATTrainer(_FitnessEpisodes):
         K episodes' draws, one env each (drawn from the trainer's
         generator when None). Each new best genome is saved."""
         pop = len(genomes)
-        batch = PaddedNetBatch([g for _, g in genomes], cfg, self.device)
+        with self._timed('batch_build'):
+            batch = PaddedNetBatch([g for _, g in genomes], cfg,
+                                   self.device)
         if draws is None:
             draws = [self._draws(1) for _ in range(self.fitness_episodes)]
         rows = torch.zeros(pop, dtype=torch.long)
@@ -559,9 +585,10 @@ class HeadESTrainer(_FitnessEpisodes):
     def _fitness(self, W, b, draws: Sequence[EpisodeDraws]) -> np.ndarray:
         """Mean per-member fitness over the K episodes ``draws`` (one env
         each), every member on the same draws."""
-        rows = torch.zeros(W.shape[0], dtype=torch.long)
-        ep = [self._run(W, b, d.take(rows)) for d in draws]
-        return np.stack(ep).mean(0).mean(-1)  # (P,)
+        with self._timed('fitness'):
+            rows = torch.zeros(W.shape[0], dtype=torch.long)
+            ep = [self._run(W, b, d.take(rows)) for d in draws]
+            return np.stack(ep).mean(0).mean(-1)  # (P,)
 
     def validation_draws(self, episodes: int) -> EpisodeDraws:
         """The FIXED validation set: ``episodes`` envs from a generator of
@@ -578,12 +605,13 @@ class HeadESTrainer(_FitnessEpisodes):
         """Mean return of ``theta`` over the validation episodes (``draws``
         of ``episodes`` envs, the fixed set when None), theta tiled
         across the member slots."""
-        if draws is None:
-            draws = self.validation_draws(episodes)
-        W = theta[0][None].expand((episodes,) + theta[0].shape)
-        b = theta[1][None].expand((episodes,) + theta[1].shape)
-        ret = self._run(W, b, draws.take(torch.arange(episodes)))
-        return float(ret.mean())
+        with self._timed('validation'):
+            if draws is None:
+                draws = self.validation_draws(episodes)
+            W = theta[0][None].expand((episodes,) + theta[0].shape)
+            b = theta[1][None].expand((episodes,) + theta[1].shape)
+            ret = self._run(W, b, draws.take(torch.arange(episodes)))
+            return float(ret.mean())
 
     def _member_batch(self, theta, eps_k, eps_b):
         """[theta, theta+sigma*eps_i, theta-sigma*eps_i] stacked."""
@@ -680,6 +708,17 @@ class HeadESTrainer(_FitnessEpisodes):
         episodes (``draws`` of ``episodes`` envs, or ``holdout_draws``),
         ``block`` episodes of each head in one batch. Returns (mean_a,
         mean_b, mean paired diff, std of paired diff)."""
+        ra, rb = self.holdout_returns(theta_a, theta_b, episodes, seed,
+                                      block, draws)
+        d = rb - ra
+        return (float(np.mean(ra)), float(np.mean(rb)),
+                float(d.mean()), float(d.std(ddof=1)))
+
+    def holdout_returns(self, theta_a, theta_b, episodes: int = 32,
+                        seed: int = 10_000, block: int = 64,
+                        draws: Optional[EpisodeDraws] = None):
+        """``holdout_compare``'s episodes: each head's mean return over the
+        snakes of every held-out episode, (episodes,) float32 numpy each."""
         if draws is None:
             draws = self.holdout_draws(episodes, seed)
         ra, rb = [], []
@@ -696,9 +735,7 @@ class HeadESTrainer(_FitnessEpisodes):
             ra.extend(ret[:v])
             rb.extend(ret[v:])
             done += v
-        d = np.asarray(rb) - np.asarray(ra)
-        return (float(np.mean(ra)), float(np.mean(rb)),
-                float(d.mean()), float(d.std(ddof=1)))
+        return np.asarray(ra), np.asarray(rb)
 
 
 def render_winner(winner_pickle: str, env_cfg: Optional[EnvConfig] = None,

@@ -30,6 +30,11 @@ envs of 20x20 with 4 snakes of length 5, 128 rollout steps, 4 epochs of 4
 minibatches) and the showcase run's (the same at 256 envs: 131,072 samples
 an update, minibatches of 32,768), three timed updates after one
 warm-up update.
+
+``measure`` and ``measure_acting`` are ``bench_table.py``'s rows at any
+``EnvConfig`` (``marlsnake_torch/bench_table.py`` runs the JAX table's
+17): the rollout, or the policy in the loop (a greedy DQN forward for
+every agent, then the env step, as one captured graph).
 """
 
 from __future__ import annotations
@@ -39,11 +44,15 @@ import json
 import time
 
 import torch
+import torch.nn.functional as F
 
+from marlsnake_torch.core import engine
 from marlsnake_torch.core.types import EnvConfig
 from marlsnake_torch.envs.vector import VectorSnakeEnv
+from marlsnake_torch.models.dqn import DQN, make_dqn
 from marlsnake_torch.ops.step_kernel import StaticEnvs
-from marlsnake_torch.rng import StepDraws, ppo_draws, rollout_draws
+from marlsnake_torch.rng import (StepDraws, ppo_draws, rollout_draws,
+                                 step_draws_seq)
 from marlsnake_torch.utils.cuda_graph import CapturedLoop, copy_into
 
 BASELINE_STEPS_PER_SEC = 783.0  # reference single env on one CPU core
@@ -114,6 +123,185 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _block_rates(call, env_steps: int, device: torch.device, iters: int,
+                 blocks: int, warmups: int) -> list:
+    """env-steps/s of ``blocks`` timed blocks of ``iters`` calls of
+    ``call()`` (``env_steps`` env-steps each; it returns a tensor), each
+    block ended by a read-back of its last call's tensor, after
+    ``warmups`` calls (the first builds and captures)."""
+    for _ in range(warmups):
+        float(call())
+    rates = []
+    for _ in range(blocks):
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            r = call()
+        float(r)
+        rates.append(env_steps * iters / (time.perf_counter() - t0))
+    return rates
+
+
+def _random_rollouts(loop: Rollout, states, gen: torch.Generator,
+                     captured: bool = True):
+    """``_block_rates``'s call: a random-action rollout from where the
+    last one ended; returns its checksum."""
+    held = [states]
+
+    def call():
+        held[0], check = loop.random(held[0], gen, captured)
+        return check
+
+    return call
+
+
+def _memory(device: torch.device, loop: CapturedLoop) -> dict:
+    """What a timed row held on the card: its graph's pool and the peak
+    of the allocator since the row began (None on the CPU)."""
+    cuda = device.type == 'cuda'
+    return {'graph_pool_bytes': loop.pool_bytes,
+            'capture_s': loop.capture_seconds,
+            'max_memory_allocated': (torch.cuda.max_memory_allocated(device)
+                                     if cuda else None)}
+
+
+def _begin_row(device: torch.device) -> None:
+    if device.type == 'cuda':
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _rates(per_block: list, num_steps: int) -> dict:
+    """bench_table.py's row numbers from the env-steps/s of each block:
+    the best, the median, the spread (max - min) / median in percent."""
+    per_block = sorted(per_block)
+    med = per_block[len(per_block) // 2]
+    return {
+        'steps_per_sec': round(per_block[-1], 1),
+        'median_steps_per_sec': round(med, 1),
+        'spread_pct': round(100 * (per_block[-1] - per_block[0]) / med, 1),
+        'scan_steps': num_steps,
+    }
+
+
+def measure(cfg: EnvConfig, num_envs: int, num_steps: int = 256,
+            iters: int = 2, blocks: int = 4, graph: bool = False,
+            device='cuda', seed: int = 0) -> dict:
+    """``bench_table.py``'s ``measure`` on the port: the rollout
+    (``Rollout``, one captured graph of ``num_steps`` steps; ``graph``
+    gives the ray-feature env, ``build_graph_rollout``'s rows) at any
+    config, two warm-up calls (the second a replay), then ``blocks``
+    timed blocks of ``iters`` rollouts, each block ended by a read-back.
+    Returns the best, median and spread of the blocks' env-steps/s and
+    ``scan_steps``, with ``memory`` beside them (``_memory``)."""
+    env = VectorSnakeEnv(cfg, num_envs, device=device, seed=seed,
+                         graph=graph)
+    _begin_row(env.device)
+    gen = torch.Generator(device=env.device)
+    gen.manual_seed(seed + 1)
+    states, _ = env.reset()
+    loop = Rollout(env, num_steps)
+    per_block = _block_rates(_random_rollouts(loop, states, gen),
+                             num_envs * num_steps, env.device, iters,
+                             blocks, 2)
+    return dict(_rates(per_block, num_steps),
+                memory=_memory(env.device, loop.loop))
+
+
+ACTING_PAD = 8   # the _opt row's zero channels behind the 8 obs planes
+
+
+def acting_net(cfg: EnvConfig, optimized: bool, device='cuda',
+               seed: int = 7) -> DQN:
+    """The acting rows' DQN: float32 with the divide-by-255 maximum
+    (the reference's inference numerics), or with ``optimized`` bfloat16
+    with binary obs assumed and ``ACTING_PAD`` zero input channels
+    (``bench_table.py``'s acting winners)."""
+    if optimized:
+        return make_dqn(cfg, seed, device, assume_binary_obs=True,
+                        pad_channels=ACTING_PAD,
+                        compute_dtype=torch.bfloat16)
+    return make_dqn(cfg, seed, device, assume_binary_obs=False)
+
+
+def acting_input(cfg: EnvConfig, states, obs: torch.Tensor,
+                 optimized: bool) -> torch.Tensor:
+    """The net's input for every agent, (E * N, H, W, C): the env's obs,
+    or with ``optimized`` the frame re-encoded from ``states.grid``
+    (``engine.encode_frame``) with ``ACTING_PAD`` zero channels."""
+    if optimized:
+        obs = F.pad(engine.encode_frame(cfg, states.grid), (0, ACTING_PAD))
+    return obs.reshape((-1,) + obs.shape[2:])
+
+
+class ActingRollout:
+    """``measure_acting``'s rollout: ``num_steps`` steps of greedy DQN
+    actions for every agent, then the env step with auto-reset, as one
+    captured CUDA graph. The envs stay in the graph's buffers from one
+    call to the next (the JAX bench donates them); a call copies its step
+    draws in and returns the summed reward."""
+
+    def __init__(self, env: VectorSnakeEnv, net: DQN, num_steps: int,
+                 optimized: bool, states, obs: torch.Tensor):
+        self.env, self.net, self.optimized = env, net, optimized
+        self.envs = StaticEnvs(env.cfg, env.num_envs, env.device)
+        self.envs.load(states)
+        self.envs.out.obs.copy_(obs)
+        self.draws = step_draws_seq(
+            env.cfg, env.num_envs, num_steps,
+            torch.Generator(device=env.device).manual_seed(0), env.device)
+        self.reward = torch.zeros((), dtype=torch.float32,
+                                  device=env.device)
+        self.loop = CapturedLoop(self._body, env.device)
+
+    @torch.no_grad()
+    def _body(self) -> None:
+        cfg, e = self.env.cfg, self.env.num_envs
+        states, obs = self.envs.state, self.envs.out.obs
+        rew = torch.zeros((), dtype=torch.float32, device=self.env.device)
+        for t in range(self.draws.fruit_u.shape[0]):
+            q = self.net(acting_input(cfg, states, obs, self.optimized))
+            actions = q.argmax(-1).to(torch.int32).view(e, cfg.num_snakes)
+            states, out = self.env.step(states, actions,
+                                        StepDraws(*(x[t] for x in self.draws)))
+            obs = out.obs
+            rew += out.reward.sum()
+        self.envs.store(states, out)
+        self.reward.copy_(rew)
+
+    def __call__(self, draws: StepDraws) -> torch.Tensor:
+        copy_into(self.draws, draws)
+        self.loop()
+        return self.reward.clone()
+
+
+def measure_acting(cfg: EnvConfig, num_envs: int, num_steps: int = 64,
+                   iters: int = 3, optimized: bool = False, device='cuda',
+                   seed: int = 0, blocks: int = 3) -> dict:
+    """``bench_table.py``'s ``measure_acting`` on the port: the policy in
+    the loop (``ActingRollout``; ``optimized`` for the ``_opt`` row), one
+    warm-up call (the capture), then ``blocks`` timed blocks of ``iters``
+    calls, each call ended by a read-back as the JAX bench blocks each.
+    Returns ``measure``'s keys; env-steps count envs, not agents."""
+    env = VectorSnakeEnv(cfg, num_envs, device=device, seed=seed)
+    _begin_row(env.device)
+    gen = torch.Generator(device=env.device)
+    gen.manual_seed(seed + 1)
+    states, obs = env.reset()
+    net = acting_net(cfg, optimized, env.device)
+    loop = ActingRollout(env, net, num_steps, optimized, states, obs)
+
+    def call():
+        reward = loop(step_draws_seq(cfg, num_envs, num_steps, gen,
+                                     env.device))
+        return float(reward)
+
+    per_block = _block_rates(call, num_envs * num_steps, env.device, iters,
+                             blocks, 1)
+    return dict(_rates(per_block, num_steps),
+                memory=_memory(env.device, loop.loop))
+
+
 def run(num_envs: int = 4096, num_steps: int = 256, iters: int = 4,
         device='cuda', seed: int = 0, spawn_mode: str = 'procedural',
         obs_format: str = 'uint8', frame_stack: int = 1,
@@ -130,26 +318,17 @@ def run(num_envs: int = 4096, num_steps: int = 256, iters: int = 4,
     gen.manual_seed(seed + 1)
     states, _ = env.reset()
     loop = Rollout(env, num_steps)
-    # warm-up: the build, and the graph's capture
-    states, r = loop.random(states, gen, captured)
-    float(r)
-    dts = []
-    for _ in range(3):
-        _sync(env.device)
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            states, r = loop.random(states, gen, captured)
-        float(r)
-        dts.append(time.perf_counter() - t0)
-    total = num_envs * num_steps * iters
-    best = total / min(dts)
+    rates = sorted(_block_rates(_random_rollouts(loop, states, gen, captured),
+                                num_envs * num_steps, env.device, iters, 3,
+                                1))
+    best = rates[-1]
     return {
         'metric': f'env-steps/s at {num_envs} parallel envs '
                   '(20x20, 4 snakes)',
         'value': best,
         'unit': 'env-steps/s',
         'vs_baseline': best / BASELINE_STEPS_PER_SEC,
-        'median': total / sorted(dts)[1],
+        'median': rates[1],
         'spawn_mode': cfg.spawn_mode,
         'obs_format': cfg.obs_format,
         'frame_stack': cfg.frame_stack,
