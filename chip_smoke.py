@@ -244,13 +244,32 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    tallied by width), one fitness episode of 8 genomes on the trained
    features card against CPU, and profiler windows of 16 trained fitness
    steps at B=100 and B=257;
-20. one JSON line of kernels (every entry and variant; the auto-reset
+20. the distillation and the two rollout demos (``distill_phase``,
+   ``demos_phase``, after the flagship phase): K1 against the plain
+   engine over one 32-step greedy rollout of the committed student
+   (conv 32,64, fc 128) at E=256 with the iteration's draws and over
+   ``examples/demo.py``'s first 64 steps at B=1024 (tolerance 0); then
+   ``tools/distill_acting.py``'s ``run`` for 3 outer iterations at that
+   width over the trained teacher of ``artifacts/hybrid_neat_20x20.pkl``
+   (K1 once a rollout step, 96 launches, no plain-engine call; ms an
+   iteration by part; the written student reads back), one outer
+   iteration card against CPU at 4 envs and 4 SGD steps of 256
+   (``distill_card_vs_cpu``: the visited obs, states, labels and
+   agreement EQUAL, gradients within 1e-5 + 1e-4 x max|g|, loss and
+   parameters within 1e-5, the CPU chain taking the card's gradient
+   where both sides' are within Adam's eps of zero), a profiler window
+   of one full-width iteration (busy, idle share, K1's device us a
+   launch, allocator peak); then both demos' ``main`` at their defaults
+   (K1 once a step, 512 launches each, no plain-engine call) and their
+   env-steps/s;
+21. one JSON line of kernels (every entry and variant; the auto-reset
    entry's row carries the PPO numbers and the config matrix's launches,
    the step entry's the evaluator's,
    the evolution's, the adapters', the battles', the CLI's, the
    data-parallel trainers', the programs' and the flagship programs',
    with its launches on every
-   path; a row of the auto-reset entry at each new config of the matrix;
+   path; the auto-reset entry's ``launches_by_path`` the distillation's
+   and the demos'; a row of the auto-reset entry at each new config of the matrix;
    masked_actions with its launches on every masked path and its times
    at E=256 x N=4, 128 x 1 and 1 x 4; reachable_count with its own path's
    launches and its times at 3,072 and 384 boards), then, as the last
@@ -3557,6 +3576,332 @@ def flagship_phase(smi: str, tmp: str) -> dict:
             'fitness_windows': windows}
 
 
+def distill_phase(smi: str, tmp: str) -> dict:
+    """The DAgger distillation (``marlsnake_torch/tools/distill_acting.py``)
+    at the committed student's width: conv (32, 64), fc (128), bfloat16,
+    E=256, batches of 4,096, the trained teacher of
+    ``artifacts/hybrid_neat_20x20.pkl``. First K1 against the plain
+    engine over one 32-step greedy rollout of the student with the
+    iteration's own draws (tolerance 0); then the program's ``run`` for 3
+    outer iterations, K1 launched once a rollout step (the counters set
+    to 0 before and read after, no plain-engine call); one outer
+    iteration card against CPU at a narrow size (4 envs, 4 SGD steps of
+    256, float32 students, TF32 off, cuDNN deterministic): the visited
+    obs, the env states, the labels and the agreement EQUAL, the loss and
+    the parameters within 1e-5; then a profiler window of one full-width
+    iteration (device busy, idle share, K1's device us a launch) and the
+    allocator's peak."""
+    from marlsnake_torch.algo import optim
+    from marlsnake_torch.algo.neat_hybrid import load_hybrid_raw
+    from marlsnake_torch.core import engine
+    from marlsnake_torch.envs.vector import VectorSnakeEnv
+    from marlsnake_torch.ops import step_kernel
+    from marlsnake_torch.rng import distill_draws
+    from marlsnake_torch.tools import distill_acting as D
+    from marlsnake_torch.algo.neat_hybrid import msgpack_unpack
+    from marlsnake_torch.models.weights import distilled_dqn_from_flax
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    hybrid = os.path.join(root, D.HYBRID)
+    teacher_params = load_hybrid_raw(hybrid)['dqn_params']
+    cfg = D.env_config()
+    conv, fc, e = D.COMMITTED['conv'], D.COMMITTED['fc'], 256
+    dev = torch.device('cuda')
+    out = {}
+
+    def setup(seed):
+        teacher = D.make_teacher(teacher_params, cfg, dev)
+        student = D.make_student(cfg, conv, fc, dev)
+        params = {k: v.detach() for k, v in student.named_parameters()}
+        env = VectorSnakeEnv(cfg, e, device=dev, seed=seed)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 1)
+        return teacher, student, params, env, env.reset(), gen
+
+    # --- K1 against the plain engine over one iteration's rollout ---
+    _, student, params, env, (states, obs), gen = setup(91)
+    draws = distill_draws(cfg, e, D.ROLLOUT_STEPS, D.SGD_STEPS, D.BATCH,
+                          gen, dev)
+    tables = engine.spawn_tables(cfg, dev)
+    err, resets = 0.0, 0
+    with torch.no_grad():
+        for t in range(D.ROLLOUT_STEPS):
+            acts = D.greedy(student, params, obs.flatten(0, 1)).to(
+                torch.int32).view(e, cfg.num_snakes)
+            d = draws.step_at(t)
+            want = engine.step_autoreset(cfg, tables, states, acts, d)
+            got = env.step(states, acts, d)
+            err = max(err, compare(got, want, f'distill rollout t={t}'))
+            resets += int(got[1].done_all.sum())
+            states, obs = got[0], got[1].obs
+    if resets == 0:
+        raise AssertionError('no auto-reset in the distill rollout')
+    out['max_abs_err'] = err
+    log(f'distill: K1 against the plain engine over a 32-step greedy '
+        f'rollout of the student at E={e} with its draws: equal, {resets} '
+        f'auto-resets, max_abs_err={err}')
+    del env, states, obs, draws
+
+    # --- the program: 3 outer iterations at full width ---
+    step_kernel.step.launches = 0
+    step_kernel.step_autoreset.launches = 0
+    with PlainEngineCalls() as plain:
+        summary = D.run(3, e, conv, fc, out=os.path.join(tmp, 'distill'),
+                        hybrid=hybrid, device='cuda')
+        torch.cuda.synchronize()
+    launches = step_kernel.step_autoreset.launches
+    want = 3 * D.ROLLOUT_STEPS
+    if (launches, step_kernel.step.launches, plain.calls) != (want, 0, 0):
+        raise AssertionError(
+            f'distill program: step_autoreset {launches} launches for '
+            f'{want} rollout steps, step {step_kernel.step.launches}, '
+            f'plain engine {plain.calls} calls')
+    if not (0.0 <= summary['agreement'] <= 1.0
+            and math.isfinite(summary['loss'])) or summary['card'] != smi:
+        raise AssertionError(f'distill program: {summary}')
+    with open(summary['student'], 'rb') as f:
+        written = distilled_dqn_from_flax(msgpack_unpack(f.read()))
+    if {k: tuple(v.shape) for k, v in written.items()} != {
+            k: tuple(v.shape) for k, v in student.state_dict().items()}:
+        raise AssertionError('the written student is not the student')
+    out['launches'] = launches
+    out['program'] = {k: v for k, v in summary.items()
+                      if k not in ('student', 'meta')}
+    log(f'distill program (3 iterations, E={e}, conv {conv}, fc {fc}): '
+        f'step_autoreset launches {launches}, no plain-engine call; '
+        f'{json.dumps(out["program"])} [{smi}]')
+
+    # --- one iteration, card against CPU, narrow ---
+    out['card_vs_cpu'] = distill_card_vs_cpu(teacher_params)
+    log(f'distill one iteration card against CPU (4 envs, 32 steps, 4 '
+        f'SGD steps of 256, float32, cuDNN deterministic): obs, states, '
+        f'data, labels and agreement equal, loss and parameters within '
+        f'1e-5: {json.dumps(out["card_vs_cpu"])}')
+
+    # --- a profiler window of one full-width iteration ---
+    teacher, student, params, env, (states, obs), gen = setup(94)
+    held = [params, optim.adam_init(list(params.values())), states, obs]
+
+    def iteration():
+        draws = distill_draws(cfg, e, D.ROLLOUT_STEPS, D.SGD_STEPS, D.BATCH,
+                              gen, dev)
+        res = D.outer_iteration(env, teacher, student, held[0], held[1],
+                                held[2], held[3], draws)
+        held[:] = [res.params, res.opt_state, res.states, res.obs]
+
+    torch.cuda.reset_peak_memory_stats()
+    window = profile_device(iteration, 1)
+    k1 = [v for k, v in window['kernels'].items() if KERNEL_NAME in k]
+    out['window'] = {k: window[k] for k in ('busy_us', 'span_us',
+                                            'idle_share', 'wall_us',
+                                            'dtoh', 'kernel_launches')}
+    out['window']['device_events'] = sum(v[1] for v in
+                                         window['kernels'].values())
+    out['k1_device_us_per_launch'] = (sum(v[0] for v in k1)
+                                      / sum(v[1] for v in k1))
+    out['k1_launches_in_window'] = sum(v[1] for v in k1)
+    out['max_memory_allocated'] = torch.cuda.max_memory_allocated()
+    log_window('profile of one outer iteration of the distillation (E=256, '
+               'conv 32,64, fc 128)', window, 1, smi, also=(KERNEL_NAME,))
+    log(f'distill: K1 {out["k1_device_us_per_launch"]:.2f} us a launch at '
+        f'E={e} in the window ({out["k1_launches_in_window"]} launches), '
+        f'allocator peak {out["max_memory_allocated"]} B [{smi}]')
+    out['seconds'] = time.perf_counter() - t_phase
+    log(f'distill phase: {out["seconds"]:.1f} s')
+    return out
+
+
+def distill_card_vs_cpu(teacher_params) -> dict:
+    """One outer iteration of the distillation on the card against the
+    same on the CPU, narrow (4 envs, 32 rollout steps, 4 SGD steps of
+    256, the committed student's widths in float32, the trained
+    teacher): the card's ``outer_iteration`` EQUAL to its own parts
+    (cuDNN deterministic), and the parts card against CPU: the visited
+    obs, env states and labels EQUAL, each step's gradients within
+    1e-5 + 1e-4 x max|g| (a TD update's tolerance), the loss and the
+    parameters after the 4 steps within 1e-5, the agreement EQUAL."""
+    from marlsnake_torch.algo import optim
+    from marlsnake_torch.algo.dqn_trainer import mean_of
+    from marlsnake_torch.envs.vector import VectorSnakeEnv
+    from marlsnake_torch.rng import distill_draws
+    from marlsnake_torch.tools import distill_acting as D
+
+    cfg = D.env_config()
+    conv, fc = D.COMMITTED['conv'], D.COMMITTED['fc']
+    # The card's iteration through ``outer_iteration`` and again in its
+    # parts (EQUAL, cuDNN deterministic), the parts on the CPU beside
+    # them. Where a gradient component is within rounding of zero on both
+    # sides (|g| < Adam's eps, 1e-8), Adam's update lr * g / (|g| + eps)
+    # is no longer sign-like: it magnifies the two sides' rounding
+    # difference there by up to lr / eps = 3e4. The CPU chain takes the
+    # card's gradient at those components (counted), its own elsewhere.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        narrow, eps = 4, 1e-8
+        cpu_env = VectorSnakeEnv(cfg, narrow, device='cpu', seed=92)
+        start = cpu_env.reset()
+        cpu_draws = distill_draws(cfg, narrow, D.ROLLOUT_STEPS, 4, 256,
+                                  torch.Generator().manual_seed(93), 'cpu')
+        sides = {}
+        for where in ('cpu', 'cuda'):
+            def to(x, where=where):
+                return x.to(where)
+            student = D.make_student(cfg, conv, fc, where, torch.float32)
+            sides[where] = dict(
+                env=VectorSnakeEnv(cfg, narrow, device=where),
+                teacher=D.make_teacher(teacher_params, cfg, where),
+                student=student,
+                params={k: v.detach() for k, v in
+                        student.named_parameters()},
+                states=start[0].replace(**{k: to(v) for k, v in
+                                           start[0].fields()}),
+                obs=to(start[1]),
+                draws=type(cpu_draws)(
+                    type(cpu_draws.step)(*map(to, cpu_draws.step)),
+                    to(cpu_draws.idx)))
+        card = sides['cuda']
+        whole = D.outer_iteration(
+            card['env'], card['teacher'], card['student'], card['params'],
+            optim.adam_init(list(card['params'].values())), card['states'],
+            card['obs'], card['draws'])
+        for sd in sides.values():
+            with torch.no_grad():
+                sd['states'], sd['obs'], sd['data'] = D.rollout(
+                    sd['env'], sd['student'], sd['params'], sd['states'],
+                    sd['obs'], sd['draws'])
+                sd['q'] = sd['teacher'](sd['data'])
+                sd['labels'] = sd['q'].argmax(-1)
+        cpu = sides['cpu']
+        for name in ('states', 'obs', 'data', 'labels'):
+            same_tree(whole._asdict()[name], card[name],
+                      f'distill card: outer_iteration against its parts: '
+                      f'{name}')
+            got = card[name]
+            got = (got.replace(**{k: v.cpu() for k, v in got.fields()})
+                   if name == 'states' else got.cpu())
+            same_tree(got, cpu[name], f'distill card against CPU: {name}')
+
+        chains = {'card': card['params'], 'cpu': cpu['params']}
+        opts = {k: optim.adam_init(list(v.values()))
+                for k, v in chains.items()}
+        losses = {k: [] for k in chains}
+        substituted, grad_use = 0, 0.0
+        for rows in cpu_draws.idx:
+            grads = {}
+            for k, sd in (('card', card), ('cpu', cpu)):
+                r = rows.to(sd['data'].device)
+                loss, grads[k] = D.loss_and_grads(
+                    sd['student'], chains[k], sd['data'][r],
+                    sd['labels'][r], sd['q'][r])
+                losses[k].append(loss.cpu())
+            mixed = []
+            for a, b in zip(grads['cpu'], grads['card']):
+                b = b.cpu()
+                grad_use = max(grad_use, float((a - b).abs().max())
+                               / (1e-5 + 1e-4 * float(a.abs().max())))
+                tiny = (a.abs() < eps) & (b.abs() < eps)
+                substituted += int((tiny & (a != b)).sum())
+                mixed.append(torch.where(tiny, b, a))
+            grads['cpu'] = mixed
+            for k in chains:
+                chains[k], opts[k] = D.adam_step(chains[k], opts[k],
+                                                 grads[k])
+        same_tree(chains['card'], whole.params,
+                  'distill card: outer_iteration against its parts: params')
+        loss = {k: float(mean_of(torch.stack(v))) for k, v in
+                losses.items()}
+        if loss['card'] != float(whole.loss):
+            raise AssertionError('distill card: outer_iteration against its '
+                                 'parts: loss')
+
+        with torch.no_grad():
+            cpu_agree = float(mean_of((D.greedy(
+                cpu['student'], chains['cpu'], cpu['data'])
+                == cpu['labels']).to(torch.float32)))
+        result = {
+            'envs': narrow, 'sgd_steps': 4, 'batch': 256,
+            'agreement': float(whole.agreement), 'loss': loss['card'],
+            'loss_abs_diff': abs(loss['card'] - loss['cpu']),
+            'param_max_abs_diff': max(
+                float((chains['card'][n].cpu() - v).abs().max())
+                for n, v in chains['cpu'].items()),
+            'substituted_components': substituted,
+            'grad_share_of_tolerance': grad_use}
+        if (grad_use > 1.0 or result['loss_abs_diff'] > 1e-5
+                or result['param_max_abs_diff'] > 1e-5
+                or cpu_agree != float(whole.agreement)):
+            raise AssertionError(
+                f'distill card against CPU: gradients at {grad_use} of '
+                f'1e-5 + 1e-4 x max|g|, loss and parameters within 1e-5, '
+                f'agreement {float(whole.agreement)} against {cpu_agree}')
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return result
+
+
+
+def demos_phase(smi: str) -> dict:
+    """The two rollout demos (``marlsnake_torch/examples/demo.py`` and
+    ``vector_rollout.py``) at their defaults: first K1 against the plain
+    engine over the demo's first 64 steps at B=1024 with its own actions
+    and draws (tolerance 0); then each program's ``main``, K1 launched
+    once a step of its two rollouts (the counters set to 0 before and
+    read after, no plain-engine call), and their env-steps/s."""
+    from marlsnake_torch.core import engine
+    from marlsnake_torch.envs.vector import VectorSnakeEnv
+    from marlsnake_torch.examples import demo
+    from marlsnake_torch.examples import vector_rollout as V
+    from marlsnake_torch.ops import step_kernel
+    from marlsnake_torch.rng import rollout_draws
+
+    out = {}
+    cfg = demo.demo_config()
+    env = VectorSnakeEnv(cfg, 1024, device='cuda')
+    states, _ = env.reset(0)
+    actions, draws = rollout_draws(cfg, 1024, 256, env.generator, 'cuda')
+    tables = engine.spawn_tables(cfg, torch.device('cuda'))
+    err, resets = 0.0, 0
+    for t in range(64):
+        d = draws.at(t)
+        want = engine.step_autoreset(cfg, tables, states, actions[t], d)
+        got = env.step(states, actions[t], d)
+        err = max(err, compare(got, want, f'demo t={t}'))
+        resets += int(got[1].done_all.sum())
+        states = got[0]
+    if resets == 0:
+        raise AssertionError('no auto-reset in the demo parity run')
+    out['max_abs_err'] = err
+    log(f'demo: K1 against the plain engine over the first 64 steps at '
+        f'B=1024 (20x20x4, length 5) with its draws: equal, {resets} '
+        f'auto-resets, max_abs_err={err}')
+    del env, states, actions, draws
+
+    for name, program, want in (('demo', demo.main, 2 * 256),
+                                ('vector_rollout', V.main, 2 * V.STEPS)):
+        step_kernel.step.launches = 0
+        step_kernel.step_autoreset.launches = 0
+        with PlainEngineCalls() as plain:
+            summary = program([])
+            torch.cuda.synchronize()
+        launches = step_kernel.step_autoreset.launches
+        if (launches, step_kernel.step.launches, plain.calls) != (want, 0,
+                                                                  0):
+            raise AssertionError(f'{name}: step_autoreset {launches} '
+                                 f'launches for {want} steps, step '
+                                 f'{step_kernel.step.launches}, plain '
+                                 f'engine {plain.calls} calls')
+        if summary['card'] != smi or not summary['env_steps_per_s'] > 0:
+            raise AssertionError(f'{name}: {summary}')
+        out[name] = dict(summary, launches=launches)
+        log(f'{name}: {json.dumps(out[name])} [{smi}]')
+    if not (out['demo']['fruits'] > 0 and out['demo']['deaths'] > 0
+            and math.isfinite(out['vector_rollout']['mean_reward'])):
+        raise AssertionError(f'demos: {out}')
+    return out
+
+
 def masked_paths(smi: str, steps: int = 128) -> dict:
     """ms per step (host clock) and a profiler window of 16 steps (device
     events, busy us, idle share a step) of the three masked paths, through
@@ -4344,13 +4689,21 @@ def main() -> int:
     log(f'flagship: {json.dumps(flagship)}')
     torch.cuda.empty_cache()
 
-    # --- 17. data-parallel training ---
+    # --- 17. the distillation and the two rollout demos ---
+    with tempfile.TemporaryDirectory() as distill_dir:
+        distill = distill_phase(smi, distill_dir)
+    log(f'distill: {json.dumps(distill)}')
+    torch.cuda.empty_cache()
+    demos = demos_phase(smi)
+    torch.cuda.empty_cache()
+
+    # --- 18. data-parallel training ---
     with tempfile.TemporaryDirectory() as dp_dir:
         dp = parallel_phase(smi, dp_dir)
     log(f'parallel: {json.dumps(dp)}')
     torch.cuda.empty_cache()
 
-    # --- 18. the captured loops against their bodies, and their times ---
+    # --- 19. the captured loops against their bodies, and their times ---
     graphs = graph_phase(smi)
     log(f'graphs: {json.dumps(graphs)}')
     torch.cuda.empty_cache()
@@ -4374,8 +4727,9 @@ def main() -> int:
         source='marlsnake_torch/csrc/step_autoreset.cu',
         replaces='marlsnake_tpu/ops/pallas_step.py:54',
         launches=launches,
-        max_abs_err=max([err] + [v for k, v in showcase['max_abs_err'].items()
-                                 if k.startswith('step_autoreset ')]),
+        max_abs_err=max([err, distill['max_abs_err'], demos['max_abs_err']]
+                        + [v for k, v in showcase['max_abs_err'].items()
+                           if k.startswith('step_autoreset ')]),
         acting_forward_ms=forward_ms,
         bench_env_steps_per_s=b['value'],
         bench_idle_share=bench_idle,
@@ -4400,6 +4754,18 @@ def main() -> int:
                               if k.startswith('step_autoreset ')},
         bench_table_launches=table['launches'],
         max_abs_err_bench_table=table['max_abs_err'],
+        launches_by_path={
+            'distill_acting (E=256, 3 iterations of 32 steps)': distill[
+                'launches'],
+            'demo (B=1024, 2 rollouts of 256 steps)': demos['demo'][
+                'launches'],
+            'vector_rollout (B=4096, 2 rollouts of 256 steps)': demos[
+                'vector_rollout']['launches']},
+        max_abs_err_distill_b256=distill['max_abs_err'],
+        max_abs_err_demo_b1024=demos['max_abs_err'],
+        distill={k: v for k, v in distill.items()
+                 if k not in ('launches', 'max_abs_err')},
+        demos={k: v for k, v in demos.items() if k != 'max_abs_err'},
         device_us_per_launch_in_windows=in_graphs(KERNEL_NAME),
         graph_bench_env_steps_per_s=graphs['bench'],
         graph_ppo=graphs['ppo'],

@@ -12,7 +12,8 @@ into the port's ``TrainState``. The ActorCritic flattens NHWC in both
 packages, so its kernels are transposed only
 (``actor_critic_from_flax``, ``actor_critic_to_flax``), and
 ``ppo_train_state_from_flax`` carries a JAX ``PPOTrainState`` across; so
-does the ``DistilledDQN`` (``distilled_dqn_from_flax``). The states of the
+does the ``DistilledDQN`` (``distilled_dqn_from_flax``, and back with
+``distilled_dqn_to_flax``). The states of the
 JAX data-parallel trainers split into one port state a rank
 (``dp_train_states_from_flax``, ``dp_ppo_train_states_from_flax``).
 """
@@ -313,6 +314,31 @@ def distilled_dqn_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         out[f'{ours}.weight'] = t(np.asarray(p[name]['kernel']).T)
         out[f'{ours}.bias'] = t(p[name]['bias'])
     return out
+
+
+def distilled_dqn_to_flax(state_dict: Mapping) -> Dict[str, dict]:
+    """The inverse of ``distilled_dqn_from_flax``: a ``DistilledDQN``
+    state_dict (or any dict of its layout, such as Adam moments) as
+    flax's ``{'params': {'Conv_i' / 'Dense_j': {'kernel', 'bias'}}}`` of
+    numpy arrays, the head the last ``Dense``."""
+    def a(t):
+        return np.asarray(torch.as_tensor(t).detach().cpu())
+
+    def layers(prefix):
+        return sorted({int(k.split('.')[1]) for k in state_dict
+                       if k.startswith(prefix)})
+
+    out = {}
+    for i in layers('convs.'):
+        out[f'Conv_{i}'] = {
+            'kernel': np.transpose(a(state_dict[f'convs.{i}.weight']),
+                                   (2, 3, 1, 0)),
+            'bias': a(state_dict[f'convs.{i}.bias'])}
+    denses = [f'fcs.{j}' for j in layers('fcs.')] + ['head']
+    for j, name in enumerate(denses):
+        out[f'Dense_{j}'] = {'kernel': a(state_dict[f'{name}.weight']).T,
+                             'bias': a(state_dict[f'{name}.bias'])}
+    return {'params': out}
 
 
 def dqn_from_reference(state_dict: Mapping) -> Dict[str, torch.Tensor]:

@@ -38,6 +38,11 @@ seat's actions.
 
 A data-parallel rank seeds its generators with ``rank_seed``, so that
 its draws are its own.
+
+An outer iteration of the DAgger distillation
+(``tools/distill_acting.py``) takes ``DistillDraws``: the step draws of
+its rollout and the indices of its minibatches into the rollout's
+buffer of visited obs.
 """
 
 from __future__ import annotations
@@ -62,6 +67,10 @@ class StepDraws(NamedTuple):
     # (B,) float32: auto-reset pool row; (B, N, 4) procedural
     reset_spawn_u: torch.Tensor
     reset_fruit_u: torch.Tensor  # (B, nf) float32: auto-reset fruits
+
+    def at(self, t: int) -> 'StepDraws':
+        """Step ``t``'s draws of a sequence, step axis first."""
+        return StepDraws(*(x[t] for x in self))
 
 
 def _rand(shape, generator, device) -> torch.Tensor:
@@ -159,7 +168,7 @@ class PPODraws(NamedTuple):
     perm: torch.Tensor    # (update_epochs, T * E * N) int64: minibatch order
 
     def step_at(self, t: int) -> StepDraws:
-        return StepDraws(*(x[t] for x in self.step))
+        return self.step.at(t)
 
 
 def _gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
@@ -283,3 +292,27 @@ def battle_draws(cfg: EnvConfig, seat_kinds, num_envs: int, steps: int,
             raise ValueError(f"unknown seat draw {kind!r}; choose from "
                              f"'tiebreak', 'action' or None")
     return BattleDraws(reset, fruit, tuple(seats))
+
+
+class DistillDraws(NamedTuple):
+    """The draws of one outer iteration of the distillation: its
+    rollout's ``T`` steps of ``E`` envs (``step_draws_seq``) and the
+    buffer rows of each SGD step's minibatch."""
+    step: StepDraws
+    idx: torch.Tensor  # (sgd_steps, batch) int64 in [0, T * E * N)
+
+    def step_at(self, t: int) -> StepDraws:
+        return self.step.at(t)
+
+
+def distill_draws(cfg: EnvConfig, num_envs: int, rollout_steps: int,
+                  sgd_steps: int, batch: int, generator: torch.Generator,
+                  device) -> DistillDraws:
+    """The rollout's step draws, then the minibatch indices, uniform over
+    the ``rollout_steps * num_envs * num_snakes`` rows of the buffer, as
+    JAX's ``random.randint(k, (batch,), 0, rows)`` draws them."""
+    step = step_draws_seq(cfg, num_envs, rollout_steps, generator, device)
+    rows = rollout_steps * num_envs * cfg.num_snakes
+    idx = torch.randint(0, rows, (sgd_steps, batch), generator=generator,
+                        device=device, dtype=torch.int64)
+    return DistillDraws(step, idx)

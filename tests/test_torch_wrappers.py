@@ -362,8 +362,9 @@ def test_dqn_evaluator_matches_jax():
 
 def test_new_modules_import_no_jax_and_no_optional_package():
     """The wrapper layer, the evolution trainers, the battle arenas, the
-    CLI and their helpers import neither JAX nor the JAX package, and
-    leave msgpack, PIL, cv2 and gym to the functions that use them."""
+    CLI, the distillation and the two rollout demos and their helpers
+    import neither JAX nor the JAX package, and leave msgpack, PIL, cv2
+    and gym to the functions that use them."""
     code = ('import marlsnake_torch.algo.neat_hybrid, '
             'marlsnake_torch.algo.neat, marlsnake_torch.envs.wrappers, '
             'marlsnake_torch.envs.gym_compat, marlsnake_torch.core.render, '
@@ -373,7 +374,10 @@ def test_new_modules_import_no_jax_and_no_optional_package():
             'marlsnake_torch.algo.battle_batch, '
             'marlsnake_torch.algo.opponents, '
             'marlsnake_torch.utils.profiling, '
-            'marlsnake_torch.utils.checkpoint; '
+            'marlsnake_torch.utils.checkpoint, '
+            'marlsnake_torch.tools.distill_acting, '
+            'marlsnake_torch.examples.demo, '
+            'marlsnake_torch.examples.vector_rollout; '
             'import sys; bad = [m for m in sys.modules if m.split(".")[0] '
             'in ("jax", "jaxlib", "flax", "optax", "orbax", "marlsnake_tpu", '
             '"msgpack", "PIL", "cv2", "gym", "gymnasium")]; '
