@@ -126,15 +126,22 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    checkpoint round trip (cuDNN deterministic; the next update equal from
    both, the saving trainer's rollout uncaptured); the `--mode ppo` bench rows at 64 and 256 envs; profiler windows
    over 16 rollout steps and one minibatch update of 32,768 rows. Then
-   evaluate_batch's loop (build_evaluate_batch) with the port's DQN at 256
-   envs of 20x20x4 for up to 512 steps, the step entry and the safety mask
-   launched once a step taken (auto-reset entry never, the plain mask and
-   the plain fills never); the mask on the card EQUAL to its plain version
-   on the card and on the CPU on 16 recorded steps, and reachable_count's
-   own path (each step's 3,072 post-move boards, 16 launches) EQUAL to the
-   plain fill; ms per step, a profiler window of 16 evaluation steps, and
-   both mask entries' device_ms, host_us, call_ms, plain ms and bound at
-   the path's shapes;
+   evaluate_batch's loop (build_evaluate_batch, chunks of 8 steps, a
+   captured graph) with the port's DQN at 256 envs of 20x20x4 for up to
+   512 steps, the step entry and the safety mask launched once a step run
+   (whole chunks: the last one runs on after every env is done;
+   auto-reset entry never, the plain mask and the plain fills never); the
+   mask on the card EQUAL to its plain version on the card and on the CPU
+   on 16 recorded steps, and reachable_count's own path (each step's
+   3,072 post-move boards, 16 launches) EQUAL to the plain fill; the step
+   entry holding no env EQUAL to it without a hold (the chunks' first
+   step); the graph EQUAL to its uncaptured chunks (result and every
+   buffer, captured under deterministic cuDNN, tolerance 0); ms a step,
+   graph against uncaptured in turns (G U U G); profiler windows of 16
+   steps both ways (device busy, idle share, launches and read-backs a
+   step, the step kernel's and the mask's device us a launch in the
+   graph); the capture's seconds and pool bytes; both mask entries'
+   device_ms, host_us, call_ms, plain ms and bound at the path's shapes;
 15. NEAT and ES evolution at full width (``evolution_phase``):
    HybridNEATTrainer with NeatConfig()'s pop 100 over the reference-width
    DQN (20x20x4, length 5, DEFAULT_REWARD, 512-step episodes) for 3
@@ -165,13 +172,16 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    B=100 and B=129, the widths of the adapter, NEAT and ES (tolerance 0);
    then the battle arenas (``battle_phase``): build_battle_batch at 128
    envs of 20x20x4 (length 5) for up to 512 steps, the masked DQN against
-   the PPO phase's trained net, the NEAT phase's winner and Greedy (one
-   step launch a loop step, no plain-engine call; the same battle
-   recorded on the card and 16 of its episodes replayed on the CPU:
-   every decision more than 1e-4 from a tie equal, near-ties counted,
-   rewards and lifetimes of unparted episodes equal; one mask launch at
-   E=128, N=1 a step; ms per battle step, a profiler window of 16 steps,
-   both mask entries at the battle's shapes) and the host BattleArena for
+   the PPO phase's trained net, the NEAT phase's winner and Greedy
+   (chunks of 8 steps, a captured graph; one step launch a step run, no
+   plain-engine call; the same battle recorded on the card, uncaptured,
+   and 16 of its episodes replayed on the CPU: every decision more than
+   1e-4 from a tie equal, near-ties counted, rewards and lifetimes of
+   unparted episodes equal; one mask launch at E=128, N=1 a step run; the
+   hold of no env and the graph against its uncaptured chunks as in the
+   evaluator's; ms a step in turns G U U G, profiler windows of 16 steps
+   both ways, the capture's cost; both mask entries at the battle's
+   shapes) and the host BattleArena for
    one episode of up to 128 steps (one step launch at B=1 a step, one
    mask launch a step seat 0 began alive); then every subcommand of the
    CLI once at small counts (``cli_phase``: train writes the checkpoint
@@ -242,8 +252,13 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    episodes, a holdout of 64) over the trained DQN of
    ``artifacts/hybrid_neat_20x20.pkl`` (the step entry once an env step,
    tallied by width), one fitness episode of 8 genomes on the trained
-   features card against CPU, and profiler windows of 16 trained fitness
-   steps at B=100 and B=257;
+   features card against CPU (uncaptured, as it reads every step's
+   values back), profiler windows of 16 trained fitness steps at B=100
+   and B=257, graph and uncaptured; then the fitness graphs of 512-step
+   episodes at B=100 (NEAT) and B=257 (ES) EQUAL to their uncaptured
+   chunks (returns and every buffer, cuDNN deterministic, tolerance 0),
+   ms a step run in turns G U U G, and each graph's capture seconds and
+   pool bytes;
 20. the distillation and the two rollout demos (``distill_phase``,
    ``demos_phase``, after the flagship phase): K1 against the plain
    engine over one 32-step greedy rollout of the committed student
@@ -1450,10 +1465,12 @@ def evaluator_phase(smi: str) -> dict:
     """The batched, safety-masked evaluator with the port's DQN at 20x20x4
     (the DQN trainer's env config), 256 envs, 512 steps (the JAX
     defaults): the step entry and the safety mask launched once a step
-    taken, no call of the plain mask or of any flood fill; then the mask
-    on the card against its plain version on the card and on the CPU over
-    16 recorded steps; then times: ms per step, a profiler window of 16
-    evaluation steps, the mask and the flood fill at the main path's
+    run (whole chunks), no call of the plain mask or of any flood fill;
+    then the mask on the card against its plain version on the card and
+    on the CPU over 16 recorded steps; then the graph of the chunks: the
+    step entry holding no env equal to no hold, the graph EQUAL to its
+    uncaptured chunks (cuDNN deterministic), ms a step in turns, windows
+    of 16 steps both ways; the mask and the flood fill at the main path's
     shapes."""
     from marlsnake_torch.algo.dqn_trainer import DQNConfig
     from marlsnake_torch.algo.evaluator import (build_evaluate_batch,
@@ -1481,15 +1498,20 @@ def evaluator_phase(smi: str) -> dict:
     auto = step_kernel.step_autoreset.launches
     masks = SM.safety_mask.launches
     fills = floodfill.reachable_count.launches
+    # the loop runs whole chunks: the last one runs on after every env is
+    # done, its steps holding every env still, and launches as it goes
+    ran = chunked(res.steps, run.chunk_steps)
     log(f'evaluator path: {num_envs} envs of {cfg.height}x{cfg.width}x{n}, '
-        f'{res.steps} of {max_steps} steps in {first_s:.2f} s (with the '
-        f'warm-up), step launches={launches}, step_autoreset launches='
+        f'{res.steps} of {max_steps} steps taken, {ran} run in chunks of '
+        f'{run.chunk_steps}, in {first_s:.2f} s (with the warm-up and the '
+        f'capture), step launches={launches}, step_autoreset launches='
         f'{auto}, safety_mask launches={masks}, reachable_count launches='
         f'{fills}, plain mask calls={plain.calls}; mean reward {reward}, '
-        f'mean lifetime {lifetime}')
-    if launches != res.steps or auto != 0 or masks != res.steps \
+        f'mean lifetime {lifetime}; the graph '
+        f'{json.dumps(run.captured_loops()[0].stats())}')
+    if launches != ran or auto != 0 or masks != ran \
             or fills != 0 or plain.calls:
-        raise AssertionError(f'{res.steps} evaluation steps but {launches} '
+        raise AssertionError(f'{ran} evaluation steps run but {launches} '
                              f'launches of step, {auto} of step_autoreset, '
                              f'{masks} of safety_mask, {fills} of '
                              f'reachable_count, plain calls {plain.calls}')
@@ -1542,18 +1564,45 @@ def evaluator_phase(smi: str) -> dict:
         raise AssertionError(f'reachable_count: 16 calls, {fill_launches} '
                              f'launches')
 
-    # times
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    timed = run(seed=32)
-    float(timed.mean_reward)
-    ms_per_step = (time.perf_counter() - t0) / timed.steps * 1e3
-    log(f'evaluator: {ms_per_step:.3f} ms per step over {timed.steps} steps '
-        f'of {num_envs} envs (host clock, one read-back a step) [{smi}]')
+    # the graph: its first step's hold of no env, the graph against its
+    # uncaptured chunks, times in turns, windows of 16 steps both ways
+    graph = {'hold_of_none_max_abs_err': hold_of_none_check(cfg, num_envs,
+                                                            seed=37)}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        det = build_evaluate_batch(net, cfg, num_envs, max_steps, 60,
+                                   device='cuda')
+        det(seed=35)                                  # the capture
+        graph['equal'] = graph_equal(
+            f'evaluate_batch at {num_envs} envs x {max_steps} steps',
+            lambda: det(seed=36), lambda: det.uncaptured(seed=36),
+            det.buffers, smi)
+        graph['deterministic_capture'] = det.captured_loops()[0].stats()
+        del det
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    def played(fn):
+        def go():
+            r = fn(seed=32)
+            float(r.mean_reward)
+            return r.steps, chunked(r.steps, run.chunk_steps)
+        return go
+
+    graph['turns'] = in_turns(
+        f'evaluate_batch at {num_envs} envs x {max_steps} steps',
+        {'graph': played(run), 'uncaptured': played(run.uncaptured)}, smi)
+    ms_per_step = graph['turns']['graph_ms_per_step'][-1]
     short = build_evaluate_batch(net, cfg, num_envs, 16, 60, device='cuda')
-    window = profile_device(lambda: short(seed=34), 1)
-    log_window('profile of 16 evaluation steps at 256 envs', window, 16, smi,
-               also=(STEP_KERNEL_NAME, MASK_KERNEL_NAME))
+    graph['windows'] = {
+        name: loop_window(f'evaluation ({name}, {num_envs} envs)',
+                          lambda fn=fn: fn(seed=34), 16, smi)
+        for name, fn in (('graph', short), ('uncaptured', short.uncaptured))}
+    window = graph['windows']['graph']
+    graph['capture'] = run.captured_loops()[0].stats()
+    graph['capture_16_steps'] = short.captured_loops()[0].stats()
+    log(f'evaluator graph: {json.dumps(graph)} [{smi}]')
     mask_row = time_mask(f'safety_mask at the evaluator\'s E={num_envs}, '
                          f'N={n}, 20x20', inputs, 60, smi)
     fill_row = time_fill(f'reachable_count at the evaluator\'s '
@@ -1565,8 +1614,10 @@ def evaluator_phase(smi: str) -> dict:
             'mask_max_abs_err': mask_err,
             'fill_max_abs_err': fill_err,
             'evaluator_steps': res.steps,
+            'evaluator_steps_run': ran,
             'evaluator_ms_per_step': ms_per_step,
-            'evaluator_window': window_summary(window, 16),
+            'evaluator_window': window,
+            'evaluator_graph': graph,
             'mask_evaluator': mask_row,
             'fill_evaluator': fill_row}
 
@@ -1576,6 +1627,123 @@ def window_summary(window, steps: int) -> dict:
     (``marlsnake_torch.utils.profiling.per_step``)."""
     from marlsnake_torch.utils.profiling import per_step
     return per_step(window, steps)
+
+
+def loop_snapshot(buffers) -> dict:
+    """Clones of every tensor a chunked loop's buffers hold, by field (its
+    ``StaticEnvs``' every state and output field: not the arena's bytes,
+    whose alignment padding no step writes)."""
+    from marlsnake_torch.utils.cuda_graph import clone_tree
+    out = {}
+    for name in buffers.__dataclass_fields__:
+        value = getattr(buffers, name)
+        if hasattr(value, 'arena'):
+            value = dict(list(value.state.fields()) + list(value.out.fields()))
+        if not callable(value) or isinstance(value, torch.Tensor):
+            out[name] = clone_tree(value)
+    return out
+
+
+def hold_of_none_check(cfg, num_envs: int, seed: int) -> float:
+    """The chunks' first step holds with no env's flag set: on the card,
+    field for field the step without a hold (tolerance 0), at the loop's
+    shape, 8 steps of random actions from a reset."""
+    from marlsnake_torch.core import engine
+    from marlsnake_torch.ops import step_kernel
+    from marlsnake_torch.rng import reset_draws
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed)
+    envs = step_kernel.StaticEnvs(cfg, num_envs, 'cuda')
+    state, obs = engine.reset(cfg, engine.spawn_tables(cfg, 'cuda'),
+                              reset_draws(cfg, num_envs, gen, 'cuda'))
+    envs.load(state)
+    envs.out.obs.copy_(obs)
+    none = torch.zeros(num_envs, dtype=torch.bool, device='cuda')
+    err = 0.0
+    for t in range(8):
+        actions = torch.randint(0, 3, (num_envs, cfg.num_snakes),
+                                generator=gen, device='cuda',
+                                dtype=torch.int32)
+        fruit = torch.rand((num_envs, cfg.num_snakes), generator=gen,
+                           device='cuda')
+        want = step_kernel.step(cfg, envs.state, actions, fruit)
+        got = step_kernel.step(cfg, envs.state, actions, fruit,
+                               hold=(none, envs.out))
+        err = max(err, compare(got, want, f'a hold of no env at B='
+                                          f'{num_envs}, step {t}'))
+        envs.store(*want)
+    return err
+
+
+def graph_equal(label, run_graph, run_plain, buffers, smi) -> dict:
+    """A chunked loop's graph against its uncaptured chunks, cuDNN
+    deterministic, tolerance 0: ``run_graph()`` (a replay, the capture
+    made before) and ``run_plain()`` from the same inputs return equal
+    results, and the loop's ``buffers`` end equal, field for field.
+    Returns {'max_abs_err': 0.0, ...} or raises."""
+    got = run_graph()
+    got_bufs = loop_snapshot(buffers)
+    want = run_plain()
+    want_bufs = loop_snapshot(buffers)
+    same_tree(got, want, f'{label}: the result of the graph against its '
+                         f'uncaptured chunks')
+    same_tree(got_bufs, want_bufs, f'{label}: the buffers of the graph '
+                                   f'against its uncaptured chunks')
+    log(f'{label}: the graph EQUAL to its uncaptured chunks (result and '
+        f'every buffer, cuDNN deterministic, tolerance 0) [{smi}]')
+    return {'max_abs_err': 0.0, 'fields': sorted(got_bufs)}
+
+
+def in_turns(label, runs: dict, smi) -> dict:
+    """ms a step of the graph and of the uncaptured chunks in turns
+    (graph, uncaptured, uncaptured, graph; host clock):
+    ``runs[name]()`` plays the loop once and returns (steps taken, steps
+    run). The graph must have been captured before."""
+    out = {'graph': [], 'uncaptured': []}
+    steps = {}
+    for name in ('graph', 'uncaptured', 'uncaptured', 'graph'):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        taken, ran = runs[name]()
+        torch.cuda.synchronize()
+        out[name].append((time.perf_counter() - t0) / taken * 1e3)
+        steps[name] = (taken, ran)
+    row = {'graph_ms_per_step': out['graph'],
+           'uncaptured_ms_per_step': out['uncaptured'],
+           'steps_taken_and_run': steps['graph']}
+    log(f'{label}: ms a step taken (host clock, in turns G U U G): '
+        f'{json.dumps(row)} [{smi}]')
+    return row
+
+
+def loop_window(label, fn, steps: int, smi,
+                also=(STEP_KERNEL_NAME, MASK_KERNEL_NAME)) -> dict:
+    """A profiler window of ``fn()``, which runs ``steps`` steps of a
+    loop: a step's device busy us, idle share, device events, graph and
+    kernel launches from the host and read-backs, and the device us a
+    launch and the launches of each kernel whose name holds one of
+    ``also``."""
+    w = profile_device(fn, 1)
+    log_window(f'profile of {steps} {label} steps', w, steps, smi,
+               also=also)
+    mine = {k: v for k, v in w['kernels'].items()
+            if any(a in k for a in also)}
+    return {'busy_us_per_step': w['busy_us'] / steps,
+            'wall_us_per_step': w['wall_us'] / steps,
+            'idle_share': w['idle_share'],
+            'device_events_per_step': sum(
+                v[1] for v in w['kernels'].values()) / steps,
+            'graph_launches_per_step': w['graph_launches'] / steps,
+            'kernel_launches_per_step': w['kernel_launches'] / steps,
+            'read_backs_per_step': w['dtoh'] / steps,
+            'kernel_us_per_launch': {k: v[0] / v[1] for k, v in mine.items()},
+            'kernel_launches_in_window': {k: v[1] for k, v in mine.items()}}
+
+
+def chunked(steps: int, chunk: int) -> int:
+    """The steps a chunked loop runs when it ends after ``steps``: whole
+    chunks, the last one running on past the end."""
+    return -(-steps // chunk) * chunk
 
 
 def top_block(values: torch.Tensor):
@@ -1619,7 +1787,7 @@ def episode_card_vs_cpu(trainer, cpu_trainer, genomes, draws) -> dict:
     trajectory has not parted: every decision more than 1e-4 from a tie
     must be equal on both sides; a near-tie that flips parts it. Returns
     of genomes never parted must be EQUAL."""
-    from marlsnake_torch.algo.neat_hybrid import PaddedNetBatch
+    from marlsnake_torch.algo.neat_hybrid import PaddedNetBatch, _Head
     from marlsnake_torch.rng import EpisodeDraws, ResetDraws
 
     cfg = trainer.neat_cfg
@@ -1630,7 +1798,7 @@ def episode_card_vs_cpu(trainer, cpu_trainer, genomes, draws) -> dict:
         batch = PaddedNetBatch(genomes, cfg, device=dev)
         values = []
 
-        def head(emb, batch=batch, values=values):
+        def act(tensors, emb, batch=batch, values=values):
             v = batch.logits(emb)
             values.append(v.cpu())
             return v.argmax(-1).to(torch.int32)
@@ -1638,7 +1806,13 @@ def episode_card_vs_cpu(trainer, cpu_trainer, genomes, draws) -> dict:
         d = draws.take(rows)
         d = EpisodeDraws(ResetDraws(*(x.to(dev) for x in d.reset)),
                          d.fruit_u.to(dev))
-        ret = tr._episode(head, d)
+        # the head reads its values back every step: the chunks run
+        # uncaptured (the values of a chunk's tail steps are recorded too)
+        captured, tr.captured = tr.captured, False
+        try:
+            ret = tr._episode(_Head(('recorded',), batch.tensors, act), d)
+        finally:
+            tr.captured = captured
         sides[dev] = (ret, values)
     (ret_g, val_g), (ret_c, val_c) = sides['cuda'], sides['cpu']
     parted = torch.zeros(pop, dtype=torch.bool)
@@ -1866,8 +2040,8 @@ def evolution_phase(smi: str, tmp: str) -> dict:
     # times: profiler windows of at least 16 fitness steps
     windows = {}
     for label, runner in (
-            ('neat', lambda t: t._episode(gen1.acts, t._draws(1).take(
-                torch.zeros(100, dtype=torch.long)))),
+            ('neat', lambda t: t._episode(H.neat_head(gen1), t._draws(
+                1).take(torch.zeros(100, dtype=torch.long)))),
             ('es', lambda t: t._run(
                 *es._member_batch(es._seed_theta,
                                   torch.zeros((64, 128, 3), device='cuda'),
@@ -2149,7 +2323,8 @@ def recorded_battle(net, opponents, cfg, num_envs, max_steps, device,
     try:
         run = BB.build_battle_batch(net, cfg, opponents, num_envs,
                                     max_steps, device=device)
-        rew, life = run(draws=draws)
+        # the record reads every step back: the chunks run uncaptured
+        rew, life = run.uncaptured(draws=draws)
     finally:
         BB.masked_seat0, BB.build_vector_fns = real_seat0, real_fns
     return rew.cpu(), life.cpu(), record
@@ -2207,11 +2382,13 @@ def battle_phase(smi: str, tmp: str, ppo_params: dict) -> dict:
     snakes of length 5): build_battle_batch with 128 envs for up to 512
     steps, the masked DQN (the reference width, seeded weights) against
     the PPO phase's trained net, the NEAT phase's winner and Greedy; the
-    step entry's launches equal the loop's steps, no plain-engine call;
+    step entry's launches equal the steps run (whole chunks), no
+    plain-engine call;
     16 of the episodes replayed on the CPU decision by decision; ms per
-    step, a profiler window of 16 steps and the flood fill at the
-    battle's shape. Then the host BattleArena, one episode of up to 128
-    steps at B=1: one step launch a step."""
+    step in turns graph against uncaptured chunks, the graph EQUAL to the
+    chunks (cuDNN deterministic), profiler windows of 16 steps both ways
+    and the flood fill at the battle's shape. Then the host BattleArena,
+    one episode of up to 128 steps at B=1: one step launch a step."""
     import random
     from marlsnake_torch.algo import battle_batch as BB
     from marlsnake_torch.algo.battle import BattleArena
@@ -2265,17 +2442,20 @@ def battle_phase(smi: str, tmp: str, ppo_params: dict) -> dict:
     auto = step_kernel.step_autoreset.launches
     masks = SM.safety_mask.launches
     fills = floodfill.reachable_count.launches
-    ms_per_step = wall / steps * 1e3
+    # whole chunks: the last one runs on after every env is done
+    ran = chunked(steps, run.chunk_steps)
     log(f'battle path (build_battle_batch): {num_envs} envs of 20x20x4, '
-        f'{steps} of {max_steps} steps, step launches={launches}, '
+        f'{steps} of {max_steps} steps taken, {ran} run in chunks of '
+        f'{run.chunk_steps}, step launches={launches}, '
         f'step_autoreset launches={auto}, safety_mask launches={masks}, '
         f'reachable_count launches={fills}, plain-engine calls='
         f'{plain.calls}, plain mask calls={plain_mask.calls}; '
-        f'{ms_per_step:.3f} ms a battle step (host clock, one read-back a '
-        f'step) [{smi}]')
-    if launches != steps or auto != 0 or plain.calls != 0 \
-            or masks != steps or fills != 0 or plain_mask.calls != 0:
-        raise AssertionError(f'battle: {steps} steps but {launches} step '
+        f'{wall / steps * 1e3:.3f} ms a battle step in its first call '
+        f'(host clock, the capture included); the graph '
+        f'{json.dumps(run.captured_loops()[0].stats())} [{smi}]')
+    if launches != ran or auto != 0 or plain.calls != 0 \
+            or masks != ran or fills != 0 or plain_mask.calls != 0:
+        raise AssertionError(f'battle: {ran} steps run but {launches} step '
                              f'launches, {auto} step_autoreset launches, '
                              f'{masks} safety_mask launches, {fills} '
                              f'reachable_count launches, {plain.calls} '
@@ -2289,7 +2469,9 @@ def battle_phase(smi: str, tmp: str, ppo_params: dict) -> dict:
     # the same battle recorded, on the card and on the CPU (16 episodes)
     card = recorded_battle(*side('cuda'), cfg, num_envs, max_steps, 'cuda',
                            draws)
-    if not (torch.equal(card[0], rew) and torch.equal(card[1], life)):
+    again = run.uncaptured(draws=draws)
+    if not (torch.equal(card[0], again[0].cpu())
+            and torch.equal(card[1], again[1].cpu())):
         raise AssertionError('battle: two runs of the same draws on the '
                              'card differ')
     few = torch.arange(replayed, device='cuda')
@@ -2306,10 +2488,49 @@ def battle_phase(smi: str, tmp: str, ppo_params: dict) -> dict:
         f'tie equal, rewards and lifetimes of unparted episodes equal '
         f'({time.perf_counter() - t0:.1f} s)')
 
-    # a profiler window of 16 battle steps (the reset included); the last
-    # step's seat-0 inputs kept for the times of the mask and the fill
+    # the graph: its first step's hold of no env, the graph against its
+    # uncaptured chunks, times in turns, windows of 16 steps both ways
+    graph = {'hold_of_none_max_abs_err': hold_of_none_check(cfg, num_envs,
+                                                            seed=52)}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        det = BB.build_battle_batch(net, cfg, opponents, num_envs,
+                                    max_steps, device='cuda')
+        det(seed=53)                                  # the capture
+        graph['equal'] = graph_equal(
+            f'build_battle_batch at {num_envs} envs x {max_steps} steps',
+            lambda: det(draws=draws), lambda: det.uncaptured(draws=draws),
+            det.buffers, smi)
+        graph['deterministic_capture'] = det.captured_loops()[0].stats()
+        del det
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    def played(fn):
+        def go():
+            _, lives = fn(draws=draws)
+            taken = int(lives.max())
+            return taken, chunked(taken, run.chunk_steps)
+        return go
+
+    graph['turns'] = in_turns(
+        f'build_battle_batch at {num_envs} envs x {max_steps} steps',
+        {'graph': played(run), 'uncaptured': played(run.uncaptured)}, smi)
+    ms_per_step = graph['turns']['graph_ms_per_step'][-1]
     short = BB.build_battle_batch(net, cfg, opponents, num_envs, 16,
                                   device='cuda')
+    graph['windows'] = {
+        name: loop_window(f'battle ({name}, {num_envs} envs)',
+                          lambda fn=fn: fn(seed=51), 16, smi)
+        for name, fn in (('graph', short), ('uncaptured', short.uncaptured))}
+    window = graph['windows']['graph']
+    graph['capture'] = run.captured_loops()[0].stats()
+    graph['capture_16_steps'] = short.captured_loops()[0].stats()
+    log(f'battle graph: {json.dumps(graph)} [{smi}]')
+
+    # the last step's seat-0 inputs of 16 uncaptured steps, for the times
+    # of the mask and the fill
     seat0, kept = BB.masked_seat0, []
 
     def keep_seat0(obs0, q0, dir0, alive0, flood_limit=60):
@@ -2319,11 +2540,9 @@ def battle_phase(smi: str, tmp: str, ppo_params: dict) -> dict:
 
     BB.masked_seat0 = keep_seat0
     try:
-        window = profile_device(lambda: short(seed=51), 1)
+        short.uncaptured(seed=51)
     finally:
         BB.masked_seat0 = seat0
-    log_window('profile of 16 battle steps at 128 envs', window, 16, smi,
-               also=(STEP_KERNEL_NAME, MASK_KERNEL_NAME))
     inputs = kept[0]
     mask_row = time_mask(f'safety_mask at the battle\'s E={num_envs}, N=1 '
                          f'(seat 0 alone), 20x20', inputs, 60, smi)
@@ -2378,8 +2597,10 @@ def battle_phase(smi: str, tmp: str, ppo_params: dict) -> dict:
                              f'mask calls')
     return {'battle_launches': launches, 'battle_mask_launches': masks,
             'battle_steps': steps,
+            'battle_steps_run': ran,
             'battle_ms_per_step': ms_per_step,
-            'battle_window': window_summary(window, 16),
+            'battle_window': window,
+            'battle_graph': graph,
             'mask_battle': mask_row,
             'fill_battle': fill_row,
             'battle_replay': replay,
@@ -2812,8 +3033,7 @@ def chunked_steps(trainer, metrics) -> int:
     """The env steps a DQN episode of ``metrics`` ran: whole chunks of
     ``trainer.chunk_steps``, the last one running on after the episode's
     last env finished."""
-    k = trainer.chunk_steps
-    return -(-int(metrics.episode_length) // k) * k
+    return chunked(int(metrics.episode_length), trainer.chunk_steps)
 
 
 def first_difference(a, b, where: str):
@@ -3014,21 +3234,7 @@ def graph_phase(smi: str) -> dict:
     out['windows'] = {}
 
     def window(label, fn, also):
-        w = profile_device(fn, 1)
-        log_window(f'profile of 16 {label} steps', w, 16, smi, also=also)
-        mine = {k: v for k, v in w['kernels'].items()
-                if any(a in k for a in also)}
-        out['windows'][label] = {
-            'busy_us_per_step': w['busy_us'] / 16,
-            'wall_us_per_step': w['wall_us'] / 16,
-            'idle_share': w['idle_share'],
-            'device_events_per_step': sum(
-                v[1] for v in w['kernels'].values()) / 16,
-            'graph_launches_per_step': w['graph_launches'] / 16,
-            'kernel_launches_per_step': w['kernel_launches'] / 16,
-            'read_backs_per_step': w['dtoh'] / 16,
-            'kernel_us_per_launch': {k: v[0] / v[1]
-                                     for k, v in mine.items()}}
+        out['windows'][label] = loop_window(label, fn, 16, smi, also)
 
     for n_envs in (32, 256):
         tr = DQNTrainer(dqn_config(num_envs=n_envs,
@@ -3302,8 +3508,11 @@ def showcase_phase(smi: str, tmp: str) -> dict:
                       '--out', os.path.join(tmp, 'battle_run'),
                       '--profile-steps', '16'])
     step, auto, mask = counts()
-    # the warm-up battle's 4 steps, the battle, the window's two battles
-    want = 4 + summary['steps'] + 2 * 16
+    # the warm-up battle, the battle (each in whole chunks of 8, the last
+    # running on after every env is done), the window's two battles
+    want = summary['warmup_steps_run'] + summary['steps_run'] + 2 * 16
+    if summary['steps_run'] != chunked(summary['steps'], 8):
+        raise AssertionError(f'battle program: {summary}')
     if (step, auto, mask) != (want, 0, want):
         raise AssertionError(f'battle program: {summary["steps"]} steps, '
                              f'launches: step {step}, step_autoreset {auto}, '
@@ -3549,7 +3758,8 @@ def flagship_phase(smi: str, tmp: str) -> dict:
         rows = torch.zeros(width, dtype=torch.long)
         if label == 'neat':
             def one(short=short, rows=rows):
-                short._episode(hundred.acts, short._draws(1).take(rows))
+                short._episode(H.neat_head(hundred),
+                               short._draws(1).take(rows))
         else:
             zeros_k = torch.zeros((128, 128, 3), device='cuda')
             zeros_b = torch.zeros((128, 3), device='cuda')
@@ -3557,23 +3767,90 @@ def flagship_phase(smi: str, tmp: str) -> dict:
             def one(short=short, rows=rows, zk=zeros_k, zb=zeros_b):
                 short._run(*short._member_batch(short._seed_theta, zk, zb),
                            short._draws(1).take(rows))
-        counts = []
+        for mode, captured in (('graph', True), ('uncaptured', False)):
+            short.captured = captured
+            windows[f'B={width} {mode}'] = dict(
+                loop_window(f'trained fitness ({mode}, B={width}) [{label}]',
+                            one, 16, smi),
+                capture=list(short.captured_loops().values())[0].stats())
 
-        def fitness_steps(short=short, one=one, counts=counts):
-            before = short.env_steps
-            one()
-            counts.append(short.env_steps - before)
+    # the fitness graphs of 512-step episodes: each against its
+    # uncaptured chunks (a trainer that captured under deterministic
+    # cuDNN), then graph against uncaptured in turns (another trainer)
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(44)
+    eps_k = torch.randn((128, 128, 3), generator=gen, device='cuda')
+    eps_b = torch.randn((128, 3), generator=gen, device='cuda')
+    graphs = {}
+    for label, width in (('neat', 100), ('es', 257)):
+        def make(label=label):
+            if label == 'neat':
+                t = H.HybridNEATTrainer(
+                    dqn_params, neat_cfg=neat_cfg, episode_steps=512,
+                    result_file=os.path.join(tmp, 'g.pkl'), device='cuda')
+                return t, H.neat_head(hundred)
+            t = H.HeadESTrainer(
+                dqn_params, neat_cfg=neat_cfg, episode_steps=512,
+                pop_size=256, result_file=os.path.join(tmp, 'g.pkl'),
+                device='cuda')
+            return t, H._Head(('es',), t._member_batch(t._seed_theta, eps_k,
+                                                       eps_b), H._es_acts)
 
-        window = profile_device(fitness_steps, 1)
-        steps = counts[-1]
-        windows[f'B={width}'] = dict(window_summary(window, steps),
-                                     steps=steps)
-        log_window(f'profile of {steps} trained fitness steps at B={width} '
-                   f'[{label}]', window, steps, smi,
-                   also=(STEP_KERNEL_NAME,))
+        rows = torch.zeros(width, dtype=torch.long)
+        draws = [episode_draws(env_cfg, 1, 512, gen, 'cuda').take(rows)
+                 for _ in range(3)]
+
+        def episode(t, head, d, captured):
+            t.captured = captured
+            before = t.env_steps
+            ret = torch.as_tensor(t._episode(head, d))
+            return ret, t.env_steps - before
+
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            det, head = make()
+            episode(det, head, draws[0], True)             # the capture
+            buffers, _ = det._loops[(width,) + head.key]
+            row = {'equal': graph_equal(
+                f'{label} fitness episode at B={width} x 512 steps',
+                lambda: episode(det, head, draws[1], True),
+                lambda: episode(det, head, draws[1], False), buffers, smi)}
+            del det, buffers
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        tr_t, head = make()
+        episode(tr_t, head, draws[0], True)                # the capture
+
+        def played(captured, t=tr_t, head=head):
+            def go():
+                _, ran = episode(t, head, draws[2], captured)
+                return ran, ran
+            return go
+
+        row['turns'] = in_turns(
+            f'{label} fitness episode at B={width} x 512 steps (ms a step '
+            f'run)', {'graph': played(True), 'uncaptured': played(False)},
+            smi)
+        # a second bucket of the same trainer (NEAT: the seed's clones,
+        # another sweep count; ES: the validation width) captures into the
+        # trainer's one pool: its pool_bytes is what the pool grew by
+        tr_t.captured = True
+        if label == 'neat':
+            clones = H.PaddedNetBatch([seed_genome] * width, neat_cfg,
+                                      device='cuda')
+            tr_t._episode(H.neat_head(clones), draws[2])
+        else:
+            tr_t.validate(tr_t._seed_theta, 32)
+        row['capture'] = {str(k): v.stats()
+                          for k, v in tr_t.captured_loops().items()}
+        graphs[label] = row
+        log(f'{label} fitness graph at B={width}: {json.dumps(row)} [{smi}]')
+        del tr_t
+        torch.cuda.empty_cache()
     return {'max_abs_err': errs, 'runs': runs,
             'fitness_episode_card_vs_cpu': episode_check,
-            'fitness_windows': windows}
+            'fitness_windows': windows, 'fitness_graphs': graphs}
 
 
 def distill_phase(smi: str, tmp: str) -> dict:
@@ -3927,6 +4204,7 @@ def masked_paths(smi: str, steps: int = 128) -> dict:
 
     def timed(name, run, short):
         short(0)   # warm-up at the same shapes
+        run(0)     # a loop of the port's chunks captures on its first call
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         taken = run(1)
@@ -4714,6 +4992,27 @@ def main() -> int:
                 for label, w in graphs['windows'].items()
                 if any(kernel_name in k for k in w['kernel_us_per_launch'])}
 
+    def in_loop_graphs(kernel_name):
+        """Device us a launch and launches a step of ``kernel_name`` in the
+        16-step windows of the chunked loops, graph and uncaptured."""
+        found = {}
+        for path, windows in (
+                ('evaluator (E=256)', evaluation['evaluator_graph'][
+                    'windows']),
+                ('battle_batch (E=128)', battle['battle_graph']['windows']),
+                ('fitness', flagship['fitness_windows'])):
+            for mode, w in windows.items():
+                mine = {k: v for k, v in w['kernel_us_per_launch'].items()
+                        if kernel_name in k}
+                if mine:
+                    found[f'{path} {mode}'] = {
+                        'us_per_launch': mine,
+                        'launches_per_step': {
+                            k: n / 16 for k, n in
+                            w['kernel_launches_in_window'].items()
+                            if kernel_name in k}}
+        return found
+
     step_main = step_rows[256]
     mask_rows = {'evaluator (E=256, N=4)': evaluation['mask_evaluator'],
                  'battle (E=128, N=1)': battle['mask_battle'],
@@ -4794,6 +5093,8 @@ def main() -> int:
             'pct_of_bound', 'bytes', 'device_us_holding',
             'device_us_by_pacing')},
         device_us_per_launch_in_windows=in_graphs(STEP_KERNEL_NAME),
+        device_us_in_loop_graphs=in_loop_graphs(STEP_KERNEL_NAME),
+        fitness_graphs=flagship['fitness_graphs'],
         graph_dqn={n: {k: v for k, v in r.items() if k != 'rows'}
                    for n, r in graphs['dqn'].items()},
         graph_equal=graphs['equal'],
@@ -4859,6 +5160,7 @@ def main() -> int:
         max_abs_err_other_shapes=mask_parity['safety_mask_max_abs_err'],
         checked=mask_parity,
         at_shapes=mask_rows,
+        device_us_in_loop_graphs=in_loop_graphs(MASK_KERNEL_NAME),
         launches_by_path={
             'evaluator (E=256, N=4)': evaluation['evaluator_mask_launches'],
             'battle_batch (E=128, N=1)': battle['battle_mask_launches'],

@@ -11,8 +11,11 @@ comes with confidence intervals over 100+ episodes.
 A step is seat 0's forward and masked choice, each opponent's policy in
 seat order, and one launch of the CUDA step kernel's entry without
 auto-reset, which holds the envs that were all done before the step
-still (``hold``); on the CPU the plain engine does the same. The loop
-stops once every env is done, as the steps left would change nothing.
+still (``hold``); on the CPU the plain engine does the same. Where the
+JAX package runs the battle as one ``lax.scan`` program, the port runs
+it in chunks of up to 8 steps, on CUDA as the replays of one captured
+graph, with one read-back a chunk; the loop stops after the chunk in
+which every env is done, as the steps left would change nothing.
 
 Seat 0 claims first, against an empty claim set, so its masked action
 depends on its own obs alone: the forward and the safety mask run over
@@ -39,6 +42,8 @@ Policy parity notes:
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -49,8 +54,11 @@ from marlsnake_torch.algo.neat_hybrid import PaddedNetBatch, as_dqn
 from marlsnake_torch.core import types as T
 from marlsnake_torch.device import resolve_device
 from marlsnake_torch.envs.vector import build_vector_fns
+from marlsnake_torch.ops import step_kernel
 from marlsnake_torch.ops.safety_mask import safety_mask
 from marlsnake_torch.rng import BattleDraws, StepDraws, battle_draws
+from marlsnake_torch.utils.cuda_graph import (CapturedLoop, copy_into,
+                                              run_chunks, tail_chunk_steps)
 
 # own-body probes of the direction inference, in the reference's order
 # (first hit wins; the snake moves away from the body cell)
@@ -65,6 +73,15 @@ def _flat_cells(plane: torch.Tensor, y: torch.Tensor, x: torch.Tensor
     return plane.flatten(1).gather(1, idx.long())
 
 
+@functools.lru_cache(maxsize=None)
+def _greedy_constants(device: torch.device):
+    """(the probes (4, 2), UP (2,), the deadly channels' indices) on
+    ``device``, made once: a captured graph may not copy from the host."""
+    return (torch.tensor(_PROBES, dtype=torch.int32, device=device),
+            torch.tensor((-1, 0), dtype=torch.int32, device=device),
+            torch.tensor(DEADLY_CHANNELS, dtype=torch.long, device=device))
+
+
 def greedy_step(obs: torch.Tensor, cur_dir: torch.Tensor, u: torch.Tensor):
     """One step of the reference greedy fruit-seeker for B envs.
 
@@ -75,6 +92,7 @@ def greedy_step(obs: torch.Tensor, cur_dir: torch.Tensor, u: torch.Tensor):
     """
     b, h, w = obs.shape[:3]
     dev = obs.device
+    probes, up, deadly_channels = _greedy_constants(dev)
     rows = torch.arange(b, device=dev)
     flat_head = (obs[..., T.CH_MY_HEAD] == 1).flatten(1)
     head_exists = flat_head.any(-1)
@@ -85,12 +103,10 @@ def greedy_step(obs: torch.Tensor, cur_dir: torch.Tensor, u: torch.Tensor):
     # direction inference: the first probe that finds own body or tail
     # wins, the snake heads away from it; UP if none (train_dqn.py:795-803)
     body = (obs[..., T.CH_MY_BODY] == 1) | (obs[..., T.CH_MY_TAIL] == 1)
-    probes = torch.tensor(_PROBES, dtype=torch.int32, device=dev)
     by = hy[:, None] + probes[:, 0]
     bx = hx[:, None] + probes[:, 1]
     inb = (by >= 0) & (by < h) & (bx >= 0) & (bx < w)
     hits = inb & _flat_cells(body, by, bx)            # (B, 4)
-    up = torch.tensor((-1, 0), dtype=torch.int32, device=dev)
     inferred = torch.where(hits.any(-1, keepdim=True),
                            -probes[hits.to(torch.uint8).argmax(-1)], up)
     uninit = (cur_dir == 0).all(-1, keepdim=True)
@@ -104,7 +120,7 @@ def greedy_step(obs: torch.Tensor, cur_dir: torch.Tensor, u: torch.Tensor):
     ny = hy[:, None] + moves[..., 0]
     nx = hx[:, None] + moves[..., 1]
     inb = (ny >= 0) & (ny < h) & (nx >= 0) & (nx < w)
-    deadly = (obs[..., list(DEADLY_CHANNELS)] == 1).any(-1)
+    deadly = (obs.index_select(-1, deadly_channels) == 1).any(-1)
     legal = inb & ~_flat_cells(deadly, ny, nx)
 
     # nearest fruit by Manhattan distance, first (row-major) on ties
@@ -227,6 +243,22 @@ def masked_seat0(obs0: torch.Tensor, q0: torch.Tensor, dir0: torch.Tensor,
     return out.act[:, 0], out.new_dir[:, 0]
 
 
+@dataclasses.dataclass
+class _BattleBuffers:
+    """What the battle's chunks carry, at fixed addresses."""
+    envs: step_kernel.StaticEnvs
+    dones: torch.Tensor    # (E, N) bool
+    dirs: torch.Tensor     # (E, 2) int32: seat 0's mask directions
+    rew: torch.Tensor      # (E, N) float32
+    life: torch.Tensor     # (E, N) float32
+    t: torch.Tensor        # (1,) int64: the next step's index
+    fruit_u: torch.Tensor  # (max_steps, E, N) float32
+    seats: tuple           # each opponent's draws (max_steps, E, ...), or None
+    auxs: list             # each opponent's carried state
+    params: dict           # seat 0's state_dict
+    flags: torch.Tensor    # (1,) int32: [live]
+
+
 def build_battle_batch(net, cfg: T.EnvConfig, opponents: Sequence,
                        num_envs: int = 128, max_steps: int = 512,
                        flood_limit: int = 60, device='cuda'):
@@ -237,7 +269,18 @@ def build_battle_batch(net, cfg: T.EnvConfig, opponents: Sequence,
     ``draws`` (``rng.BattleDraws``) default to draws from a generator
     seeded with ``seed``. A finished seat acts 0; an env whose seats are
     all done is held still. A seat's lifetime counts the steps it began
-    alive; its reward adds every step's until its env is frozen."""
+    alive; its reward adds every step's until its env is frozen.
+
+    The steps run in chunks of ``run.chunk_steps`` (``utils/cuda_graph``):
+    on CUDA one captured graph, replayed; on the CPU the same body run
+    directly. The host reads one flag a chunk and stops after the chunk
+    in which every env was done: the chunk's steps after that point, and
+    past ``max_steps``, hold every env still and add nothing. The
+    opponents' nets hold their weights at fixed addresses; their carried
+    state and each step's draws are buffers of the graph.
+    ``run.uncaptured`` runs the same chunks without the graph;
+    ``run.captured_loops()`` lists the graph, ``run.buffers`` holds what
+    it carries."""
     dev = resolve_device(device)
     n = cfg.num_snakes
     if len(opponents) != n - 1:
@@ -247,50 +290,103 @@ def build_battle_batch(net, cfg: T.EnvConfig, opponents: Sequence,
                          f"obs_format={cfg.obs_format!r} is not supported")
     reset_fn, step_fn = build_vector_fns(cfg, autoreset=False, device=dev)
     kinds = tuple(op.draws for op in opponents)
+    k = tail_chunk_steps(max_steps)
+    rows = max(max_steps, 1)
 
-    def q_values(params, obs0):
-        return (net(obs0) if params is None
-                else torch.func.functional_call(net, params, (obs0,)))
+    def zeros(shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    seat_shapes = {'tiebreak': ((rows, num_envs, 3), torch.float32),
+                   'action': ((rows, num_envs), torch.int32)}
+    b = _BattleBuffers(
+        envs=step_kernel.StaticEnvs(cfg, num_envs, dev),
+        dones=zeros((num_envs, n), torch.bool),
+        dirs=zeros((num_envs, 2), torch.int32),
+        rew=zeros((num_envs, n)), life=zeros((num_envs, n)),
+        t=zeros((1,), torch.int64), fruit_u=zeros((rows, num_envs, n)),
+        seats=tuple(None if kind is None else zeros(*seat_shapes[kind])
+                    for kind in kinds),
+        auxs=[op.init(num_envs, dev) for op in opponents],
+        params={name: torch.zeros_like(v)
+                for name, v in net.state_dict().items()},
+        flags=zeros((1,), torch.int32))
+
+    def chunk():
+        """``k`` steps over the buffers, branch-free, no read-back."""
+        state, out = b.envs.state, b.envs.out
+        dones, dirs, rew, life, t = b.dones, b.dirs, b.rew, b.life, b.t
+        auxs = list(b.auxs)
+        for _ in range(k):
+            # envs all done before the step stand still inside the
+            # launch; past max_steps every env does
+            frozen = dones.all(-1) | (t >= max_steps)
+            go = ~frozen.all()
+            row = t.clamp(max=max_steps - 1)
+            obs = out.obs
+            obs0 = obs[:, 0]
+            q0 = torch.func.functional_call(net, b.params, (obs0,))
+            a0, new_dirs = masked_seat0(obs0, q0, dirs, ~dones[:, 0],
+                                        flood_limit)
+            acts = [torch.where(dones[:, 0], 0, a0)]
+            for i, op in enumerate(opponents):
+                seat = b.seats[i]
+                ai, aux = op.apply(obs[:, i + 1], auxs[i],
+                                   None if seat is None
+                                   else seat.index_select(0, row)[0])
+                # a carried state moves only while a step is live
+                auxs[i] = (torch.where(go, aux, auxs[i])
+                           if isinstance(aux, torch.Tensor) else aux)
+                acts.append(torch.where(dones[:, i + 1], 0, ai))
+            state, out = step_fn(
+                state, torch.stack(acts, 1),
+                StepDraws(b.fruit_u.index_select(0, row)[0], None, None),
+                hold=(frozen, out))
+            dirs = torch.where(frozen[:, None], dirs, new_dirs)
+            # the host arena counts a lifetime step BEFORE acting and
+            # adds the full reward vector (dead seats earn exactly 0)
+            life = life + (~dones & ~frozen[:, None]).to(torch.float32)
+            rew = rew + torch.where(frozen[:, None], 0.0, out.reward)
+            dones = dones | out.done
+            t = t + 1
+        b.envs.store(state, out)
+        for dst, src in ((b.dones, dones), (b.dirs, dirs), (b.rew, rew),
+                         (b.life, life), (b.t, t)):
+            dst.copy_(src)
+        copy_into(b.auxs, auxs)
+        live = ~(dones.all() | (t[0] >= max_steps))
+        b.flags.copy_(live.to(torch.int32)[None])
+
+    loop = CapturedLoop(chunk, dev)
 
     @torch.no_grad()
-    def run(params=None, seed: int = 0,
-            draws: Optional[BattleDraws] = None):
+    def _run(params=None, seed: int = 0,
+             draws: Optional[BattleDraws] = None, captured: bool = True):
         if draws is None:
             gen = torch.Generator(device=dev)
             gen.manual_seed(seed)
             draws = battle_draws(cfg, kinds, num_envs, max_steps, gen, dev)
         states, obs = reset_fn(draws.reset)
-        auxs = [op.init(num_envs, dev) for op in opponents]
-        dones = torch.zeros((num_envs, n), dtype=torch.bool, device=dev)
-        dirs = torch.zeros((num_envs, 2), dtype=torch.int32, device=dev)
-        rew = torch.zeros((num_envs, n), dtype=torch.float32, device=dev)
-        life = torch.zeros_like(rew)
-        out = None
-        for t in range(max_steps):
-            frozen = dones.all(-1)
-            obs0 = obs[:, 0]
-            a0, new_dirs = masked_seat0(obs0, q_values(params, obs0), dirs,
-                                        ~dones[:, 0], flood_limit)
-            acts = [torch.where(dones[:, 0], 0, a0)]
-            for i, op in enumerate(opponents):
-                seat = draws.seat[i]
-                ai, auxs[i] = op.apply(obs[:, i + 1], auxs[i],
-                                       None if seat is None else seat[t])
-                acts.append(torch.where(dones[:, i + 1], 0, ai))
-            states, out = step_fn(states, torch.stack(acts, 1),
-                                  StepDraws(draws.fruit_u[t], None, None),
-                                  hold=(frozen, out) if t > 0 else None)
-            obs = out.obs
-            dirs = torch.where(frozen[:, None], dirs, new_dirs)
-            # the host arena counts a lifetime step BEFORE acting and
-            # adds the full reward vector (dead seats earn exactly 0)
-            life = life + (~dones).to(torch.float32)
-            rew = rew + torch.where(frozen[:, None], 0.0, out.reward)
-            dones = dones | out.done
-            if bool(dones.all()):
-                break
-        return rew, life
+        b.envs.load(states)
+        b.envs.out.obs.copy_(obs)
+        for x in (b.dones, b.dirs, b.rew, b.life, b.t, b.flags):
+            x.zero_()
+        copy_into(b.auxs, [op.init(num_envs, dev) for op in opponents])
+        b.fruit_u[:max_steps].copy_(draws.fruit_u[:max_steps])
+        for dst, src in zip(b.seats, draws.seat, strict=True):
+            if dst is not None:
+                dst[:max_steps].copy_(src[:max_steps])
+        copy_into(b.params, {**net.state_dict(), **(params or {})})
+        run_chunks(loop, b.flags, max_steps, k, captured)
+        return b.rew.clone(), b.life.clone()
 
+    def run(params=None, seed: int = 0,
+            draws: Optional[BattleDraws] = None):
+        return _run(params, seed, draws)
+
+    run.uncaptured = functools.partial(_run, captured=False)
+    run.chunk_steps = k
+    run.captured_loops = lambda: [loop]
+    run.buffers = b
     return run
 
 

@@ -82,8 +82,9 @@ from marlsnake_torch.rng import (RESET_STREAM, STEP_STREAM, ResetDraws,
                                  reset_draws, train_draws)
 from marlsnake_torch.ops import step_kernel
 from marlsnake_torch.utils import checkpoint as ckpt
-from marlsnake_torch.utils.cuda_graph import (CapturedLoop, clone_tree,
-                                              copy_into)
+from marlsnake_torch.utils.cuda_graph import (CapturedLoop, chunk_steps,
+                                              clone_tree, copy_into,
+                                              run_chunks)
 from marlsnake_torch.utils.metrics import MetricWriter
 
 Params = Dict[str, torch.Tensor]
@@ -208,15 +209,6 @@ def mean_of(x: torch.Tensor, dim: Optional[int] = None) -> torch.Tensor:
     if dim is None:
         return x.sum() * (1.0 / x.numel())
     return x.sum(dim) * (1.0 / x.shape[dim])
-
-
-def chunk_steps(max_steps: int, update_every: int, most: int = 8) -> int:
-    """Steps of one chunk of an episode: the largest multiple of
-    ``update_every`` that divides ``max_steps`` and is at most ``most``
-    (``update_every`` itself where it exceeds ``most``)."""
-    fits = [k for k in range(update_every, most + 1, update_every)
-            if max_steps % k == 0]
-    return fits[-1] if fits else update_every
 
 
 @dataclasses.dataclass
@@ -614,14 +606,9 @@ class DQNTrainer:
         copy_into(b.buffer, ts.buffer)
         b.epsilon.copy_(ts.epsilon)
         copy_into(b.draws, draws)
-        run = loop if captured else loop.uncaptured
-        steps = updates = 0
-        for _ in range(cfg.max_steps_per_episode // self.chunk_steps):
-            run()
-            # the chunk's one read-back
-            live, steps, updates = b.flags.tolist()
-            if not live:
-                break
+        _, steps, updates = run_chunks(loop, b.flags,
+                                       cfg.max_steps_per_episode,
+                                       self.chunk_steps, captured)
 
         mean_loss = (b.loss_sum / updates if updates
                      else b.loss_sum.clone())

@@ -10,16 +10,18 @@ the initial winner and overwritten whenever evolution improves on it
 antithetic ES.
 
 A fitness episode plays the whole population at once, one env per
-member, with a Python step loop: the DQN's features of every
-(member, snake), the members' heads (``sweep_values`` over a
-``PaddedNetBatch`` for NEAT, a relu layer for ES), ``argmax``, and one
-step of every env, on CUDA one launch of the step kernel's entry without
-auto-reset (``step_kernel.step``). Every env is stepped every step and
-every snake's reward is summed, dead or alive, until ``episode_steps``
-steps or until every snake is done, as the JAX ``while_loop`` does; the
-loop reads back one flag a step. Every member of an episode plays the
-same draws (common random numbers): one env's ``EpisodeDraws``, copied
-to each member's row.
+member: each step the DQN's features of every (member, snake), the
+members' heads (``sweep_values`` over a ``PaddedNetBatch`` for NEAT, a
+relu layer for ES), ``argmax``, and one step of every env, on CUDA one
+launch of the step kernel's entry without auto-reset
+(``step_kernel.step``). Every env is stepped every step and every
+snake's reward is summed, dead or alive, until ``episode_steps`` steps
+or until every snake is done, as the JAX ``while_loop`` does. The steps
+run in chunks of up to 8, on CUDA as the replays of one captured graph
+a (width, head) bucket, with one read-back a chunk
+(``_FitnessEpisodes``). Every member of an episode plays the same draws
+(common random numbers): one env's ``EpisodeDraws``, copied to each
+member's row.
 
 Every method that draws takes its draws as an argument too
 (``rng.EpisodeDraws``, ``rng.ESDraws``). Fitnesses, ranks and means are
@@ -44,7 +46,7 @@ import os
 import pickle
 import random
 import time
-from typing import Mapping, Optional, Sequence
+from typing import Callable, Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -59,8 +61,12 @@ from marlsnake_torch.device import resolve_device
 from marlsnake_torch.envs.vector import build_vector_fns
 from marlsnake_torch.models.dqn import DQN
 from marlsnake_torch.models.weights import dqn_from_flax, dqn_to_flax
+from marlsnake_torch.ops import step_kernel
 from marlsnake_torch.rng import (EpisodeDraws, ESDraws, StepDraws,
                                  derive_seed, episode_draws, es_draws)
+from marlsnake_torch.utils.cuda_graph import (CapturedLoop, GraphPool,
+                                              copy_into, run_chunks,
+                                              tail_chunk_steps)
 
 DEFAULT_REWARD = {'fruit': 10.0, 'kill': 0.0, 'lose': -20.0, 'win': 0.0,
                   'time': -0.03}  # train_ga.py:266-273
@@ -395,9 +401,66 @@ class PaddedNetBatch:
         return self.logits(emb).argmax(-1).to(torch.int32)
 
 
+def neat_head(batch: PaddedNetBatch) -> '_Head':
+    """The fitness head of a ``PaddedNetBatch``: its sweeps and argmax,
+    keyed by its (m, num_sweeps) bucket, as the JAX trainer keys its
+    ``_runners``."""
+    k, inp, out = batch.num_sweeps, batch.num_inputs, batch.num_outputs
+
+    def act(tensors, emb):
+        return sweep_values(*tensors, k, inp, out, emb).argmax(-1).to(
+            torch.int32)
+
+    return _Head(('neat', batch.m, k), batch.tensors, act)
+
+
+def _es_acts(tensors, emb):
+    """The ES head: relu(emb W + b), argmax. Ties resolve to the first
+    index, like np.argmax in the reference's consumers (train_ga.py:241)."""
+    W, b = tensors
+    return torch.relu(torch.bmm(emb, W) + b[:, None, :]).argmax(-1).to(
+        torch.int32)
+
+
+class _Head(NamedTuple):
+    """A fitness episode's decision head: ``act(tensors, emb (P, N, I))
+    -> actions (P, N) int32``. ``key`` names what ``act`` computes: the
+    episode's graph is kept by (width P, key), and ``tensors`` are copied
+    into its buffers each episode."""
+    key: tuple
+    tensors: tuple
+    act: Callable
+
+
+@dataclasses.dataclass
+class _FitnessBuffers:
+    """What a fitness episode's chunks carry, at fixed addresses."""
+    envs: step_kernel.StaticEnvs
+    done: torch.Tensor     # (P, N) bool
+    ret: torch.Tensor      # (P, N) float32
+    t: torch.Tensor        # (1,) int64: the next step's index
+    fruit_u: torch.Tensor  # (episode_steps, P, N) float32
+    head: tuple            # the head's tensors
+    act: Callable          # the head's act
+    flags: torch.Tensor    # (2,) int32: [live, steps run]
+
+
 class _FitnessEpisodes:
     """What both trainers share: the frozen DQN, the env without
-    auto-reset on the device, and the fitness episode."""
+    auto-reset on the device, and the fitness episode.
+
+    The episode is the JAX package's ``lax.while_loop`` (every env
+    stepped every step, every snake's reward summed, dead or alive, until
+    ``episode_steps`` steps or until every snake is done), run in chunks
+    of ``chunk_steps`` steps: on CUDA one captured graph a (width, head)
+    bucket, replayed, its population tensors copied into its buffers, the
+    trainer's graphs in one memory pool; on the CPU the same body run
+    directly. The host reads one flag a chunk and stops after the chunk
+    in which the loop ended; the chunk's steps after that point hold every
+    env still and add no reward. ``captured = False`` runs the chunks
+    without the graphs. ``env_steps`` and ``env_steps_by_width`` count the
+    steps run, the chunks' tails included: one kernel launch each on
+    CUDA."""
 
     def __init__(self, dqn, env_cfg, neat_cfg, episode_steps, seed, device):
         self.device = resolve_device(device)
@@ -415,7 +478,12 @@ class _FitnessEpisodes:
         self.generator.manual_seed(seed)
         self._reset_env, self._step_env = build_vector_fns(
             self.env_cfg, autoreset=False, device=self.device)
-        self.env_steps = 0  # env steps taken, one kernel launch each on CUDA
+        self.chunk_steps = tail_chunk_steps(episode_steps)
+        self.captured = True
+        # (buffers, CapturedLoop) by (width, head key), in one pool
+        self._loops = {}
+        self._pool = GraphPool()
+        self.env_steps = 0  # env steps run, one kernel launch each on CUDA
         self.env_steps_by_width = {}   # the same, by the episodes' env count
         # wall seconds and calls by phase: 'episodes', 'batch_build' (the
         # NEAT trainer's PaddedNetBatch), 'checkpoint', and the ES
@@ -437,32 +505,80 @@ class _FitnessEpisodes:
         return episode_draws(self.env_cfg, num_envs, self.episode_steps,
                              self.generator, self.device)
 
+    def captured_loops(self) -> dict:
+        """The ``CapturedLoop`` of each (width, head key) bucket so far."""
+        return {key: loop for key, (_, loop) in self._loops.items()}
+
+    def _loop(self, p: int, head: _Head):
+        key = (p,) + head.key
+        if key not in self._loops:
+            dev, n = self.device, self.env_cfg.num_snakes
+
+            def zeros(shape, dtype=torch.float32):
+                return torch.zeros(shape, dtype=dtype, device=dev)
+
+            b = _FitnessBuffers(
+                envs=step_kernel.StaticEnvs(self.env_cfg, p, dev),
+                done=zeros((p, n), torch.bool), ret=zeros((p, n)),
+                t=zeros((1,), torch.int64),
+                fruit_u=zeros((max(self.episode_steps, 1), p, n)),
+                head=tuple(zeros(x.shape, x.dtype) for x in head.tensors),
+                act=head.act, flags=zeros((2,), torch.int32))
+            self._loops[key] = (b, CapturedLoop(lambda: self._chunk(b), dev,
+                                                self._pool))
+        return self._loops[key]
+
+    def _chunk(self, b: _FitnessBuffers) -> None:
+        """``chunk_steps`` steps of the episode over the buffers ``b``,
+        branch-free, with no read-back: the body of JAX's while_loop, its
+        condition a device predicate."""
+        steps = self.episode_steps
+        p, n = b.done.shape
+        state, out = b.envs.state, b.envs.out
+        done, ret, t = b.done, b.ret, b.t
+        for _ in range(self.chunk_steps):
+            go = (t < steps) & ~done.all()          # (1,): JAX's cond
+            obs = out.obs
+            emb = self.net.features(obs.reshape((p * n,) + obs.shape[2:]))
+            actions = torch.where(done, 0, b.act(b.head, emb.view(p, n, -1)))
+            fruit = b.fruit_u.index_select(0, t.clamp(max=steps - 1))[0]
+            # once the loop has ended every env is held still
+            state, out = self._step_env(
+                state, actions, StepDraws(fruit, None, None),
+                hold=((~go).expand(p).contiguous(), out))
+            done = done | out.done
+            ret = ret + torch.where(go, out.reward, 0.0)
+            t = t + 1
+        b.envs.store(state, out)
+        for dst, src in ((b.done, done), (b.ret, ret), (b.t, t)):
+            dst.copy_(src)
+        live = (t < steps) & ~done.all()
+        b.flags.copy_(torch.cat([live.to(torch.int64), t]))
+
     @torch.no_grad()
-    def _episode(self, head, draws: EpisodeDraws) -> np.ndarray:
-        """One episode of every member: ``head(emb (P, N, I)) -> actions
-        (P, N) int32``; ``draws`` has one env a member. Returns each
-        (member, snake)'s summed reward, (P, N) float32."""
+    def _episode(self, head: _Head, draws: EpisodeDraws) -> np.ndarray:
+        """One episode of every member under ``head``; ``draws`` has one
+        env a member. Returns each (member, snake)'s summed reward, (P, N)
+        float32."""
         with self._timed('episodes'):
+            p = draws.fruit_u.shape[1]
+            b, loop = self._loop(p, head)
             states, obs = self._reset_env(draws.reset)
-            p, n = obs.shape[:2]
-            done = torch.zeros((p, n), dtype=torch.bool, device=self.device)
-            ret = torch.zeros((p, n), dtype=torch.float32,
-                              device=self.device)
-            for t in range(self.episode_steps):
-                emb = self.net.features(obs.reshape((p * n,)
-                                                    + obs.shape[2:]))
-                actions = torch.where(done, 0, head(emb.view(p, n, -1)))
-                states, out = self._step_env(
-                    states, actions, StepDraws(draws.fruit_u[t], None, None))
-                self.env_steps += 1
-                self.env_steps_by_width[p] = (
-                    self.env_steps_by_width.get(p, 0) + 1)
-                obs = out.obs
-                done = done | out.done
-                ret = ret + out.reward
-                if bool(done.all()):
-                    break
-            return ret.cpu().numpy()
+            b.envs.load(states)
+            b.envs.out.obs.copy_(obs)
+            for x in (b.done, b.ret, b.t, b.flags):
+                x.zero_()
+            b.fruit_u[:self.episode_steps].copy_(
+                draws.fruit_u[:self.episode_steps])
+            copy_into(b.head, head.tensors)
+            b.act = head.act
+            _, run = run_chunks(loop, b.flags, self.episode_steps,
+                                self.chunk_steps, self.captured)
+            self.env_steps += run
+            self.env_steps_by_width[p] = (
+                self.env_steps_by_width.get(p, 0) + run)
+            # a copy: on the CPU .cpu() would hand out the buffer itself
+            return b.ret.to('cpu', copy=True).numpy()
 
     def _save(self, genome: Genome, filename: str):
         with self._timed('checkpoint'):
@@ -501,7 +617,8 @@ class HybridNEATTrainer(_FitnessEpisodes):
         if draws is None:
             draws = [self._draws(1) for _ in range(self.fitness_episodes)]
         rows = torch.zeros(pop, dtype=torch.long)
-        ep_rets = [self._episode(batch.acts, d.take(rows)) for d in draws]
+        head = neat_head(batch)
+        ep_rets = [self._episode(head, d.take(rows)) for d in draws]
         returns = np.stack(ep_rets).mean(0)  # (pop, n)
 
         for (gid, genome), ret in zip(genomes, returns):
@@ -574,13 +691,7 @@ class HeadESTrainer(_FitnessEpisodes):
              draws: EpisodeDraws) -> np.ndarray:
         """One episode of the member batch W (P, 128, 3), b (P, 3), one env
         a member in ``draws``; per-member per-snake returns (P, N)."""
-        def head(emb):
-            # argmax ties resolve to the first index, like np.argmax in
-            # the reference's consumers (train_ga.py:241)
-            logits = torch.relu(torch.bmm(emb, W) + b[:, None, :])
-            return logits.argmax(-1).to(torch.int32)
-
-        return self._episode(head, draws)
+        return self._episode(_Head(('es',), (W, b), _es_acts), draws)
 
     def _fitness(self, W, b, draws: Sequence[EpisodeDraws]) -> np.ndarray:
         """Mean per-member fitness over the K episodes ``draws`` (one env

@@ -76,8 +76,10 @@ def record(hybrid: str = HYBRID, episodes: int = 128, out: str = OUT_DIR,
            device='cuda', max_steps: int = 512,
            profile_steps: int = 0) -> dict:
     """Play the battle, write the table to ``out`` and return its summary:
-    the width, loop steps, wall seconds and ms a step (host clock, after
-    a 4-step warm-up), the card, each seat's mean reward and lifetime,
+    the width, loop steps (taken, and run in whole chunks), wall seconds
+    and ms a step taken (host clock, after a warm-up battle that builds
+    the kernels and captures the graph), the card, each seat's mean
+    reward and lifetime,
     the table's path and, with ``profile_steps``, a torch.profiler window
     of a battle of that many steps at the same width (CUDA only).
     ``max_steps`` below 512 shortens the episodes (a check on the CPU);
@@ -100,8 +102,13 @@ def record(hybrid: str = HYBRID, episodes: int = 128, out: str = OUT_DIR,
         return build_battle_batch(net, cfg, opponents, num_envs=episodes,
                                   max_steps=steps, device=dev)
 
+    def chunked(taken):
+        k = run.chunk_steps
+        return -(-taken // k) * k
+
     run = battle(max_steps)
-    battle(4)(seed=SEED + 1)   # warm-up: builds the kernels
+    # warm-up: builds the kernels and captures the chunk's graph
+    _, warm = run(seed=SEED + 1)
     t0 = time.perf_counter()
     rew, life = run(seed=SEED)
     rew, life = rew.cpu(), life.cpu()
@@ -125,7 +132,9 @@ def record(hybrid: str = HYBRID, episodes: int = 128, out: str = OUT_DIR,
     with open(path, 'w') as f:
         f.write(text)
     summary = dict(episodes=episodes, max_steps=max_steps, steps=steps,
-                   wall_s=wall, ms_per_step=1e3 * wall / steps, card=card,
+                   steps_run=chunked(steps),
+                   warmup_steps_run=chunked(int(warm.max())), wall_s=wall,
+                   ms_per_step=1e3 * wall / steps, card=card,
                    mean_reward=rew.mean(0).tolist(),
                    mean_lifetime=life.mean(0).tolist(), table=path)
     if profile_steps:

@@ -1,9 +1,11 @@
 """A loop body captured once as a CUDA graph and replayed.
 
-The counterpart of the JAX package's ``jax.jit`` over a ``lax.scan``: a
-body of many small kernels (a DQN chunk of steps, a PPO rollout, the
-bench rollout) is recorded once and then launched as one graph, so that
-the host issues one launch where it issued hundreds.
+The counterpart of the JAX package's ``jax.jit`` over a ``lax.scan`` or
+a ``lax.while_loop``: a body of many small kernels (a chunk of steps of
+the DQN episode, of the batched evaluation, of the batched battle or of
+a fitness episode; a PPO rollout; the bench rollout) is recorded once
+and then launched as one graph, so that the host issues one launch where
+it issued hundreds.
 
 A ``CapturedLoop`` runs a body that reads and writes tensors at fixed
 addresses (its static buffers, which the caller allocates and fills
@@ -30,6 +32,14 @@ ran, replays included.
 Results go back to the caller as clones (``clone_tree``), so that a state
 the caller holds does not change when the next call replays over the
 same buffers.
+
+A loop of up to ``max_steps`` steps that ends early (every env done)
+runs in chunks of ``chunk_steps`` steps (at most 8): ``run_chunks``
+replays the chunk and reads back one flag a chunk (is anything still
+live?), and stops after the chunk in which the loop ended. A chunk's
+steps after that point, and past ``max_steps``, are no-ops on every
+value the loop returns; their kernels still launch. The graphs of one
+owner may share one memory pool (``GraphPool``).
 """
 
 from __future__ import annotations
@@ -39,9 +49,60 @@ import dataclasses
 import gc
 import time
 import weakref
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
+
+MOST_CHUNK_STEPS = 8
+
+
+def chunk_steps(max_steps: int, update_every: int = 1,
+                most: int = MOST_CHUNK_STEPS) -> int:
+    """Steps of one chunk of an episode: the largest multiple of
+    ``update_every`` that divides ``max_steps`` and is at most ``most``
+    (``update_every`` itself where it exceeds ``most``)."""
+    fits = [k for k in range(update_every, most + 1, update_every)
+            if max_steps % k == 0]
+    return fits[-1] if fits else update_every
+
+
+def tail_chunk_steps(max_steps: int, most: int = MOST_CHUNK_STEPS) -> int:
+    """Steps of one chunk of a loop whose body makes its steps past
+    ``max_steps`` no-ops, so that the last chunk may run over: ``most``,
+    or the whole loop where it is shorter."""
+    return max(1, min(most, max_steps))
+
+
+def run_chunks(loop: 'CapturedLoop', flags: torch.Tensor, max_steps: int,
+               chunk: int, captured: bool = True) -> List[int]:
+    """Run ``loop`` (its graph, or its body uncaptured) chunk after chunk
+    until the chunks cover ``max_steps`` steps or ``flags[0]``, which each
+    chunk writes, reads 0 after one. ``flags.tolist()`` is the one
+    read-back a chunk; returns the last one (that of ``flags`` as it is
+    when no chunk runs)."""
+    run = loop if captured else loop.uncaptured
+    got = None
+    for _ in range(-(-max_steps // chunk)):
+        run()
+        got = flags.tolist()
+        if not got[0]:
+            break
+    return flags.tolist() if got is None else got
+
+
+class GraphPool:
+    """One memory pool for the graphs of one owner (a trainer's buckets),
+    made on the first capture: graphs that never run at once and carry
+    nothing from one replay to the next in their pool may share it, and
+    the pool then holds the largest graph's work, not their sum."""
+
+    def __init__(self):
+        self._handle = None
+
+    def handle(self):
+        if self._handle is None:
+            self._handle = torch.cuda.graph_pool_handle()
+        return self._handle
 
 
 class Counter:
@@ -105,11 +166,15 @@ class CapturedLoop:
     """``body()`` over static buffers, captured on its first call on a
     CUDA device and replayed on every later one. ``capture_seconds``,
     ``pool_bytes`` (what the graph's private memory pool reserved) and
-    ``replays`` say what it cost; ``tally`` holds its launches."""
+    ``replays`` say what it cost; ``tally`` holds its launches. With a
+    ``pool`` (``GraphPool``) its graph shares that pool; ``pool_bytes`` is
+    then what the pool grew by at this capture."""
 
-    def __init__(self, body: Callable[[], None], device):
+    def __init__(self, body: Callable[[], None], device,
+                 pool: Optional[GraphPool] = None):
         self.body = body
         self.device = torch.device(device)
+        self.pool = pool
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.tally = LaunchTally()
         self.capture_seconds: Optional[float] = None
@@ -162,7 +227,8 @@ class CapturedLoop:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, pool=None if self.pool is None
+                                  else self.pool.handle()):
                 self.body()
         finally:
             if collecting:

@@ -255,7 +255,7 @@ def lineups(name, cfg, dqn_state):
 def test_battle_batch_matches_jax(lineup, n, done_mode, monkeypatch):
     """10x10, 8 envs, up to 48 steps, JAX's draws: every episode's and
     seat's reward and lifetime EQUAL; the port's step wrapper called once
-    a loop iteration, holding finished envs from the second on (in coop
+    a loop iteration in chunks of 8, holding finished envs (in coop
     mode envs end at different steps; with 'all' the masked DQN outlives
     the 48 steps in most envs); the table the same string."""
     jcfg, cfg = configs(height=10, width=10, num_snakes=n, snake_length=3,
@@ -286,10 +286,13 @@ def test_battle_batch_matches_jax(lineup, n, done_mode, monkeypatch):
     assert rew.shape == life.shape == (e, n)
     np.testing.assert_allclose(rew.numpy(), jr, rtol=1e-6, atol=0)
     np.testing.assert_allclose(life.numpy(), jl, rtol=1e-6, atol=0)
-    # one step a loop iteration, hold from the second; the loop stops
-    # once every env is done
-    assert calls[0] is None and all(c is not None for c in calls[1:])
-    assert len(calls) == int(life.max()) <= steps
+    # one step a loop iteration in whole chunks, each holding the envs
+    # all done before it (none at the first); the loop stops after the
+    # chunk in which every env is done
+    k = run.chunk_steps
+    assert calls[0] == 0 and None not in calls and k == 8
+    assert len(calls) == -(-int(life.max()) // k) * k
+    assert int(life.max()) <= steps
     if done_mode == 'any':
         assert sum(calls[1:]) > 0 and len(calls) < steps
     names = ['DQN (Main)'] + [op.name for op in topp]

@@ -186,8 +186,8 @@ def jax_fruit_draws(reset_keys, steps, n):
 def test_evaluate_batch_matches_jax(n, done_mode, monkeypatch):
     """8x8, 4 envs, 16 steps, the flax DQN's weights in both. With 4
     snakes in coop mode envs end at different steps: the finished ones
-    are held still while the others go on, and the loop stops once all
-    are done."""
+    are held still while the others go on, and the loop stops after the
+    chunk in which all are done."""
     jcfg, cfg = configs(height=8, width=8, num_snakes=n, snake_length=3,
                         done_mode=done_mode)
     hw, e, steps = (8, 8), 4, 16
@@ -210,8 +210,11 @@ def test_evaluate_batch_matches_jax(n, done_mode, monkeypatch):
     before = step.launches
     got = run(reset=reset_draws_from_keys(cfg, reset_keys),
               fruit_u=jax_fruit_draws(reset_keys, steps, n))
-    # the plain engine on the CPU, one step a loop iteration
-    assert step.launches == before and len(held) == got.steps
+    # the plain engine on the CPU, one step a loop iteration, in whole
+    # chunks: the last one runs on after every env is done
+    k = run.chunk_steps
+    assert step.launches == before and k == 8
+    assert len(held) == -(-got.steps // k) * k and held[0] == 0
     np.testing.assert_allclose(float(got.mean_reward), jr, rtol=1e-6)
     np.testing.assert_allclose(float(got.mean_lifetime), jt, rtol=1e-6)
     if done_mode == 'any':

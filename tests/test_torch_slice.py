@@ -260,7 +260,10 @@ def test_ppo_and_evaluator_on_cpu_go_through_the_step_wrappers(monkeypatch):
     tr.update(tr.init_state())
     assert calls['auto'] == 5
     cfg = EnvConfig(height=8, width=8, num_snakes=2)
-    result = build_evaluate_batch(make_dqn(cfg, device='cpu'), cfg, 3, 6,
-                                  device='cpu')()
-    assert calls['step'] == result.steps and calls['held'] == result.steps - 1
+    run = build_evaluate_batch(make_dqn(cfg, device='cpu'), cfg, 3, 6,
+                               device='cpu')
+    result = run()
+    # whole chunks, each step with its hold (of no env at the first)
+    k = run.chunk_steps
+    assert calls['step'] == -(-result.steps // k) * k == calls['held']
     assert (auto.launches, step.launches) == before
