@@ -218,7 +218,13 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    env-steps/s at 4096 envs; profiler windows of 16 steps of each path,
    graph and uncaptured (device busy, idle share, device events, graph
    and kernel launches and read-backs a step, each kernel's device time a
-   launch inside the graph); each capture's seconds and pool bytes;
+   launch inside the graph); each capture's seconds and pool bytes; then
+   the program's tracer (``tracer_phase``): 256 stamps back to back in one
+   graph, nonzero, in order, on a tick of at most 1,024 ns; two DQN
+   episodes at 256 envs traced EQUAL to untraced (tolerance 0, cuDNN
+   deterministic), the traced chunk graph with 34 marks; the same
+   read-backs a step traced and untraced under ``profiling.trace``, and
+   its phase track placed by the stamps' own kernels;
 18. the learning-curve and battle programs (``showcase_phase``, after
    the CLI phase): first both step entries against the plain engine at
    the programs' shapes and configs (run_ppo's B=128, run_ppo20's B=256,
@@ -332,6 +338,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 # H100 SXM int32 and logic rate: 64 lanes on each of 132 SMs at 1.98 GHz
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+TRACER_STAMPS = 256   # back-to-back stamps of tracer_phase
 KERNEL_NAME = 'step_autoreset'       # part of the kernels' names as the
 STEP_KERNEL_NAME = 'step_noreset'    # profiler reports them
 MASK_KERNEL_NAME = 'masked_actions_kernel'
@@ -3286,6 +3293,142 @@ def graph_phase(smi: str) -> dict:
     return out
 
 
+def tracer_phase(smi: str) -> dict:
+    """The program's tracer on the card (``utils/profiling.py``,
+    ``csrc/stamp.cu``).
+
+    ``TRACER_STAMPS`` stamps back to back in one captured graph: every one
+    nonzero, none before the one it follows, their steps on a tick (their
+    greatest common divisor) of at most 1,024 ns; the stamp kernel's
+    launches are the warm-up's and the replay's, none at the capture. Then
+    two DQN episodes at 256 envs from one warm state with the same draws,
+    the tracer off and then on (cuDNN deterministic): the state, the ring
+    and the metrics EQUAL (tolerance 0); no stamp launched with the tracer
+    off; on, the chunk graph captured once more with four marks a step
+    and the chunk's two. Last, one more episode each way under
+    ``profiling.trace``: device-to-host copies an episode step (the
+    tracer's one read of its ring comes after the profile), and the
+    traced trace's phase track: its phases, and how far each phase's
+    length between its stamps' kernels lies from its length between the
+    stamps themselves (median and p95, ns)."""
+    from marlsnake_torch.algo.dqn_trainer import DQNConfig, DQNTrainer
+    from marlsnake_torch.ops import stamp
+    from marlsnake_torch.rng import reset_draws, train_draws
+    from marlsnake_torch.utils import profiling
+    from marlsnake_torch.utils.cuda_graph import CapturedLoop, chunk_steps
+    from marlsnake_torch.utils.profiling import tracer
+
+    out = {}
+    n = TRACER_STAMPS
+    slots = torch.zeros(n, dtype=torch.int64, device='cuda')
+    loop = CapturedLoop(lambda: [stamp.stamp(slots, i) for i in range(n)],
+                        'cuda')
+    stamp.stamp.launches = 0
+    loop()                       # the warm-up's stamps, then the capture
+    slots.zero_()
+    loop()
+    t = slots.tolist()
+    steps = [b - a for a, b in zip(t, t[1:])]
+    tick = math.gcd(*steps)
+    if min(t) <= 0 or min(steps) < 0 or not 0 < tick <= 1024:
+        raise AssertionError(f'back-to-back stamps: first {t[:4]}, steps '
+                             f'{steps[:8]}, tick {tick} ns')
+    if stamp.stamp.launches != 2 * n:
+        raise AssertionError(f'{stamp.stamp.launches} stamp launches for '
+                             f'a warm-up and a replay of {n}')
+    out['back_to_back'] = {
+        'stamps': n, 'tick_ns': tick,
+        'smallest_step_ns': min((d for d in steps if d > 0), default=None),
+        'median_step_ns': sorted(steps)[len(steps) // 2],
+        'equal_neighbours': sum(d == 0 for d in steps) / len(steps),
+        'first_mod_tick_ns': t[0] % tick}
+    log(f'tracer: {n} back-to-back stamps in one graph, nonzero, in '
+        f'order: {json.dumps(out["back_to_back"])} [{smi}]')
+    del loop, slots
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        tr = DQNTrainer(DQNConfig(num_envs=256, snake_length=3,
+                                  max_steps_per_episode=256), device='cuda')
+        cfg, ecfg = tr.config, tr.env_cfg
+        ts, _ = tr.train_episode(tr.init_state())   # warm ring, capture
+        gen = torch.Generator(device='cuda')
+        gen.manual_seed(64)
+        episodes = [(train_draws(ecfg, cfg.num_envs,
+                                 cfg.max_steps_per_episode, cfg.buffer_size,
+                                 tr.update_batch, gen, 'cuda'),
+                     reset_draws(ecfg, cfg.num_envs, gen, 'cuda'))
+                    for _ in range(3)]
+        runs = {}
+        for on in (False, True):
+            if on:
+                tracer.enable('cuda')
+            stamp.stamp.launches = 0
+            cur, metrics = ts, []
+            for draws, reset in episodes[:2]:
+                cur, m = tr.train_episode(cur, draws, reset)
+                metrics.append(m)
+            torch.cuda.synchronize()
+            if not on and stamp.stamp.launches:
+                raise AssertionError(f'{stamp.stamp.launches} stamps '
+                                     f'launched with the tracer off')
+            got = tracer.flush()
+            tracer.disable()
+            runs[on] = (cur, metrics, got)
+        bad = first_difference(runs[True][:2], runs[False][:2],
+                               'DQN traced')
+        if bad is not None:
+            raise AssertionError(f'traced against untraced: {bad}')
+        chunk, = tr.captured_loops()
+        k = chunk_steps(cfg.max_steps_per_episode, cfg.update_every)
+        acts = sum(s['name'] == 'dqn.act' for s in runs[True][2]['stamps'])
+        run = sum(-(-int(m.episode_length) // k) * k
+                  for m in runs[True][1])
+        if (chunk.traced_graph is None or chunk.marks != 4 * k + 2
+                or acts != run):
+            raise AssertionError(f'traced chunk: {chunk.marks} marks, '
+                                 f'{acts} act stamps for {run} steps run')
+        out['dqn'] = {'episodes': 2, 'steps_run': run,
+                      'marks_a_chunk': chunk.marks}
+        log(f'tracer: 2 DQN episodes at 256 envs traced EQUAL to untraced '
+            f'(cuDNN deterministic, every field); {json.dumps(out["dqn"])}')
+
+        draws, reset = episodes[2]
+        dtoh = {}
+        for on in (False, True):
+            if on:
+                tracer.enable('cuda')
+            with tempfile.TemporaryDirectory() as d:
+                with profiling.trace(d):
+                    _, m = tr.train_episode(ts, draws, reset)
+                    torch.cuda.synchronize()
+                tracer.disable()
+                with open(os.path.join(d, 'trace.json')) as fp:
+                    events = json.load(fp)['traceEvents']
+            dtoh['traced' if on else 'untraced'] = sum(
+                'Memcpy DtoH' in e.get('name', '') for e in events
+                if e.get('ph') == 'X') / int(m.episode_length)
+        track = [e for e in events if e.get('pid') == 'marlsnake phases'
+                 and e.get('ph') == 'X']
+        off = sorted(abs(e['dur'] * 1e3 - e['args']['stamp_ns'])
+                     for e in track)
+        if dtoh['traced'] != dtoh['untraced'] or not track:
+            raise AssertionError(f'read-backs a step {dtoh}, '
+                                 f'{len(track)} phases in the track')
+        out['profiled'] = {
+            'dtoh_per_step': dtoh, 'track_phases': len(track),
+            'kernel_against_stamp_ns': {
+                'median': off[len(off) // 2],
+                'p95': off[min(len(off) - 1, int(0.95 * len(off)))]}}
+        log(f'tracer: one profiled episode each way: '
+            f'{json.dumps(out["profiled"])} [{smi}]')
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        tracer.disable()
+    return out
+
+
 def showcase_phase(smi: str, tmp: str) -> dict:
     """The learning-curve programs (``marlsnake_torch/examples/
     train_showcase.py``) and the battle program (``marlsnake_torch/tools/
@@ -4984,6 +5127,8 @@ def main() -> int:
     # --- 19. the captured loops against their bodies, and their times ---
     graphs = graph_phase(smi)
     log(f'graphs: {json.dumps(graphs)}')
+    torch.cuda.empty_cache()
+    log(f'tracer: {json.dumps(tracer_phase(smi))}')
     torch.cuda.empty_cache()
 
     def in_graphs(kernel_name):

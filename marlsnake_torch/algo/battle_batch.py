@@ -376,7 +376,7 @@ def build_battle_batch(net, cfg: T.EnvConfig, opponents: Sequence,
             if dst is not None:
                 dst[:max_steps].copy_(src[:max_steps])
         copy_into(b.params, {**net.state_dict(), **(params or {})})
-        run_chunks(loop, b.flags, max_steps, k, captured)
+        run_chunks(loop, b.flags, max_steps, k, captured, name='battle')
         return b.rew.clone(), b.life.clone()
 
     def run(params=None, seed: int = 0,

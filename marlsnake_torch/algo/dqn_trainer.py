@@ -86,6 +86,7 @@ from marlsnake_torch.utils.cuda_graph import (CapturedLoop, chunk_steps,
                                               clone_tree, copy_into,
                                               run_chunks)
 from marlsnake_torch.utils.metrics import MetricWriter
+from marlsnake_torch.utils.profiling import tracer
 
 Params = Dict[str, torch.Tensor]
 
@@ -373,15 +374,22 @@ class DQNTrainer:
         new = optim.apply_updates(list(params.values()), updates)
         return dict(zip(params, new)), opt_state
 
+    def _grads(self, params: Params, target_params: Params, batch,
+               acting_obs: Optional[torch.Tensor] = None):
+        """``loss_and_grads``, with a mesh averaged over its ranks."""
+        loss, grads, q_act = self.loss_and_grads(params, target_params,
+                                                 batch, acting_obs)
+        if self.mesh is not None:
+            *grads, loss = self.mesh.mean(grads + [loss])
+        return loss, grads, q_act
+
     def _td_update(self, params: Params, target_params: Params,
                    opt_state: optim.AdamState, batch,
                    acting_obs: Optional[torch.Tensor] = None):
         """One optimizer step on ``batch`` = (obs, action, reward,
         next_obs, done). Returns (params, opt_state, loss, acting Q)."""
-        loss, grads, q_act = self.loss_and_grads(params, target_params,
-                                                 batch, acting_obs)
-        if self.mesh is not None:
-            *grads, loss = self.mesh.mean(grads + [loss])
+        loss, grads, q_act = self._grads(params, target_params, batch,
+                                         acting_obs)
         params, opt_state = self.apply_gradients(params, opt_state, grads)
         return params, opt_state, loss, q_act
 
@@ -440,7 +448,8 @@ class DQNTrainer:
         on CUDA as replays of one captured graph; with a mesh, as a loop
         over steps."""
         if self.mesh is not None:
-            return self._train_episode_loop(ts, draws, reset)
+            with tracer.span('dqn.episode'):
+                return self._train_episode_loop(ts, draws, reset)
         return self._train_episode_chunks(ts, draws, reset, captured=True)
 
     def train_episode_plain(self, ts: TrainState,
@@ -512,7 +521,17 @@ class DQNTrainer:
     def _chunk(self, b: _EpisodeBuffers) -> None:
         """``chunk_steps`` steps of the episode over the buffers ``b``,
         with no read-back and no branch on a device value: the body of
-        JAX's ``_episode_impl`` scan, a chunk of it at a time."""
+        JAX's ``_episode_impl`` scan, a chunk of it at a time.
+
+        The tracer's marks: ``dqn.chunk.start`` and ``dqn.chunk.end`` (after
+        the stores), and on each step the ends of ``dqn.act`` (the draws'
+        row, the acting obs, the Q forward, epsilon-greedy), ``dqn.env``
+        (the step with its hold, the shaping, the push, the accumulators),
+        ``dqn.td_grad`` (the sample, the online and target forwards, the
+        loss, the backward; with ``fused_act_update`` the acting rows'
+        forward too) and ``dqn.optim`` (clip, Adam, ``_select_update``,
+        the loss and update counters), the last two on the steps that
+        update."""
         cfg = self.config
         e, n = cfg.num_envs, cfg.num_snakes
         buffer, eps, target = b.buffer, b.epsilon, b.target_params
@@ -528,14 +547,17 @@ class DQNTrainer:
             nonlocal params, opt_state, loss_sum, updates
             batch = replay.sample(buffer, self.update_batch, d.sample_u,
                                   idx=d.sample_idx)
-            p2, o2, loss, q_act = self._td_update(params, target, opt_state,
-                                                  batch, acting)
+            loss, grads, q_act = self._grads(params, target, batch, acting)
+            tracer.mark('dqn.td_grad')
+            p2, o2 = self.apply_gradients(params, opt_state, grads)
             params, opt_state = self._select_update(
                 can_update, (p2, o2), (params, opt_state))
             loss_sum = loss_sum + torch.where(can_update, loss, 0.0)
             updates = updates + can_update.to(torch.int32)
+            tracer.mark('dqn.optim')
             return q_act
 
+        tracer.mark('dqn.chunk.start')
         for k in range(self.chunk_steps):
             d = TrainDraws(*(None if x is None else x.index_select(0, t)[0]
                              for x in b.draws))
@@ -552,6 +574,7 @@ class DQNTrainer:
                                          d.explore_u)
             else:
                 actions = self._select_actions(params, acting, dones, eps, d)
+            tracer.mark('dqn.act')
             # finished envs stand still (the reference loops while not
             # all done): the step leaves them as they came in; at the
             # episode's first step no env is frozen
@@ -572,6 +595,7 @@ class DQNTrainer:
             frozen = frozen | new_out.done.all(-1)
             state, out = new_state, new_out
             t = t + 1
+            tracer.mark('dqn.env')
             if (not cfg.fused_act_update
                     and (k + 1) % cfg.update_every == 0):
                 learn((buffer.size >= cfg.min_buffer_size) & ~frozen.all(),
@@ -586,38 +610,54 @@ class DQNTrainer:
         copy_into(b.opt_state, opt_state)
         b.flags.copy_(torch.stack([(~frozen.all()).to(torch.int32), steps,
                                    updates]))
+        tracer.mark('dqn.chunk.end')
 
     @torch.no_grad()
     def _train_episode_chunks(self, ts: TrainState,
                               draws: Optional[TrainDraws],
                               reset: Optional[ResetDraws], captured: bool
                               ) -> Tuple[TrainState, EpisodeMetrics]:
+        """The episode in chunks. The tracer's span ``dqn.episode`` holds
+        ``dqn.prologue`` (draws, reset, copy-in), the chunks (``run_chunks``
+        as ``dqn``) and ``dqn.epilogue`` (the metrics, the clones,
+        ``_end_episode``), the first and last bounded by marks; the count
+        ``dqn.tail_steps`` adds the steps the chunks ran after the
+        episode's last live step."""
         cfg = self.config
-        draws, reset = self._draws(draws, reset)
-        b, loop = self._chunk_loop(draws)
-        env_states, obs = self._reset_env(reset)
-        b.envs.load(env_states)
-        b.envs.out.obs.copy_(obs)
-        for x in (b.frozen, b.ep_rew, b.loss_sum, b.updates, b.steps, b.t):
-            x.zero_()
-        copy_into(b.params, ts.params)
-        copy_into(b.target_params, ts.target_params)
-        copy_into(b.opt_state, ts.opt_state)
-        copy_into(b.buffer, ts.buffer)
-        b.epsilon.copy_(ts.epsilon)
-        copy_into(b.draws, draws)
-        _, steps, updates = run_chunks(loop, b.flags,
-                                       cfg.max_steps_per_episode,
-                                       self.chunk_steps, captured)
-
-        mean_loss = (b.loss_sum / updates if updates
-                     else b.loss_sum.clone())
-        metrics = EpisodeMetrics(
-            mean_reward=mean_of(b.ep_rew), mean_loss=mean_loss,
-            episode_length=float(steps), updates=updates)
-        return self._end_episode(ts, clone_tree(b.params),
-                                 clone_tree(b.opt_state),
-                                 clone_tree(b.buffer), metrics), metrics
+        with tracer.span('dqn.episode'):
+            with tracer.span('dqn.prologue', device=True):
+                draws, reset = self._draws(draws, reset)
+                b, loop = self._chunk_loop(draws)
+                env_states, obs = self._reset_env(reset)
+                b.envs.load(env_states)
+                b.envs.out.obs.copy_(obs)
+                for x in (b.frozen, b.ep_rew, b.loss_sum, b.updates, b.steps,
+                          b.t):
+                    x.zero_()
+                copy_into(b.params, ts.params)
+                copy_into(b.target_params, ts.target_params)
+                copy_into(b.opt_state, ts.opt_state)
+                copy_into(b.buffer, ts.buffer)
+                b.epsilon.copy_(ts.epsilon)
+                copy_into(b.draws, draws)
+            _, steps, updates = run_chunks(loop, b.flags,
+                                           cfg.max_steps_per_episode,
+                                           self.chunk_steps, captured,
+                                           name='dqn')
+            # the chunk that ran the last live step is the last one run
+            tracer.count('dqn.tail_steps',
+                         -(-steps // self.chunk_steps) * self.chunk_steps
+                         - steps)
+            with tracer.span('dqn.epilogue', device=True):
+                mean_loss = (b.loss_sum / updates if updates
+                             else b.loss_sum.clone())
+                metrics = EpisodeMetrics(
+                    mean_reward=mean_of(b.ep_rew), mean_loss=mean_loss,
+                    episode_length=float(steps), updates=updates)
+                ts = self._end_episode(ts, clone_tree(b.params),
+                                       clone_tree(b.opt_state),
+                                       clone_tree(b.buffer), metrics)
+        return ts, metrics
 
     def _end_episode(self, ts: TrainState, params: Params,
                      opt_state: optim.AdamState,

@@ -150,7 +150,8 @@ def build_evaluate_batch(net, cfg: T.EnvConfig, num_envs: int = 256,
             x.zero_()
         b.fruit_u[:max_steps].copy_(fruit_u[:max_steps])
         copy_into(b.params, {**net.state_dict(), **(params or {})})
-        _, steps = run_chunks(loop, b.flags, max_steps, k, captured)
+        _, steps = run_chunks(loop, b.flags, max_steps, k, captured,
+                              name='eval')
         return EvalResult(b.rew.mean(), b.life.mean(), steps)
 
     def run(params=None, seed: int = 0, reset: Optional[ResetDraws] = None,

@@ -573,7 +573,8 @@ class _FitnessEpisodes:
             copy_into(b.head, head.tensors)
             b.act = head.act
             _, run = run_chunks(loop, b.flags, self.episode_steps,
-                                self.chunk_steps, self.captured)
+                                self.chunk_steps, self.captured,
+                                name='fitness')
             self.env_steps += run
             self.env_steps_by_width[p] = (
                 self.env_steps_by_width.get(p, 0) + run)

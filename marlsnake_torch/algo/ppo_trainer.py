@@ -64,6 +64,7 @@ from marlsnake_torch.utils import checkpoint as ckpt
 from marlsnake_torch.utils.cuda_graph import (CapturedLoop, clone_tree,
                                               copy_into)
 from marlsnake_torch.utils.metrics import MetricWriter
+from marlsnake_torch.utils.profiling import tracer
 
 Params = Dict[str, torch.Tensor]
 
@@ -316,19 +317,22 @@ class PPOTrainer:
     @torch.no_grad()
     def _collect(self, ts: PPOTrainState, draws: PPODraws, captured: bool
                  ) -> PPOTrainState:
-        b, loop = self.rollout_loop()
-        b.envs.load(ts.env_states)
-        for name in ('obs', 'agent_done', 'ep_return_acc',
-                     'finished_return_sum', 'finished_count', 'episodes',
-                     'params'):
-            copy_into(getattr(b, name), getattr(ts, name))
-        copy_into(b.step, draws.step)
-        b.gumbel.copy_(draws.gumbel)
-        (loop if captured else loop.uncaptured)()
-        return ts.replace(env_states=b.envs.clone()[0], **{
-            name: clone_tree(getattr(b, name)) for name in (
-                'obs', 'agent_done', 'ep_return_acc', 'finished_return_sum',
-                'finished_count', 'episodes')})
+        """The rollout: copy-in, the graph, the clones, as the tracer's
+        span ``ppo.collect``, bounded by marks (the graph holds none)."""
+        with tracer.span('ppo.collect', device=True):
+            b, loop = self.rollout_loop()
+            b.envs.load(ts.env_states)
+            for name in ('obs', 'agent_done', 'ep_return_acc',
+                         'finished_return_sum', 'finished_count', 'episodes',
+                         'params'):
+                copy_into(getattr(b, name), getattr(ts, name))
+            copy_into(b.step, draws.step)
+            b.gumbel.copy_(draws.gumbel)
+            (loop if captured else loop.uncaptured)()
+            return ts.replace(env_states=b.envs.clone()[0], **{
+                name: clone_tree(getattr(b, name)) for name in (
+                    'obs', 'agent_done', 'ep_return_acc',
+                    'finished_return_sum', 'finished_count', 'episodes')})
 
     def _rollout_body(self, b: _RolloutBuffers) -> None:
         """The rollout over the buffers ``b``: the steps, the last value
@@ -466,16 +470,27 @@ class PPOTrainer:
         """The minibatch epochs over ``self.trajectory`` from ``ts``, which
         ``collect`` returned, one row of ``perm`` an epoch, and the
         update's metrics: the losses' mean over every minibatch, the
-        reward and episodes of the rollout."""
+        reward and episodes of the rollout. The tracer's span
+        ``ppo.learn``, bounded by marks, and in it each minibatch's marks:
+        the ends of ``ppo.gather`` (its rows), ``ppo.fwd_bwd``
+        (``loss_and_grads``) and ``ppo.optim`` (``apply_gradients``)."""
+        with tracer.span('ppo.learn', device=True):
+            return self._learn(ts, perm)
+
+    def _learn(self, ts: PPOTrainState, perm: torch.Tensor
+               ) -> Tuple[PPOTrainState, PPOMetrics]:
         params, opt_state, auxs = ts.params, ts.opt_state, []
         for epoch_perm in perm:
             for mb in self.minibatches(epoch_perm):
+                tracer.mark('ppo.gather')
                 _, aux, grads = self.loss_and_grads(params, mb)
                 if self.mesh is not None:
                     *grads, aux = self.mesh.mean(grads + [aux])
+                tracer.mark('ppo.fwd_bwd')
                 params, opt_state = self.apply_gradients(params, opt_state,
                                                          grads)
                 auxs.append(aux)
+                tracer.mark('ppo.optim')
         aux = mean_of(torch.stack(auxs), 0)
         traj = self.trajectory
         rew_sum = (traj.reward * traj.valid).sum()
@@ -508,10 +523,12 @@ class PPOTrainer:
         (minibatch epochs and metrics). ``draws`` default to numbers from
         the trainer's generator."""
         cfg = self.config
-        if draws is None:
-            draws = ppo_draws(self.env_cfg, cfg.num_envs, cfg.rollout_steps,
-                              cfg.update_epochs, self.generator, self.device)
-        return self.learn(self.collect(ts, draws), draws.perm)
+        with tracer.span('ppo.update'):
+            if draws is None:
+                draws = ppo_draws(self.env_cfg, cfg.num_envs,
+                                  cfg.rollout_steps, cfg.update_epochs,
+                                  self.generator, self.device)
+            return self.learn(self.collect(ts, draws), draws.perm)
 
     # ------------------------------------------------------------------
     def train(self, num_updates: Optional[int] = None,

@@ -22,6 +22,13 @@ The body must not read a value back to the host, and must draw no
 random number: every draw comes in through a static buffer
 (``marlsnake_torch.rng``).
 
+The tracer (``utils/profiling.tracer``) picks the graph: a body that
+places marks has a second graph, captured on the first call with the
+tracer on, whose stamps write slots of the loop's own; after each of its
+replays the loop copies those slots into the tracer's ring. With the
+tracer off the untraced graph replays, with not one node more. A body
+that places no mark is captured once, and its one graph serves both.
+
 Launch counters (``step_kernel.step.launches`` and the others that
 ``launch_counters`` lists, a tracked ``Counter`` among them) count in
 Python, where a wrapper enqueues its kernel. Capture enqueues nothing, so
@@ -53,6 +60,8 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from marlsnake_torch.utils.profiling import LoopSlots, MarkProbe, tracer
+
 MOST_CHUNK_STEPS = 8
 
 
@@ -74,17 +83,22 @@ def tail_chunk_steps(max_steps: int, most: int = MOST_CHUNK_STEPS) -> int:
 
 
 def run_chunks(loop: 'CapturedLoop', flags: torch.Tensor, max_steps: int,
-               chunk: int, captured: bool = True) -> List[int]:
+               chunk: int, captured: bool = True, *, name: str
+               ) -> List[int]:
     """Run ``loop`` (its graph, or its body uncaptured) chunk after chunk
     until the chunks cover ``max_steps`` steps or ``flags[0]``, which each
     chunk writes, reads 0 after one. ``flags.tolist()`` is the one
     read-back a chunk; returns the last one (that of ``flags`` as it is
-    when no chunk runs)."""
+    when no chunk runs). Each chunk's launch and read-back are the
+    tracer's host spans ``<name>.replay`` and ``<name>.readback``."""
     run = loop if captured else loop.uncaptured
+    replay, readback = f'{name}.replay', f'{name}.readback'
     got = None
     for _ in range(-(-max_steps // chunk)):
-        run()
-        got = flags.tolist()
+        with tracer.span(replay):
+            run()
+        with tracer.span(readback):
+            got = flags.tolist()
         if not got[0]:
             break
     return flags.tolist() if got is None else got
@@ -127,10 +141,10 @@ def track(counter: Counter) -> Counter:
 def launch_counters() -> tuple:
     """The wrappers whose ``launches`` attribute counts their kernel's
     launches, and the tracked counters."""
-    from marlsnake_torch.ops import floodfill, safety_mask, step_kernel
+    from marlsnake_torch.ops import floodfill, safety_mask, stamp, step_kernel
     return (step_kernel.step_autoreset, step_kernel.step,
             safety_mask.safety_mask, floodfill.reachable_count,
-            *_TRACKED)
+            stamp.stamp, *_TRACKED)
 
 
 class LaunchTally:
@@ -168,7 +182,14 @@ class CapturedLoop:
     ``pool_bytes`` (what the graph's private memory pool reserved) and
     ``replays`` say what it cost; ``tally`` holds its launches. With a
     ``pool`` (``GraphPool``) its graph shares that pool; ``pool_bytes`` is
-    then what the pool grew by at this capture."""
+    then what the pool grew by at this capture.
+
+    ``marks`` is the number of tracer marks the body places (None until
+    its first capture). Where it places some, a call with the tracer on
+    replays ``traced_graph`` (captured on the first such call, into the
+    pool of the untraced graph where there is one: the two never run at
+    once), whose launches ``traced_tally`` holds and whose stamps it
+    copies into the tracer's ring."""
 
     def __init__(self, body: Callable[[], None], device,
                  pool: Optional[GraphPool] = None):
@@ -180,16 +201,27 @@ class CapturedLoop:
         self.capture_seconds: Optional[float] = None
         self.pool_bytes: Optional[int] = None
         self.replays = 0
+        self.marks: Optional[int] = None
+        self.traced_graph: Optional[torch.cuda.CUDAGraph] = None
+        self.traced_tally = LaunchTally()
+        self._stamps = None   # the traced graph's (slots, mark names)
 
     def __call__(self) -> None:
         if self.device.type != 'cuda':
             self.body()
-        elif self.graph is None:
+            return
+        traced = tracer.on and self.marks != 0
+        graph = self.traced_graph if traced else self.graph
+        if graph is None:
             self._warm_up()
-            self._capture()
+            self._capture(traced)
+            return
+        graph.replay()
+        self.replays += 1
+        if traced:
+            self.traced_tally.add()
+            tracer.replayed(*self._stamps)
         else:
-            self.graph.replay()
-            self.replays += 1
             self.tally.add()
 
     def uncaptured(self) -> None:
@@ -204,10 +236,29 @@ class CapturedLoop:
             self.body()
         current.wait_stream(side)
 
-    def _capture(self) -> None:
-        with self.tally.recording():
-            self.graph, self.capture_seconds, self.pool_bytes = \
-                self._record()
+    def _capture(self, traced: bool) -> None:
+        """Capture the body: with ``traced``, its marks stamping slots of
+        the loop's own; else counted only. A traced capture that finds no
+        mark is the untraced graph."""
+        sink = LoopSlots(self.device) if traced else MarkProbe()
+        tally = LaunchTally()
+        with tally.recording(), tracer.capturing(sink):
+            graph, seconds, pool_bytes = self._record()
+        self.marks = len(sink.names)
+        if traced and self.marks:
+            self.traced_graph, self.traced_tally = graph, tally
+            self._stamps = (sink.slots[:self.marks], sink.names)
+        else:
+            self.graph, self.tally = graph, tally
+            self.capture_seconds, self.pool_bytes = seconds, pool_bytes
+
+    def _pool_handle(self):
+        """The pool of this loop's owner, else that of its other graph
+        (None: a private pool)."""
+        if self.pool is not None:
+            return self.pool.handle()
+        other = self.graph or self.traced_graph
+        return None if other is None else other.pool()
 
     def _record(self):
         """(the graph of one body, its capture's seconds, the bytes its
@@ -227,8 +278,7 @@ class CapturedLoop:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=None if self.pool is None
-                                  else self.pool.handle()):
+            with torch.cuda.graph(graph, pool=self._pool_handle()):
                 self.body()
         finally:
             if collecting:

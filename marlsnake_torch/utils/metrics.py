@@ -6,7 +6,6 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Optional
 
 
 class MetricWriter:
@@ -47,23 +46,3 @@ class MetricWriter:
         if self._jsonl is not None:
             self._jsonl.close()
 
-
-class Throughput:
-    """Steps per second with exponential smoothing."""
-
-    def __init__(self, alpha: float = 0.1):
-        self._last_t: Optional[float] = None
-        self._last_steps = 0
-        self._rate = 0.0
-        self._alpha = alpha
-
-    def update(self, total_steps: int) -> float:
-        now = time.perf_counter()
-        if self._last_t is not None and now > self._last_t:
-            inst = (total_steps - self._last_steps) / (now - self._last_t)
-            self._rate = (self._alpha * inst
-                          + (1 - self._alpha) * self._rate
-                          if self._rate else inst)
-        self._last_t = now
-        self._last_steps = total_steps
-        return self._rate

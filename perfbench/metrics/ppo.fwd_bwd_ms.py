@@ -1,0 +1,9 @@
+"""Milliseconds an update of the PPO minibatches' ``ppo.fwd_bwd`` phases,
+summed, on the device's clock, over the traced pass
+(``perfbench/traced.py``)."""
+
+from perfbench import traced
+
+
+def read(ctx):
+    return traced.ppo_per_update_ms(ctx, 'ppo.fwd_bwd')

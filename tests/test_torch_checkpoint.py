@@ -25,7 +25,7 @@ from marlsnake_torch.algo.dqn_trainer import DQNConfig, DQNTrainer
 from marlsnake_torch.algo.ppo_trainer import PPOConfig, PPOTrainer
 from marlsnake_torch.models.weights import train_state_from_flax
 from marlsnake_torch.utils import checkpoint as ckpt
-from marlsnake_torch.utils.metrics import MetricWriter, Throughput
+from marlsnake_torch.utils.metrics import MetricWriter
 from test_torch_dqn_trainer import (SMALL, _t, assert_grads_close,
                                     assert_params_close, episode_draws,
                                     jax_loss_and_grads, numpy_state,
@@ -247,7 +247,7 @@ def test_jax_train_state_carries_over_so_that_the_next_update_matches(
     assert_states_equal(back, ts)
 
 
-def test_metric_writer_and_throughput(tmp_path):
+def test_metric_writer(tmp_path):
     w = MetricWriter(str(tmp_path / 'log'))
     w.add_scalars({'a': 1.5, 'b': 2}, step=3)
     w.flush()
@@ -256,9 +256,6 @@ def test_metric_writer_and_throughput(tmp_path):
         rows = [json.loads(line) for line in f]
     assert [(r['tag'], r['value'], r['step']) for r in rows] == [
         ('a', 1.5, 3), ('b', 2.0, 3)]
-    t = Throughput()
-    assert t.update(0) == 0.0
-    assert t.update(100) > 0.0
 
 
 # --- PPO checkpoints (the mirror of tests/test_checkpoint.py's PPO cases) ---

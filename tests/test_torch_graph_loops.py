@@ -99,7 +99,7 @@ def test_tail_chunks_cover_the_loop_and_stop_on_the_flag():
         flags.zero_()
         loop = cuda_graph.CapturedLoop(lambda s=stop_after: body(s), 'cpu')
         got = cuda_graph.run_chunks(loop, flags, max_steps, 8,
-                                    captured=False)
+                                    captured=False, name='loop')
         assert len(ran) == chunks and got == last
 
 
