@@ -15,7 +15,7 @@ tensors, and the state lives wherever the parameters live.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,9 +33,14 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.stack([s.sum() for s in squares]).sum().sqrt()
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor],
-                        max_norm: float) -> List[torch.Tensor]:
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None
+                        ) -> List[torch.Tensor]:
+    """``grads`` clipped to the global norm ``max_norm``; ``norm``, where
+    given, is their global norm (of a larger set that they are a part
+    of)."""
+    if norm is None:
+        norm = global_norm(grads)
     scaled = torch._foreach_mul(torch._foreach_div(grads, norm), max_norm)
     below = norm < max_norm
     return [torch.where(below, g, s) for g, s in zip(grads, scaled)]

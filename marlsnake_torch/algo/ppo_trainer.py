@@ -25,6 +25,18 @@ into buffers the trainer allocates once (``trainer.trajectory``: obs as
 which the next update overwrites. The minibatch epochs are plain torch:
 autograd on the forward, ``algo/optim.py`` for the clip and Adam.
 
+The shared net is the ActorCritic, or with ``net='moonlight_agent'`` an
+LLM agent (``models/moonlight.py``: Moonlight-16B-A3B's decoder over a
+prompt of the packed board, its action logits the ``lm_head`` rows of
+the three actions, a value head), on the same path: the rollout in the
+same graph, the same GAE, minibatches, clip and Adam. The agent's
+routers' correction biases ride in ``PPOTrainState.buffers`` and take
+the bias step of aux-loss-free balancing after each optimizer step
+(``models.moonlight.balance_bias``). With ``in_place`` (for either
+net) ``learn`` writes the new parameters and Adam's moments into the
+state it is given (``_apply_in_place``): at its published widths the
+agent's float32 parameters and moments fit one card once, not twice.
+
 Random numbers: the trainer owns one ``torch.Generator`` on its device;
 ``update`` draws an update's numbers from it up front (``rng.ppo_draws``)
 unless the caller hands them in. Left out against the JAX trainer: the
@@ -45,7 +57,8 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Tuple)
 
 import torch
 
@@ -55,6 +68,8 @@ from marlsnake_torch.core.state import EnvState
 from marlsnake_torch.core.types import EnvConfig
 from marlsnake_torch.device import resolve_device
 from marlsnake_torch.envs.vector import build_vector_fns
+from marlsnake_torch.models.moonlight import (MoonlightConfig, balance_bias,
+                                              make_moonlight_agent)
 from marlsnake_torch.models.ppo import make_actor_critic
 from marlsnake_torch.ops import step_kernel
 from marlsnake_torch.ops.obs_pack import unpack_obs
@@ -71,7 +86,8 @@ Params = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass
 class PPOConfig:
-    """Field names and defaults are the JAX ``PPOConfig``'s."""
+    """Field names and defaults are the JAX ``PPOConfig``'s, but for
+    ``net`` and ``moonlight``, the port's own."""
     # environment
     num_snakes: int = 4
     height: int = 20
@@ -112,8 +128,18 @@ class PPOConfig:
     assume_binary_obs: bool = True
     # 'packed': the envs emit one byte a cell a frame, the rollout
     # buffer holds those bytes, and they are unpacked where they enter
-    # the net
+    # the ActorCritic
     obs_format: str = 'uint8'
+    # the shared net: 'actor_critic' (models/ppo.py), or 'moonlight_agent'
+    # (models/moonlight.py: an LLM that reads the packed board as a
+    # prompt, with the decoder settings of ``moonlight``)
+    net: str = 'actor_critic'
+    moonlight: MoonlightConfig = dataclasses.field(
+        default_factory=MoonlightConfig)
+    # the optimizer step writes the parameters and moments it is given,
+    # a leaf at a time, letting go of each gradient once used; the same
+    # numbers as the functional step, which keeps the old state
+    in_place: bool = False
 
     def env_config(self) -> EnvConfig:
         return EnvConfig.from_reward_dict(
@@ -138,6 +164,9 @@ class PPOTrainState:
     ep_return_acc: torch.Tensor    # (E, N) float32: running returns
     finished_return_sum: torch.Tensor  # () float32
     finished_count: torch.Tensor       # () int32
+    # the net's state that no gradient moves: the MoE routers' correction
+    # biases of the agent (empty for the ActorCritic)
+    buffers: Params = dataclasses.field(default_factory=dict)
 
     def replace(self, **changes) -> 'PPOTrainState':
         return dataclasses.replace(self, **changes)
@@ -189,6 +218,7 @@ class _RolloutBuffers:
     finished_count: torch.Tensor
     episodes: torch.Tensor
     params: Params
+    buffers: Params
     step: StepDraws            # step axis first
     gumbel: torch.Tensor
 
@@ -202,15 +232,35 @@ class PPOTrainer:
     def __init__(self, config: PPOConfig, device='cuda', mesh=None):
         self.config = config
         self.mesh = mesh
+        # called as on_grads(params, grads) before each optimizer step
+        self.on_grads: Optional[Callable[[Params, List[torch.Tensor]],
+                                         None]] = None
         if mesh is not None:
             device = mesh.device
         self.device = resolve_device(device)
         self.env_cfg = config.env_config()
         # the net is applied to parameters handed in (PPOTrainState.params);
-        # its own, made from config.seed, are what init_state starts from
-        self.net = make_actor_critic(
-            self.env_cfg, config.seed, self.device, config.assume_binary_obs,
-            config.compute_dtype).requires_grad_(False)
+        # the ActorCritic's own, made from config.seed, are what init_state
+        # starts from; the agent holds none, and init_state draws its
+        # weights from config.seed afresh
+        self._agent = config.net == 'moonlight_agent'
+        if self._agent:
+            if mesh is not None:
+                raise ValueError('the moonlight agent trains on one device: '
+                                 'its routers\' loads are not all-reduced')
+            if config.obs_format != 'packed':
+                raise ValueError("the moonlight agent reads packed obs: "
+                                 "obs_format='packed'")
+            self.net = make_moonlight_agent(
+                config.moonlight, self.env_cfg.obs_shape[1:], config.seed,
+                self.device, config.compute_dtype, weights=False)
+        elif config.net == 'actor_critic':
+            self.net = make_actor_critic(
+                self.env_cfg, config.seed, self.device,
+                config.assume_binary_obs, config.compute_dtype)
+        else:
+            raise ValueError(f'unknown net {config.net!r}')
+        self.net.requires_grad_(False)
         self._reset_env, self._step_env = build_vector_fns(
             self.env_cfg, autoreset=True, device=self.device)
         self.generator = torch.Generator(device=self.device)
@@ -239,8 +289,15 @@ class PPOTrainer:
         generator."""
         cfg, dev = self.config, self.device
         e, n = cfg.num_envs, cfg.num_snakes
-        params = {k: v.detach().clone()
-                  for k, v in self.net.state_dict().items()}
+        held = {k for k, _ in self.net.named_buffers()}
+        if self._agent:
+            state = make_moonlight_agent(
+                cfg.moonlight, self.env_cfg.obs_shape[1:], cfg.seed, dev,
+                cfg.compute_dtype).state_dict()
+        else:
+            state = {k: v.detach().clone()
+                     for k, v in self.net.state_dict().items()}
+        params = {k: v for k, v in state.items() if k not in held}
         if reset is None:
             reset = reset_draws(self.env_cfg, e, self.generator, dev)
         env_states, obs = self._reset_env(reset)
@@ -255,26 +312,34 @@ class PPOTrainer:
             episodes=zeros((), torch.int32),
             ep_return_acc=zeros((e, n), torch.float32),
             finished_return_sum=zeros((), torch.float32),
-            finished_count=zeros((), torch.int32))
+            finished_count=zeros((), torch.int32),
+            buffers={k: v for k, v in state.items() if k in held})
 
     # ------------------------------------------------------------------
     def _prep(self, flat_obs: torch.Tensor) -> torch.Tensor:
         """Net-ingress transform: unpack packed bytes to the uint8 planes
-        (``obs_format='packed'``); identity otherwise."""
-        if self.config.obs_format == 'packed':
+        for the ActorCritic (``obs_format='packed'``); identity otherwise
+        (the agent reads the bytes)."""
+        if self.config.obs_format == 'packed' and not self._agent:
             return unpack_obs(flat_obs)
         return flat_obs
 
-    def _forward(self, params: Params, flat_obs: torch.Tensor):
-        """(logits (M, A), value (M,)) of per-agent obs rows (M, H, W, C)."""
-        return torch.func.functional_call(self.net, params,
-                                          (self._prep(flat_obs),))
+    def _forward(self, params: Params, flat_obs: torch.Tensor,
+                 buffers: Optional[Params] = None, phases: bool = False):
+        """(logits (M, A), value (M,)) of per-agent obs rows (M, H, W, C);
+        ``phases``: the agent's marks and counts (``models/moonlight.py``)."""
+        return torch.func.functional_call(
+            self.net, (params, buffers or {}), (self._prep(flat_obs),),
+            {'phases': True} if phases else {})
 
-    def _policy(self, params: Params, obs: torch.Tensor):
-        """(logits (E, N, A), value (E, N)) of obs (E, N, H, W, C)."""
+    def _policy(self, params: Params, obs: torch.Tensor,
+                buffers: Optional[Params] = None):
+        """(logits (E, N, A), value (E, N)) of obs (E, N, H, W, C), with
+        the agent's phases."""
         e, n = obs.shape[:2]
-        logits, value = self._forward(params, obs.reshape((e * n,)
-                                                          + obs.shape[2:]))
+        logits, value = self._forward(
+            params, obs.reshape((e * n,) + obs.shape[2:]), buffers,
+            self._agent)
         return logits.reshape(e, n, -1), value.reshape(e, n)
 
     # ------------------------------------------------------------------
@@ -309,7 +374,8 @@ class PPOTrainer:
                 ep_return_acc=like.ep_return_acc,
                 finished_return_sum=like.finished_return_sum,
                 finished_count=like.finished_count, episodes=like.episodes,
-                params=like.params, step=draws.step, gumbel=draws.gumbel)
+                params=like.params, buffers=like.buffers, step=draws.step,
+                gumbel=draws.gumbel)
             self._rollout = (bufs, CapturedLoop(
                 lambda: self._rollout_body(bufs), dev))
         return self._rollout
@@ -324,7 +390,7 @@ class PPOTrainer:
             b.envs.load(ts.env_states)
             for name in ('obs', 'agent_done', 'ep_return_acc',
                          'finished_return_sum', 'finished_count', 'episodes',
-                         'params'):
+                         'params', 'buffers'):
                 copy_into(getattr(b, name), getattr(ts, name))
             copy_into(b.step, draws.step)
             b.gumbel.copy_(draws.gumbel)
@@ -343,7 +409,7 @@ class PPOTrainer:
         ep_acc, fin_sum = b.ep_return_acc, b.finished_return_sum
         fin_cnt, episodes = b.finished_count, b.episodes
         for t in range(cfg.rollout_steps):
-            logits, value = self._policy(b.params, obs)
+            logits, value = self._policy(b.params, obs, b.buffers)
             action = (logits + b.gumbel[t]).argmax(-1)
             logprob = torch.log_softmax(logits, -1).gather(
                 -1, action[..., None])[..., 0]
@@ -373,7 +439,7 @@ class PPOTrainer:
             agent_done = out.done & ~ep_done[:, None]
             obs = out.obs
         traj.ended.copy_(episodes - b.episodes)
-        _, last_value = self._policy(b.params, obs)
+        _, last_value = self._policy(b.params, obs, b.buffers)
         self._gae(last_value)
         b.envs.store(env_states)
         for dst, src in ((b.obs, obs), (b.agent_done, agent_done),
@@ -403,13 +469,14 @@ class PPOTrainer:
         torch.add(traj.advantages, traj.value, out=traj.returns)
 
     # ------------------------------------------------------------------
-    def _loss(self, params: Params, mb: Minibatch):
+    def _loss(self, params: Params, mb: Minibatch,
+              buffers: Optional[Params] = None):
         """(total loss, (actor, value, entropy, approx_kl)) of one
         minibatch, in the JAX trainer's formula order; the advantages are
         normalised over the minibatch's valid rows."""
         cfg = self.config
         obs = mb.obs.reshape((mb.obs.shape[0],) + self.env_cfg.obs_shape[1:])
-        logits, value = self._forward(params, obs)
+        logits, value = self._forward(params, obs, buffers)
         logp_all = torch.log_softmax(logits, -1)
         logp = logp_all.gather(-1, mb.action.long()[:, None])[:, 0]
         v = mb.valid.to(torch.float32)
@@ -428,7 +495,8 @@ class PPOTrainer:
         total = loss_actor + cfg.vf_coef * loss_value - cfg.ent_coef * ent
         return total, torch.stack([loss_actor, loss_value, ent, kl])
 
-    def loss_and_grads(self, params: Params, mb: Minibatch
+    def loss_and_grads(self, params: Params, mb: Minibatch,
+                       buffers: Optional[Params] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor,
                                   List[torch.Tensor]]:
         """(total loss, its (actor, value, entropy, approx_kl) terms,
@@ -436,20 +504,47 @@ class PPOTrainer:
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
         with torch.enable_grad():
-            total, aux = self._loss(leaves, mb)
+            total, aux = self._loss(leaves, mb, buffers)
             grads = torch.autograd.grad(total, list(leaves.values()))
         return total.detach(), aux.detach(), list(grads)
 
     def apply_gradients(self, params: Params, opt_state: optim.AdamState,
                         grads) -> Tuple[Params, optim.AdamState]:
         """Clip to the global norm ``max_grad_norm``, then one Adam step
-        (eps 1e-5) at ``lr``."""
+        (eps 1e-5) at ``lr``; with ``in_place``, made into the state given
+        (``_apply_in_place``)."""
         cfg = self.config
+        if cfg.in_place:
+            return self._apply_in_place(params, opt_state, grads)
         grads = optim.clip_by_global_norm(grads, cfg.max_grad_norm)
         updates, opt_state = optim.adam_update(grads, opt_state, cfg.lr,
                                                eps=1e-5)
         new = optim.apply_updates(list(params.values()), updates)
         return dict(zip(params, new)), opt_state
+
+    def _apply_in_place(self, params: Params, opt_state: optim.AdamState,
+                        grads: List[torch.Tensor]
+                        ) -> Tuple[Params, optim.AdamState]:
+        """``apply_gradients``'s arithmetic, written into the parameters
+        and moments handed in, one parameter at a time, each gradient
+        let go of (``grads`` emptied) once used: a 1.4 B-parameter learner
+        has room on one card for one copy of its float32 state and its
+        gradients, not for the two or three that a functional step makes
+        (``PERF.md``). So ``learn`` changes the state it is given."""
+        cfg = self.config
+        norm = optim.global_norm(grads)
+        for i, p in enumerate(params.values()):
+            g = optim.clip_by_global_norm([grads[i]], cfg.max_grad_norm, norm)
+            grads[i] = None
+            (update,), st = optim.adam_update(
+                g, optim.AdamState(opt_state.count, [opt_state.mu[i]],
+                                   [opt_state.nu[i]]), cfg.lr, eps=1e-5)
+            p.add_(update)
+            opt_state.mu[i].copy_(st.mu[0])
+            opt_state.nu[i].copy_(st.nu[0])
+        grads.clear()
+        opt_state.count.add_(1)
+        return params, opt_state
 
     def minibatches(self, perm: torch.Tensor):
         """The minibatches of one epoch of ``self.trajectory``, in order:
@@ -473,22 +568,33 @@ class PPOTrainer:
         reward and episodes of the rollout. The tracer's span
         ``ppo.learn``, bounded by marks, and in it each minibatch's marks:
         the ends of ``ppo.gather`` (its rows), ``ppo.fwd_bwd``
-        (``loss_and_grads``) and ``ppo.optim`` (``apply_gradients``)."""
+        (``loss_and_grads``) and ``ppo.optim`` (``apply_gradients``, and
+        for the agent the routers' bias step, ``balance_bias``, over the
+        minibatch's expert loads). ``on_grads``, where set, is called with
+        each minibatch's parameters and the gradient the step takes,
+        before the step."""
         with tracer.span('ppo.learn', device=True):
             return self._learn(ts, perm)
 
     def _learn(self, ts: PPOTrainState, perm: torch.Tensor
                ) -> Tuple[PPOTrainState, PPOMetrics]:
         params, opt_state, auxs = ts.params, ts.opt_state, []
+        buffers = ts.buffers
         for epoch_perm in perm:
             for mb in self.minibatches(epoch_perm):
                 tracer.mark('ppo.gather')
-                _, aux, grads = self.loss_and_grads(params, mb)
+                _, aux, grads = self.loss_and_grads(params, mb, buffers)
                 if self.mesh is not None:
                     *grads, aux = self.mesh.mean(grads + [aux])
+                if self.on_grads is not None:
+                    self.on_grads(params, grads)
                 tracer.mark('ppo.fwd_bwd')
                 params, opt_state = self.apply_gradients(params, opt_state,
                                                          grads)
+                if buffers:
+                    rate = self.config.moonlight.bias_update_rate
+                    buffers = {k: balance_bias(b, load, rate) for (k, b), load
+                               in zip(buffers.items(), self.net.loads)}
                 auxs.append(aux)
                 tracer.mark('ppo.optim')
         aux = mean_of(torch.stack(auxs), 0)
@@ -511,7 +617,7 @@ class PPOTrainer:
             mean_episode_return=torch.where(
                 fin_cnt > 0, fin_sum / fin_cnt.clamp_min(1), 0.0),
             episodes_collected=fin_cnt)
-        ts = ts.replace(params=params, opt_state=opt_state,
+        ts = ts.replace(params=params, opt_state=opt_state, buffers=buffers,
                         update=ts.update + 1, episodes=episodes,
                         finished_return_sum=torch.zeros_like(fin_sum),
                         finished_count=torch.zeros_like(fin_cnt))
@@ -588,6 +694,8 @@ class PPOTrainer:
                    'opt_state': {'count': opt.count, 'mu': opt.mu,
                                  'nu': opt.nu},
                    'update': ts.update}
+        if ts.buffers:
+            payload['buffers'] = ts.buffers
         if full:
             payload.update(
                 env_states=dict(ts.env_states.fields()), obs=ts.obs,

@@ -185,12 +185,12 @@ class CapturedLoop:
     ``pool`` (``GraphPool``) its graph shares that pool; ``pool_bytes`` is
     then what the pool grew by at this capture.
 
-    ``marks`` is the number of tracer marks the body places (None until
-    its first capture). Where it places some, a call with the tracer on
-    replays ``traced_graph`` (captured on the first such call, into the
-    pool of the untraced graph where there is one: the two never run at
-    once), whose launches ``traced_tally`` holds and whose stamps it
-    copies into the tracer's ring."""
+    ``marks`` is the number of tracer marks and device counts the body
+    places (None until its first capture). Where it places some, a call
+    with the tracer on replays ``traced_graph`` (captured on the first
+    such call, into the pool of the untraced graph where there is one:
+    the two never run at once), whose launches ``traced_tally`` holds and
+    whose stamps and counts it copies into the tracer's."""
 
     def __init__(self, body: Callable[[], None], device,
                  pool: Optional[GraphPool] = None):
@@ -205,7 +205,7 @@ class CapturedLoop:
         self.marks: Optional[int] = None
         self.traced_graph: Optional[torch.cuda.CUDAGraph] = None
         self.traced_tally = LaunchTally()
-        self._stamps = None   # the traced graph's (slots, mark names)
+        self._records = None   # the traced graph's slots, names, counts
 
     def __call__(self) -> None:
         if self.device.type != 'cuda':
@@ -221,7 +221,7 @@ class CapturedLoop:
         self.replays += 1
         if traced:
             self.traced_tally.add()
-            tracer.replayed(*self._stamps)
+            tracer.replayed(*self._records)
         else:
             self.tally.add()
 
@@ -245,10 +245,11 @@ class CapturedLoop:
         tally = LaunchTally()
         with tally.recording(), tracer.capturing(sink):
             graph, seconds, pool_bytes = self._record()
-        self.marks = len(sink.names)
+        self.marks = len(sink.names) + len(sink.counts)
         if traced and self.marks:
             self.traced_graph, self.traced_tally = graph, tally
-            self._stamps = (sink.slots[:self.marks], sink.names)
+            self._records = (sink.slots[:len(sink.names)], sink.names,
+                            sink.counts)
         else:
             self.graph, self.tally = graph, tally
             self.capture_seconds, self.pool_bytes = seconds, pool_bytes

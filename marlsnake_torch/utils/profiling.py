@@ -249,6 +249,9 @@ class _RingSink:
         stamp(seg, off)
         self.ring.names.append((name, self.tracer.current_id()))
 
+    def count(self, name: str, value: torch.Tensor) -> None:
+        self.tracer.add_device_count(name, value)
+
 
 class LoopSlots:
     """Where the marks of a body go while it is captured with the tracer
@@ -259,6 +262,7 @@ class LoopSlots:
         self.slots = torch.zeros(LOOP_SLOTS, dtype=torch.int64,
                                  device=device)
         self.names: List[str] = []
+        self.counts: dict = {}
 
     def mark(self, name: str) -> None:
         i = len(self.names)
@@ -268,6 +272,15 @@ class LoopSlots:
         stamp(self.slots, i)
         self.names.append(name)
 
+    def count(self, name: str, value: torch.Tensor) -> None:
+        """A device count of one replay: its sum is made in the graph
+        (the first count of a name copies, the others add), and the loop
+        adds it to the tracer's after each replay."""
+        if name in self.counts:
+            self.counts[name].add_(value)
+        else:
+            self.counts[name] = value.to(torch.int64).clone()
+
 
 class MarkProbe:
     """Where the marks of a body go while it is captured with the tracer
@@ -276,9 +289,13 @@ class MarkProbe:
 
     def __init__(self):
         self.names: List[str] = []
+        self.counts: dict = {}
 
     def mark(self, name: str) -> None:
         self.names.append(name)
+
+    def count(self, name: str, value: torch.Tensor) -> None:
+        self.counts[name] = None
 
 
 _NULL = contextlib.nullcontext()   # a span while nothing records it
@@ -341,7 +358,13 @@ class Tracer:
       difference between its stamp and the one before it on the device's
       timeline, so idle time is charged to the phase it falls in.
     - ``count(name, n)``: a count kept beside the spans.
-    - ``flush()``: everything recorded, and the ring read back once.
+    - ``count_device(name, value)``: a count kept on the device: the
+      integer tensor ``value`` (of a fixed shape a name) is added to its
+      sum there, inside the captured loops too, and read back at
+      ``flush``, into ``counts`` beside the host's (a list where the
+      shape is not a scalar's).
+    - ``flush()``: everything recorded; the ring and the device counts
+      are read back there, once.
 
     Off (the default) a mark costs one attribute test, a span one more
     (is a profiler recording?), a count one; nothing is kept. On the CPU
@@ -355,6 +378,7 @@ class Tracer:
         self._spans: List[Span] = []
         self._open: list = []    # (span, its index), innermost last
         self._counts: dict = {}
+        self._device_counts: dict = {}
         self._ids = 0
 
     def enable(self, device) -> None:
@@ -406,6 +430,18 @@ class Tracer:
         if self.on:
             self._counts[name] = self._counts.get(name, 0) + n
 
+    def count_device(self, name: str, value: torch.Tensor) -> None:
+        sink = self._sink
+        if sink is not None:
+            sink.count(name, value)
+
+    def add_device_count(self, name: str, value: torch.Tensor) -> None:
+        """``value`` into the device sum ``name``, in stream order."""
+        if name in self._device_counts:
+            self._device_counts[name].add_(value)
+        else:
+            self._device_counts[name] = value.to(torch.int64).clone()
+
     @contextlib.contextmanager
     def capturing(self, sink):
         """Marks go to ``sink`` (``LoopSlots``, ``MarkProbe``) inside the
@@ -418,14 +454,19 @@ class Tracer:
         finally:
             self._sink = before
 
-    def replayed(self, slots: torch.Tensor, names: List[str]) -> None:
+    def replayed(self, slots: torch.Tensor, names: List[str],
+                 counts: Optional[dict] = None) -> None:
         """After a replay of a traced graph: its slots into the ring, one
-        device-to-device copy in stream order."""
+        device-to-device copy in stream order, and its device counts into
+        the tracer's."""
         self.check_device(slots.device)
-        seg, off = self._ring.reserve(len(names))
-        seg[off:off + len(names)].copy_(slots)
-        sid = self.current_id()
-        self._ring.names.extend((name, sid) for name in names)
+        if names:
+            seg, off = self._ring.reserve(len(names))
+            seg[off:off + len(names)].copy_(slots)
+            sid = self.current_id()
+            self._ring.names.extend((name, sid) for name in names)
+        for name, value in (counts or {}).items():
+            self.add_device_count(name, value)
 
     def flush(self) -> dict:
         """What was recorded since the last flush, and forget it:
@@ -438,6 +479,8 @@ class Tracer:
             raise RuntimeError('flush inside the span '
                                f'{self._open[-1][0].name!r}')
         stamps = self._ring.read() if self._ring is not None else []
+        device_counts = {k: v.tolist()
+                         for k, v in self._device_counts.items()}
         child = [0] * len(self._spans)
         for s in self._spans:
             if s.parent is not None:
@@ -450,8 +493,8 @@ class Tracer:
                       for s, c in zip(self._spans, child)],
             'stamps': [{'name': n, 'id': i, 't_ns': t}
                        for n, i, t in stamps],
-            'counts': dict(self._counts)}
-        self._spans, self._counts = [], {}
+            'counts': dict(self._counts, **device_counts)}
+        self._spans, self._counts, self._device_counts = [], {}, {}
         if not self.on:
             self._ring = None
         return got

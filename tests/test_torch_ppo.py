@@ -238,8 +238,8 @@ def test_metric_means_are_xla_s_means_exactly(monkeypatch):
     auxs = []
     loss_and_grads = tr.loss_and_grads
 
-    def recorded(params, mb):
-        out = loss_and_grads(params, mb)
+    def recorded(params, mb, buffers):
+        out = loss_and_grads(params, mb, buffers)
         auxs.append(out[1].numpy())
         return out
 
@@ -337,6 +337,10 @@ def test_config_defaults_and_checks_match_jax():
                  if f.default is not dataclasses.MISSING}
     defaults = {f.name: f.default for f in dataclasses.fields(PPOConfig)
                 if f.default is not dataclasses.MISSING}
+    # the port's own choices: the ActorCritic and a functional step unless
+    # asked
+    assert defaults.pop('net') == 'actor_critic'
+    assert defaults.pop('in_place') is False
     assert list(defaults) == list(jdefaults)
     assert jdefaults.pop('compute_dtype') is jnp.float32
     assert defaults.pop('compute_dtype') is torch.float32
