@@ -8,8 +8,8 @@ Phases, each of which fails loudly (non-zero exit, no result line):
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA step kernel, the safety mask (csrc/safety_mask.cu) and
    the PPO trunk (csrc/ppo_trunk.cu) with nvcc from this checkout's
-   sources, one nvcc a source, started together (no trunk kernel may
-   spill);
+   sources, one nvcc a source, started together (no trunk kernel whose
+   planes are in shared memory may spill);
 3. the kernel against its plain PyTorch version (engine.step_autoreset)
    on the card, at 10x10 with 2 snakes (B=64, done_mode 'all' and 'any'),
    at 20x20 with 4 snakes (B=4096) and at 40x40 with 8 snakes (B=1024),
@@ -135,7 +135,9 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    conv1 map within 1e-5 of the largest, gradients through the kernel's
    own pool choices within 1e-5), and its times each way beside its
    float32 bound, the plain trunk and cuDNN's fastest (``library_ms``,
-   under ``cudnn.benchmark``). Then
+   under ``cudnn.benchmark``); the backward by kernel (the pool-1
+   gradient, both weight gradients, their sum), at the net's initial
+   weights and at random weights x 0.2. Then
    evaluate_batch's loop (build_evaluate_batch, chunks of 8 steps, a
    captured graph) with the port's DQN at 256 envs of 20x20x4 for up to
    512 steps, the step entry and the safety mask launched once a step run
@@ -1159,13 +1161,21 @@ def trunk_counts(batch: int, h: int, w: int, cin: int, save: bool) -> dict:
             'bwd_bytes': feats + obs + saved + 2 * weights}
 
 
+# the trunk's backward, by kernel: the pool-1 gradient, both convolutions'
+# weight gradients' block partials (one launch), their sums
+TRUNK_BACKWARD = ('trunk_pool1_grad_kernel', 'trunk_weight_grads_kernel',
+                  'trunk_reduce_kernel')
+
+
 def ppo_trunk_phase(smi: str) -> dict:
-    """The PPO trunk kernel (csrc/ppo_trunk.cu) at 20x20 with 8 planes, at
+    """The PPO trunk kernels (csrc/ppo_trunk.cu) at 20x20 with 8 planes, at
     B = 32,768 (a minibatch) and 1,024 (a rollout step of 256 envs x 4
-    snakes): both kernels against their plain versions in float64 (the
-    gradients routed through the kernel's own pool choices), then, each
-    direction, ``device_ms`` (the
-    kernels' own time, torch.profiler), ``host_us`` (the wrapper's host
+    snakes): forward and backward against their plain versions in float64
+    (the gradients routed through the kernel's own pool choices), then,
+    each direction, ``device_ms`` (the kernels' own time, torch.profiler;
+    the backward's by kernel too, at the net's initial weights and at
+    random weights x 0.2, with the share of pool windows open at each),
+    ``host_us`` (the wrapper's host
     time a call), ``call_ms`` (CUDA events around many calls), the plain
     trunk's time (its PyTorch operations as the net ran them before the
     kernel, cuDNN's heuristic choice) and ``library_ms`` (the same under
@@ -1194,9 +1204,9 @@ def ppo_trunk_phase(smi: str) -> dict:
             with torch.no_grad():
                 return PT.ppo_trunk(x, *frozen, True)
 
-        def train():
-            feats = PT.ppo_trunk(x, *weights, True)
-            return torch.autograd.grad(feats, weights, gf)
+        def train(ws=weights):
+            feats = PT.ppo_trunk(x, *ws, True)
+            return torch.autograd.grad(feats, ws, gf)
 
         def plain_forward():
             with torch.no_grad():
@@ -1249,12 +1259,28 @@ def ppo_trunk_phase(smi: str) -> dict:
         nograd = trunk_counts(batch, 20, 20, 8, save=False)
         fwd_ms = kernel_device_us(forward, 'trunk_forward_kernel',
                                   iters) / 1e3
-        prof = profile_device(train, iters)
-        train_fwd_ms, bwd_ms = (
-            sum(v[0] for k, v in prof['kernels'].items() if any(
-                n in k for n in names)) / iters / 1e3
-            for names in (('trunk_forward_kernel',),
-                          ('trunk_backward_kernel', 'trunk_reduce_kernel')))
+        def backward_split(fn):
+            """The training forward's and each backward kernel's device
+            ms a call."""
+            prof = profile_device(fn, iters)
+            return {name: sum(v[0] for k, v in prof['kernels'].items()
+                              if name in k) / iters / 1e3
+                    for name in ('trunk_forward_kernel',) + TRUNK_BACKWARD}
+
+        split = backward_split(train)
+        train_fwd_ms = split.pop('trunk_forward_kernel')
+        bwd_ms = sum(split.values())
+        # the backward's work follows the data: random weights x 0.2 open
+        # other windows than the net's initial ones
+        scaled = [(torch.randn(p.shape, generator=gen, device=dev) * 0.2
+                   ).requires_grad_(True) for p in frozen]
+        open_share = {}
+        for name, ws in (('initial', frozen), ('random', scaled)):
+            codes = PT.launch_forward(x, None, *(p.detach() for p in ws), s,
+                                      True)[1][1:]
+            open_share[name] = [float((c > 0).float().mean()) for c in codes]
+        split_random = backward_split(lambda: train(scaled))
+        split_random.pop('trunk_forward_kernel')
         benchmark = torch.backends.cudnn.benchmark
         times = {'call_fwd_ms': event_ms(forward, iters),
                  'call_train_ms': event_ms(train, iters),
@@ -1272,13 +1298,20 @@ def ppo_trunk_phase(smi: str) -> dict:
                              counts['fwd_bytes'] / HBM_BYTES_PER_S) * 1e3,
             'bwd': max(counts['bwd_flops'] / FLOAT32_FLOPS_PER_S,
                        counts['bwd_bytes'] / HBM_BYTES_PER_S) * 1e3}
+        bwd_random_ms = sum(split_random.values())
         row = {'device_fwd_ms': fwd_ms, 'device_train_fwd_ms': train_fwd_ms,
-               'device_bwd_ms': bwd_ms, 'host_us': host, **times,
+               'device_bwd_ms': bwd_ms, 'device_bwd_kernels_ms': split,
+               'device_bwd_random_ms': bwd_random_ms,
+               'device_bwd_random_kernels_ms': split_random,
+               'bwd_shares': {k: v / bwd_ms for k, v in split.items()},
+               'open_share_pool1_pool2': open_share,
+               'host_us': host, **times,
                'bound_ms': bounds, 'bound_by': 'operations',
                'pct_of_bound': {
                    'fwd': 100 * bounds['fwd'] / fwd_ms,
                    'train_fwd': 100 * bounds['train_fwd'] / train_fwd_ms,
-                   'bwd': 100 * bounds['bwd'] / bwd_ms},
+                   'bwd': 100 * bounds['bwd'] / bwd_ms,
+                   'bwd_random': 100 * bounds['bwd'] / bwd_random_ms},
                'rel_err': errs, **counts}
         log(f'ppo_trunk B={batch}: {json.dumps(row)} [{smi}]')
         results[batch] = row
@@ -1460,13 +1493,14 @@ def mask_rollout(cfg, num_envs: int, steps: int, seed: int, claims=0.0,
 def trunk_instance(m) -> str:
     """A trunk kernel's instance from its mangled name's match:
     ``trunk_forward_kernel<uint8_t, SAVE, GLOBAL>``,
-    ``trunk_backward_kernel<float, R, NCG, GLOBAL>`` (GLOBAL 1: the planes
-    in device memory), ``trunk_reduce_kernel``."""
+    ``trunk_weight_grads_kernel<float, GLOBAL1, GLOBAL2>`` (GLOBAL 1: conv1's
+    or conv2's planes in device memory), ``trunk_pool1_grad_kernel``,
+    ``trunk_reduce_kernel``."""
     import re
     if m.group(2) is None:
         return m.group(1)
-    args = ['uint8_t' if m.group(3) == 'h' else 'float'] + re.findall(
-        r'L[ib](\d+)E', m.group(4))
+    args = ({'h': ['uint8_t'], 'f': ['float']}.get(m.group(3), [])
+            + re.findall(r'L[ib](\d+)E', m.group(4)))
     return f'{m.group(1)}<{", ".join(args)}>'
 
 
@@ -1481,8 +1515,9 @@ def ptxas_summary(build_log: str) -> dict:
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r'(trunk_(?:forward|backward|reduce)_kernel)'
-                          r'(I([hf])((?:L[ib]\d+E)*)E)?', m.group(1))
+            t = re.search(r'(trunk_(?:forward|weight_grads|pool1_grad|'
+                          r'reduce)_kernel)'
+                          r'(I([hf]?)((?:L[ib]\d+E)*)E)?', m.group(1))
             k = re.search(r'(masked_actions_kernel|reachable_count_kernel)'
                           r'ILi(\d+)ELi(\d+)E(Lb(\d)E)?', m.group(1))
             name = trunk_instance(t) if t else None if k is None else (
@@ -4790,11 +4825,14 @@ def main() -> int:
         if ptxas[name]['spill_stores'] or ptxas[name]['spill_loads']:
             raise AssertionError(f'{name} (20x20) spills: {ptxas[name]}')
     # the trunk's kernels: none of those with their planes in shared
-    # memory and one channel group a lane (every board up to 40x40 at 8
-    # planes and 20x20 at 32, the benchmark's included) may spill
+    # memory (every board whose row fits a block, up to 40x40 at 8 planes
+    # and 20x20 at 64, the benchmark's included) may spill; those with
+    # planes in device memory (the forward's last flag, either of the
+    # weight gradients') read them through L1 and L2 and may
     for name, info in ptxas_summary(built[2][1]).items():
         log(f'  ptxas {name}: {json.dumps(info)}')
-        rare = name.endswith(', 1>') or ', 1, 2, ' in name
+        rare = name.endswith(', 1>') or (
+            name.startswith('trunk_weight_grads_kernel') and ', 1,' in name)
         if (info['spill_stores'] or info['spill_loads']) and not rare:
             raise AssertionError(f'{name} spills: {info}')
     log('  dynamic shared memory of a masked_actions block: ' + ', '.join(

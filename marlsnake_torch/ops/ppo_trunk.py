@@ -10,10 +10,11 @@ features flattened in NHWC order.
 than float32, the plain version ``trunk_plain`` (PyTorch operations, the
 net's code before the kernel); on CUDA tensors in float32, ``ppo_trunk``:
 one launch of ``csrc/ppo_trunk.cu``'s forward, and, where autograd needs
-the weights' gradients, one launch of its backward (and of the reduction
-that sums the backward's per-block partials) per backward call. No
-gradient is taken for the obs. ``ppo_trunk.launches`` and
-``ppo_trunk.backward_launches`` count them. ``forward_plain`` and
+the weights' gradients, one backward per backward call: the pool-1
+gradient's kernel, the weight gradients' and the reduction that sums the
+latter's per-block partials. No gradient is taken for the obs.
+``ppo_trunk.launches`` and ``ppo_trunk.backward_launches`` count forwards
+and backwards. ``forward_plain`` and
 ``backward_plain`` are the plain versions of the two kernels: the forward
 with what it saves (the pooled conv1 map and both pools' codes), the
 backward from those alone, routing each window's gradient to the cell its
@@ -47,8 +48,16 @@ from marlsnake_torch.ops import cuda_build
 SOURCE = os.path.join(cuda_build.CSRC_DIR, 'ppo_trunk.cu')
 
 C = 32                        # output channels of both convolutions
-MAX_CIN = 64                  # input channels the backward's lanes cover
+MAX_CIN = 64                  # input channels the backward's warps cover
 MAX_SMEM = 232448             # one block's shared memory on an H100
+HALF_SMEM = 115712            # each of two blocks an SM holds at once
+BWD_WARPS = 8                 # warps a block of the backward's kernels
+GROUP = 8                     # input channels a warp's weight gradient
+WIN = 2                       # pool-1 gradient: 2x2 pool-2 windows a block
+# the pool-1 gradient's shared memory: conv2's weights, then each warp's
+# codes (a byte) and gradients of a block's windows
+POOL1_SMEM = 4 * (C * 9 * C + BWD_WARPS * (C * WIN * WIN // 4
+                                           + C * WIN * WIN))
 
 
 class _TrunkArgs(ctypes.Structure):
@@ -56,13 +65,15 @@ class _TrunkArgs(ctypes.Structure):
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
             'x', 'divide', 'w1', 'b1', 'w2', 'b2', 'feats', 'p1', 'code1',
-            'code2', 'gfeats', 'partial', 'grads', 'scratch')]
+            'code2', 'gfeats', 'dp1', 'partial', 'grads', 'scratch',
+            'scratch2')]
         + [(name, ctypes.c_int) for name in (
             'B', 'H', 'W', 'Cin', 'UH1', 'UW1', 'UH2', 'UW2', 'WH', 'WW',
-            'PH', 'PW', 'XH', 'XW', 'P1H', 'P1W', 'S', 'nw', 'vec4',
+            'PH', 'PW', 'XH', 'XW', 'P1H', 'P1W', 'S', 'S2', 'nw', 'vec4',
             'f_w1', 'f_b1', 'f_w2', 'f_b2', 'f_samples', 'f_ss', 'f_x',
-            'f_p1', 'f_p2', 'b_w2', 'b_samples', 'b_ss', 'b_a', 'b_d', 'b_x',
-            'b_c1', 'b_g2', 'b_c2', 'b_xplane', 'b_p1plane')])
+            'f_p1', 'f_p2', 'w1_ss', 'w1_x', 'w1_st', 'w1_raw', 'w1_d',
+            'w1_c1', 'w2_head', 'w2_ss', 'w2_st', 'w2_p1', 'w2_g2', 'w2_c2',
+            'w2_ct', 'b_p1w', 'b_p1pp', 'b_xw', 'b_csx')])
 
 
 def trunk_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -215,24 +226,69 @@ def _round4(n: int) -> int:
     return -(-n // 4) * 4
 
 
+KINDS = ('forward', 'w1', 'w2')   # the kernels that walk tiles of rows
+
+
 class Layout(NamedTuple):
     """A launch's padded planes and shared-memory offsets (floats), as
-    ``TrunkArgs`` carries them; ``head`` floats of weights, then ``ss``
-    floats a row of the tile."""
+    ``TrunkArgs`` carries them, for the three kernels that walk tiles of
+    rows: the forward (``fwd['f_samples']`` floats of weights, then
+    ``fwd['f_ss']`` floats a row), conv1's weight gradient (``w1['w1_ss']``
+    floats a row: its obs planes, then two stages) and conv2's
+    (``w2['w2_head']`` floats of each pool-2 window's cell of the features'
+    gradient, a byte each, then ``w2['w2_ss']`` floats a row: two stages).
+    The weight gradients' plane and cell strides are in ``bwd_planes``."""
     planes: dict
     fwd: dict
-    bwd: dict
+    w1: dict
+    w2: dict
+    bwd_planes: dict
 
-    def fwd_bytes(self, rows: int) -> int:
-        return 4 * (self.fwd['f_samples'] + rows * self.fwd['f_ss'])
+    def head(self, kind: str) -> int:
+        return {'forward': self.fwd['f_samples'], 'w1': 0,
+                'w2': self.w2['w2_head']}[kind]
 
-    def bwd_bytes(self, rows: int) -> int:
-        return 4 * (self.bwd['b_samples'] + rows * self.bwd['b_ss'])
+    def row(self, kind: str) -> int:
+        return {'forward': self.fwd['f_ss'], 'w1': self.w1['w1_ss'],
+                'w2': self.w2['w2_ss']}[kind]
 
-    def max_rows(self, fwd: bool) -> int:
-        head, ss = ((self.fwd['f_samples'], self.fwd['f_ss']) if fwd
-                    else (self.bwd['b_samples'], self.bwd['b_ss']))
-        return (MAX_SMEM // 4 - head) // ss
+    def bytes(self, kind: str, rows: int) -> int:
+        return 4 * (self.head(kind) + rows * self.row(kind))
+
+    def max_rows(self, kind: str) -> int:
+        """The most rows a tile that fit one block; for the weight
+        gradients, two blocks an SM where a row fits half of it, so that
+        one block's copies and passes overlap the other's multiply-adds."""
+        rows = (MAX_SMEM // 4 - self.head(kind)) // self.row(kind)
+        if kind != 'forward':
+            rows = (HALF_SMEM // 4 - self.head(kind)) // self.row(kind) or rows
+        return rows
+
+
+def distinct_banks(cs: int, rw: int) -> bool:
+    """Whether the four cells a 2x2 window's code may name (0, 1, rw and
+    rw + 1 cells from its first, ``cs`` floats a cell) start in four
+    distinct groups of 4 of shared memory's 32 banks: a warp's 16-byte
+    loads of one tap at those cells then meet in no bank."""
+    offsets = [0, cs, rw * cs, (rw + 1) * cs]
+    return all(4 <= (u - v) % 32 <= 28 for i, u in enumerate(offsets)
+               for v in offsets[i + 1:])
+
+
+def _cells(width: int, channels: int) -> Tuple[int, int]:
+    """(cells a row, floats a cell) of padded planes laid out cell by cell,
+    at least ``width`` cells a row and ``channels`` floats a cell in whole
+    16-byte loads, whose window cells lie in distinct banks, in the fewest
+    floats. (On an H100 the plain cell of round8(channels) floats, whose
+    window cells share banks at 16 and 32 channels, made the backward 1.7x
+    and 2.3x slower at 20x20; at 8 channels the two are the same.)"""
+    best = None
+    for cs in range(_round4(channels), _round4(channels) + 32, 4):
+        rw = next((rw for rw in range(width, width + 8)
+                   if distinct_banks(cs, rw)), None)
+        if rw and (best is None or rw * cs < best[0] * best[1]):
+            best = (rw, cs)
+    return best
 
 
 @functools.lru_cache(maxsize=None)
@@ -251,21 +307,31 @@ def layout(shape: TrunkShape) -> Layout:
                f_b2=(s.cin + C) * 9 * C + C, f_samples=(s.cin + C) * 9 * C
                + 2 * C, f_x=f_x, f_p1=f_p1, f_p2=f_p2,
                f_ss=f_p2 + _round4(C * nq2))
-    # backward: conv2's weights [co][tap][ci]; then a row's pool-1 map
-    # (padded), its gradient, the obs (padded), pool-1 codes, the average
-    # pool's gradients, pool-2 codes. Planes read a lane a channel get an
-    # odd stride.
-    b_p1plane, b_xplane = (p1h * p1w) | 1, (xh * xw) | 1
-    b_d = _round4(C * b_p1plane)
-    b_x = b_d + _round4(C * nq1)
-    b_c1 = b_x + _round4(s.cin * b_xplane)
-    b_g2 = b_c1 + _round4(-(-C * nq1 // 4))
-    b_c2 = b_g2 + _round4(s.features)
-    bwd = dict(b_w2=0, b_samples=C * 9 * C, b_a=0, b_d=b_d, b_x=b_x,
-               b_c1=b_c1, b_g2=b_g2, b_c2=b_c2,
-               b_ss=b_c2 + _round4(-(-C * nq2 // 4)), b_xplane=b_xplane,
-               b_p1plane=b_p1plane)
-    return Layout(planes, fwd, bwd)
+    # conv1's weight gradient: the obs' padded cells (the channels in whole
+    # groups of GROUP, zero past cin), a row's planes, then two stages of
+    # the raw uint8 obs where they come in whole words, the pool-1 gradient
+    # [cell][32] and pool 1's codes as saved (a channel's windows in a run)
+    xw_b, csx = _cells(s.w + 2, GROUP * -(-s.cin // GROUP))
+    w1_d = _round4(s.h * s.w * s.cin // 4) if s.cin % 4 == 0 else 0
+    w1_c1 = w1_d + nq1 * C
+    w1_st = w1_c1 + _round4(-(-C * nq1 // 4))
+    w1_x = _round4(xh * xw_b * csx)
+    w1 = dict(w1_x=w1_x, w1_raw=0, w1_d=w1_d, w1_c1=w1_c1, w1_st=w1_st,
+              w1_ss=w1_x + 2 * w1_st)
+    # conv2's: each pool-2 window's cell of the features' gradient, then
+    # two stages of a row's pooled conv1 map (padded planes read a lane a
+    # plane: an odd stride), features' gradient, pool 2's codes as saved
+    # and as [window][channel]
+    p1w_b = s.uw1 + 2
+    p1pp = (p1h * p1w_b) | 1
+    w2_g2 = _round4(C * p1pp)
+    w2_c2 = w2_g2 + _round4(s.features)
+    w2_ct = w2_c2 + _round4(C * nq2 // 4)
+    w2_st = w2_ct + _round4(C * nq2 // 4)
+    w2 = dict(w2_head=_round4(-(-nq2 // 4)), w2_p1=0, w2_g2=w2_g2,
+              w2_c2=w2_c2, w2_ct=w2_ct, w2_st=w2_st, w2_ss=2 * w2_st)
+    bwd_planes = dict(b_p1w=p1w_b, b_p1pp=p1pp, b_xw=xw_b, b_csx=csx)
+    return Layout(planes, fwd, w1, w2, bwd_planes)
 
 
 def grads_size(cin: int) -> int:
@@ -280,28 +346,68 @@ class Plan(NamedTuple):
     scratch: int = 0  # floats of planes in device memory; 0: in shared
 
 
-def plan(batch: int, fwd: bool, s: TrunkShape, sms: int,
+def plan(batch: int, kind: str, s: TrunkShape, sms: int,
          occupancy) -> Plan:
-    """The rows a tile of the forward (``fwd``) or the backward: the
-    fewest that take no more rounds of the grid's blocks than the most
-    rows that fit one block (so the last round is as full as the others:
-    at 20x20 with 8 planes, 5 rows a forward tile at B = 32,768 and 4 at
-    1,024). ``occupancy(smem, scratch)`` is the blocks an SM holds. Where
-    one row's planes do not fit shared memory, a tile is one row and each
-    block's planes lie in device memory."""
+    """The rows a tile of the forward, or of conv1's or conv2's weight
+    gradient (``kind``, one of ``KINDS``): the fewest that take no more
+    rounds of the grid's blocks than the most rows that fit one block (so
+    the last round is as full as the others: at 20x20 with 8 planes, 5
+    rows a forward tile at B = 32,768 and 4 at 1,024). ``occupancy(smem,
+    scratch)`` is the blocks an SM holds. Where one row's planes do not
+    fit shared memory, a tile is one row and each block's planes lie in
+    device memory."""
     lay = layout(s)
-    head, ss = ((lay.fwd['f_samples'], lay.fwd['f_ss']) if fwd
-                else (lay.bwd['b_samples'], lay.bwd['b_ss']))
-    if lay.max_rows(fwd) < 1:
+    head, ss = lay.head(kind), lay.row(kind)
+    if lay.max_rows(kind) < 1:
         grid = min(batch, sms * max(occupancy(4 * head, True), 1))
         return Plan(1, grid, 4 * head, grid * ss)
-    most = min(lay.max_rows(fwd), batch)
+    most = min(lay.max_rows(kind), batch)
     blocks = sms * max(occupancy(4 * (head + most * ss), False), 1)
     rounds = -(-batch // (blocks * most))
     rows = -(-batch // (blocks * rounds))
     smem = 4 * (head + rows * ss)
     grid = min(-(-batch // rows), sms * max(occupancy(smem, False), 1))
     return Plan(rows, grid, smem)
+
+
+class PairPlan(NamedTuple):
+    """The weight gradients' launch: ``pairs`` blocks of each
+    convolution's (even blocks conv1's, odd ones conv2's), ``rows1`` and
+    ``rows2`` rows a tile, ``smem`` bytes a block, and where a row's planes
+    do not fit shared memory, each one's scratch in device memory
+    (floats; 0: in shared memory)."""
+    rows1: int
+    rows2: int
+    pairs: int
+    smem: int
+    scratch1: int = 0
+    scratch2: int = 0
+
+
+def plan_weight_grads(batch: int, s: TrunkShape, sms: int,
+                      occupancy) -> PairPlan:
+    """Each convolution's tile as ``plan`` takes it for one block of each
+    an SM; as many pairs as the card holds at once (``occupancy(smem,
+    scratch)`` blocks an SM, two a pair) and no more than both fill."""
+    one = lambda smem, scratch: 1
+    p1 = plan(batch, 'w1', s, sms, one)
+    p2 = plan(batch, 'w2', s, sms, one)
+    smem = max(p1.smem, p2.smem)
+    pairs = min(p1.grid, p2.grid,
+                sms * max(occupancy(smem, bool(p1.scratch or p2.scratch))
+                          // 2, 1))
+    lay = layout(s)
+    return PairPlan(p1.rows, p2.rows, pairs, smem,
+                    pairs * lay.row('w1') if p1.scratch else 0,
+                    pairs * lay.row('w2') if p2.scratch else 0)
+
+
+def plan_pool1(batch: int, sms: int, occupancy) -> Plan:
+    """The pool-1 gradient's launch: a warp a row, as many blocks as the
+    card holds at once and no more than the rows fill."""
+    grid = min(-(-batch // BWD_WARPS),
+               sms * max(occupancy(POOL1_SMEM, False), 1))
+    return Plan(1, grid, POOL1_SMEM)
 
 
 def check_trunk_args(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -368,7 +474,7 @@ def bind_library(path: str) -> ctypes.CDLL:
         ctypes.POINTER(_TrunkArgs)] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.marlsnake_trunk_forward.restype = ctypes.c_int
     lib.marlsnake_trunk_backward.argtypes = [
-        ctypes.POINTER(_TrunkArgs)] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        ctypes.POINTER(_TrunkArgs)] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.marlsnake_trunk_backward.restype = ctypes.c_int
     lib.marlsnake_trunk_error_string.argtypes = [ctypes.c_int]
     lib.marlsnake_trunk_error_string.restype = ctypes.c_char_p
@@ -382,7 +488,7 @@ def _sm_count(index: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _occupancy(index: int, kind: int, is_float: int, arg: int, smem: int,
-               scratch: bool) -> int:
+               scratch: int) -> int:
     lib = load_library()
     with torch.cuda.device(index):
         n = lib.marlsnake_trunk_occupancy(kind, is_float, arg, int(scratch),
@@ -395,27 +501,33 @@ def _occupancy(index: int, kind: int, is_float: int, arg: int, smem: int,
 
 @functools.lru_cache(maxsize=64)
 def _plans(index: int, batch: int, s: TrunkShape, is_float: int,
-           save: bool) -> Tuple[Plan, Optional[Plan]]:
+           save: bool) -> Tuple[Plan, ...]:
+    """The forward's plan, and where it saves, the backward's: the pool-1
+    gradient's and the weight gradients'."""
     sms = _sm_count(index)
-    fwd = plan(batch, True, s, sms, functools.partial(
+    fwd = plan(batch, 'forward', s, sms, functools.partial(
         _occupancy, index, 0, is_float, int(save)))
-    bwd = None
-    if save:
-        bwd = plan(batch, False, s, sms, functools.partial(
-            _occupancy, index, 1, is_float, s.cin))
-    return fwd, bwd
+    if not save:
+        return fwd, None, None
+    lay = layout(s)
+    scratch = int(lay.max_rows('w1') < 1) + 2 * int(lay.max_rows('w2') < 1)
+    return (fwd,
+            plan_pool1(batch, sms, functools.partial(_occupancy, index, 2,
+                                                     0, 0)),
+            plan_weight_grads(batch, s, sms, lambda smem, _: _occupancy(
+                index, 1, is_float, s.cin, smem, scratch)))
 
 
 def _args(s: TrunkShape, batch: int, rows: int, x: torch.Tensor,
-          **pointers) -> _TrunkArgs:
+          rows2: int = 0, **pointers) -> _TrunkArgs:
     lay = layout(s)
     # the obs read 4 channels a load where that keeps each load aligned
     vec4 = s.cin % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0
     return _TrunkArgs(
         B=batch, H=s.h, W=s.w, Cin=s.cin, UH1=s.uh1, UW1=s.uw1, UH2=s.uh2,
-        UW2=s.uw2, WH=s.wh, WW=s.ww, PH=s.ph, PW=s.pw, S=rows,
+        UW2=s.uw2, WH=s.wh, WW=s.ww, PH=s.ph, PW=s.pw, S=rows, S2=rows2,
         nw=grads_size(s.cin), vec4=int(vec4), x=x.data_ptr(), **lay.planes,
-        **lay.fwd, **lay.bwd,
+        **lay.fwd, **lay.w1, **lay.w2, **lay.bwd_planes,
         **{k: (None if v is None else v.data_ptr())
            for k, v in pointers.items()})
 
@@ -456,8 +568,8 @@ def launch_forward(x: torch.Tensor, divide: Optional[torch.Tensor],
     scratch = _scratch(fwd, dev)
     args = _args(s, batch, fwd.rows, x, divide=divide, w1=w1, b1=b1,
                  w2=w2, b2=b2, feats=feats, p1=saved[0], code1=saved[1],
-                 code2=saved[2], gfeats=None, partial=None, grads=None,
-                 scratch=scratch)
+                 code2=saved[2], gfeats=None, dp1=None, partial=None,
+                 grads=None, scratch=scratch, scratch2=None)
     lib = load_library()
     rc = cuda_build.on_current_stream(dev.index, lambda stream:
                                       lib.marlsnake_trunk_forward(
@@ -468,29 +580,35 @@ def launch_forward(x: torch.Tensor, divide: Optional[torch.Tensor],
 
 
 def launch_backward(gfeats: torch.Tensor, x: torch.Tensor,
-                    divide: Optional[torch.Tensor], w2: torch.Tensor,
+                    divide: Optional[torch.Tensor], w2_weight: torch.Tensor,
                     saved, s: TrunkShape) -> Tuple[torch.Tensor, ...]:
-    """One launch of the backward and one of its reduction: (dw1, db1,
-    dw2, db2) of the features' gradient ``gfeats`` (B, F)."""
+    """The backward of the features' gradient ``gfeats`` (B, F): one
+    launch each of the pool-1 gradient, both convolutions' weight
+    gradients and their reduction; (dw1, db1, dw2, db2)."""
     dev, batch = x.device, x.shape[0]
     is_float = int(x.dtype == torch.float32)
-    bwd = (_plans(dev.index, batch, s, is_float, True)[1] if batch
-           else Plan(1, 0, 0))
+    _, pool1, wg = (_plans(dev.index, batch, s, is_float, True) if batch
+                    else (None, Plan(1, 0, 0), PairPlan(1, 1, 0, 0)))
     nw = grads_size(s.cin)
-    partial = torch.empty((max(bwd.grid, 1), nw), dtype=torch.float32,
+    partial = torch.empty((max(wg.pairs, 1), nw), dtype=torch.float32,
                           device=dev)
     grads = torch.empty(nw, dtype=torch.float32, device=dev)
+    dp1 = torch.empty((batch, s.uh1 * s.uw1, C), dtype=torch.float32,
+                      device=dev)
+    scratch = [torch.empty(n, dtype=torch.float32, device=dev) if n else None
+               for n in (wg.scratch1, wg.scratch2)]
     p1, code1, code2 = saved
-    scratch = _scratch(bwd, dev)
-    args = _args(s, batch, bwd.rows, x, divide=divide, w1=None, b1=None,
-                 w2=w2, b2=None, feats=None, p1=p1, code1=code1, code2=code2,
-                 gfeats=gfeats, partial=partial, grads=grads,
-                 scratch=scratch)
+    args = _args(s, batch, wg.rows1, x, rows2=wg.rows2, divide=divide,
+                 w1=None, b1=None, w2=w2_weight, b2=None, feats=None, p1=p1,
+                 code1=code1, code2=code2, gfeats=gfeats, dp1=dp1,
+                 partial=partial, grads=grads, scratch=scratch[0],
+                 scratch2=scratch[1])
     lib = load_library()
     rc = cuda_build.on_current_stream(dev.index, lambda stream:
                                       lib.marlsnake_trunk_backward(
                                           ctypes.byref(args), is_float,
-                                          bwd.grid, bwd.smem, stream))
+                                          pool1.grid, pool1.smem, wg.pairs,
+                                          wg.smem, stream))
     _raise_on(lib, rc, 'ppo_trunk backward')
     n1 = C * s.cin * 9
     return (grads[:n1].view(C, s.cin, 3, 3), grads[n1:n1 + C],

@@ -20,8 +20,11 @@ On the CPU:
 
 On the card (marker ``cuda``; skipped without one; run with
 ``python -m pytest -p no:cacheprovider --noconftest -m cuda
-tests/test_torch_ppo_trunk.py``): the kernel against the plain version at
-B = 1, 33, 1,024 and 32,768 of each shape above and 40x40.
+tests/test_torch_ppo_trunk.py``): the kernels against the plain versions at
+B = 1, 33, 1,024 and 32,768 of each shape above and 40x40, at 1, 16 and 64
+input planes, at boards whose planes lie in device memory, and at a batch
+that leaves the last tile ragged; the backward deterministic and equal
+under graph replay.
 """
 
 import ctypes
@@ -45,12 +48,19 @@ SHAPES = {'20x20': (20, 20, 8), '10x10': (10, 10, 8), '11x9': (11, 9, 8),
 # memory), and two groups of 32 input channels in the backward
 SCRATCH_SHAPES = {'30x30-stack4': (30, 30, 32), '48x48': (48, 48, 8),
                   'stack5': (20, 20, 40)}
-CARD_SHAPES = {**SHAPES, '40x40': (40, 40, 8), **SCRATCH_SHAPES}
+# the weight gradients' channel groups: one partly filled, two, eight
+LANE_SHAPES = {'20x20x1': (20, 20, 1), '11x11x16': (11, 11, 16),
+               '20x20x64': (20, 20, 64)}
+CARD_SHAPES = {**SHAPES, '40x40': (40, 40, 8), **SCRATCH_SHAPES,
+               **LANE_SHAPES}
 # the shapes the port trains at every batch up to a minibatch, the
-# scratch shapes up to a rollout step's
+# scratch and lane shapes up to a rollout step's; 4,099 rows leave the last
+# tile of 4 rows ragged
 CARD_CASES = ([(shape, b) for shape in list(SHAPES) + ['40x40']
                for b in (1, 33, 1024, 32768)]
-              + [(shape, b) for shape in SCRATCH_SHAPES for b in (1, 33, 1024)])
+              + [(shape, b) for shape in list(SCRATCH_SHAPES)
+                 + list(LANE_SHAPES) for b in (1, 33, 1024)]
+              + [('20x20', 4099)])
 
 
 def _features_before(net, x):
@@ -212,14 +222,16 @@ def test_the_net_refuses_channels_the_kernel_does_not_take(monkeypatch):
                                   ((11, 11), 16), ((20, 12), 8), ((7, 7), 3)])
 def test_layout_keeps_loads_aligned_and_reads_inside_the_planes(hw, c):
     """Offsets are multiples of 4 floats and the planes read 8 bytes at a
-    time have even rows (16- and 8-byte loads); every cell the kernel
-    reads lies inside its padded plane; a row fits one block; the cells
-    computed are those the plain trunk's output reads."""
+    time have even rows (16- and 8-byte loads); the weight gradients'
+    cells hold whole 16-byte loads of their channels, and the four cells
+    of a window start in distinct banks; every cell the kernels read lies
+    inside its padded plane; a row fits one block; the cells computed are
+    those the plain trunk's output reads."""
     s = _checked(x=torch.zeros((1,) + hw + (c,), dtype=torch.uint8),
                  w1=torch.zeros((32, c, 3, 3)))
     lay = PT.layout(s)
     p = lay.planes
-    offsets = {**lay.fwd, **lay.bwd}
+    offsets = {**lay.fwd, **lay.w1, **lay.w2}
     for name, v in offsets.items():
         if not name.endswith('plane'):
             assert v % 4 == 0, name
@@ -232,7 +244,20 @@ def test_layout_keeps_loads_aligned_and_reads_inside_the_planes(hw, c):
     assert 2 * s.uh2 + 1 < p['P1H'] and 2 * s.uw2 + 1 < p['P1W']
     assert s.uh1 == min(2 * s.uh2 + 1, h1) and s.uw1 == min(2 * s.uw2 + 1,
                                                            w1)
-    assert lay.fwd_bytes(1) <= PT.MAX_SMEM and lay.bwd_bytes(1) <= PT.MAX_SMEM
+    # the weight gradients read the cells (2q + d + k) of the padded
+    # planes, q < uh, d and k < 2 and 3: conv1's cell by cell, whole 16-byte
+    # loads whose four cells of a window start in distinct banks; conv2's a
+    # lane a plane, planes an odd number of floats apart
+    b = lay.bwd_planes
+    assert b['b_csx'] % 4 == 0 and b['b_csx'] >= PT.GROUP * -(-c // PT.GROUP)
+    assert PT.distinct_banks(b['b_csx'], b['b_xw'])
+    assert b['b_p1pp'] % 2 == 1 and b['b_p1pp'] >= p['P1H'] * b['b_p1w']
+    assert 2 * s.uw2 + 1 < b['b_p1w'] and 2 * s.uw1 + 1 < b['b_xw']
+    assert b['b_xw'] >= hw[1] + 2 and b['b_p1w'] >= s.uw1 + 2
+    # a stage holds pool 1's codes as saved: 32 channels of uh1 x uw1 bytes
+    n1 = s.uh1 * s.uw1
+    assert 4 * (lay.w1['w1_st'] - lay.w1['w1_c1']) >= PT.C * n1
+    assert all(lay.bytes(kind, 1) <= PT.MAX_SMEM for kind in PT.KINDS)
     assert s.features == ppo_model.feature_size(hw)
     # the plain trunk's features depend on these pooled cells only
     h2, w2 = h1 // 2, w1 // 2
@@ -241,27 +266,26 @@ def test_layout_keeps_loads_aligned_and_reads_inside_the_planes(hw, c):
 
 
 @pytest.mark.parametrize('batch', [1, 33, 1024, 2048, 32768])
-@pytest.mark.parametrize('fwd', [True, False], ids=['forward', 'backward'])
-def test_plans_stay_within_the_batch_and_the_block(batch, fwd):
+@pytest.mark.parametrize('kind', PT.KINDS)
+def test_plans_stay_within_the_batch_and_the_block(batch, kind):
     s = PT.trunk_shape(20, 20, 8)
     lay = PT.layout(s)
-    plan = PT.plan(batch, fwd, s, 132, lambda smem, scratch: 1)
-    assert 1 <= plan.rows <= min(batch, lay.max_rows(fwd))
+    plan = PT.plan(batch, kind, s, 132, lambda smem, scratch: 1)
+    assert 1 <= plan.rows <= min(batch, lay.max_rows(kind))
     assert 1 <= plan.grid <= min(-(-batch // plan.rows), 132)
-    assert plan.smem == (lay.fwd_bytes if fwd else lay.bwd_bytes)(
-        plan.rows) <= PT.MAX_SMEM
+    assert plan.smem == lay.bytes(kind, plan.rows) <= PT.MAX_SMEM
     assert plan.scratch == 0
 
 
 @pytest.mark.parametrize('batch', [1, 33, 1024, 5000, 32768])
-@pytest.mark.parametrize('fwd', [True, False], ids=['forward', 'backward'])
+@pytest.mark.parametrize('kind', PT.KINDS)
 @pytest.mark.parametrize('shape', list(SHAPES))
-def test_plan_takes_the_fewest_rows_of_the_fewest_rounds(shape, fwd, batch):
+def test_plan_takes_the_fewest_rows_of_the_fewest_rounds(shape, kind, batch):
     """A tile's rows: no more rounds of 132 blocks than the most rows
     that fit would take, and one row fewer would take more."""
     s = PT.trunk_shape(*SHAPES[shape])
-    plan = PT.plan(batch, fwd, s, 132, lambda smem, scratch: 1)
-    most = min(PT.layout(s).max_rows(fwd), batch)
+    plan = PT.plan(batch, kind, s, 132, lambda smem, scratch: 1)
+    most = min(PT.layout(s).max_rows(kind), batch)
 
     def rounds(rows):
         return -(-batch // (132 * rows))
@@ -269,32 +293,59 @@ def test_plan_takes_the_fewest_rows_of_the_fewest_rounds(shape, fwd, batch):
     assert plan.rows == 1 or rounds(plan.rows - 1) > rounds(most)
 
 
-@pytest.mark.parametrize('hw,c,fwd_fits,bwd_fits', [
-    ((30, 30), 32, False, True), ((48, 48), 8, True, False),
-    ((64, 64), 8, False, False), ((100, 100), 16, False, False),
-    ((20, 20), 40, True, True), ((40, 40), 8, True, True)])
+@pytest.mark.parametrize('hw,c,fits', [
+    ((30, 30), 32, (False, False, True)), ((48, 48), 8, (True, False, True)),
+    ((64, 64), 8, (False, False, False)),
+    ((100, 100), 16, (False, False, False)),
+    ((20, 20), 40, (True, True, True)), ((40, 40), 8, (True, True, True)),
+    ((20, 20), 64, (False, True, True))])
 @pytest.mark.parametrize('batch', [1, 1024])
 def test_rows_that_do_not_fit_keep_their_planes_in_device_memory(
-        hw, c, fwd_fits, bwd_fits, batch):
-    """Where one row's planes exceed a block's shared memory, a tile is
-    one row, shared memory holds the weights alone, and each block has
-    its row's planes in a scratch buffer; where they fit, nothing is kept
-    in device memory."""
+        hw, c, fits, batch):
+    """Where one row's planes exceed a block's shared memory (``fits``:
+    the forward's, conv1's and conv2's weight gradients'), a tile is one
+    row, shared memory holds what the block keeps for every row alone,
+    and each block has its row's planes in a scratch buffer; where they
+    fit, nothing is kept in device memory."""
     s = _checked(x=torch.zeros((1,) + hw + (c,), dtype=torch.uint8),
                  w1=torch.zeros((32, c, 3, 3)))
     lay = PT.layout(s)
-    for fwd, fits in ((True, fwd_fits), (False, bwd_fits)):
-        head, ss = ((lay.fwd['f_samples'], lay.fwd['f_ss']) if fwd
-                    else (lay.bwd['b_samples'], lay.bwd['b_ss']))
-        plan = PT.plan(batch, fwd, s, 132, lambda smem, scratch: 1)
-        assert (lay.max_rows(fwd) >= 1) == fits
-        if fits:
+    for kind, fit in zip(PT.KINDS, fits):
+        head, ss = lay.head(kind), lay.row(kind)
+        plan = PT.plan(batch, kind, s, 132, lambda smem, scratch: 1)
+        assert (lay.max_rows(kind) >= 1) == fit
+        if fit:
             assert plan.scratch == 0 and plan.smem == 4 * (
                 head + plan.rows * ss)
         else:
             assert plan == PT.Plan(1, min(batch, 132), 4 * head,
                                    min(batch, 132) * ss)
         assert plan.smem <= PT.MAX_SMEM
+
+
+@pytest.mark.parametrize('hw,c', [
+    ((20, 20), 8), ((4, 4), 1), ((7, 7), 3), ((11, 9), 8), ((11, 11), 16),
+    ((20, 20), 32), ((20, 20), 64), ((30, 30), 32), ((40, 40), 8),
+    ((48, 48), 8), ((100, 100), 16), ((128, 96), 64)])
+@pytest.mark.parametrize('batch', [1, 33, 32768])
+def test_every_served_shape_backward_fits_shared_memory(hw, c, batch):
+    """Both kernels of the backward ask one block for at most 232,448
+    bytes of shared memory at every shape the wrapper serves (1 to 64
+    planes, any board of at least 4x4): the pool-1 gradient's is fixed,
+    the weight gradients' tile is what fits, or one row in device memory;
+    the pool-1 gradient's grid has a warp for every row at most."""
+    s = _checked(x=torch.zeros((1,) + hw + (c,), dtype=torch.uint8),
+                 w1=torch.zeros((32, c, 3, 3)))
+    assert PT.POOL1_SMEM <= PT.MAX_SMEM
+    pool1 = PT.plan_pool1(batch, 132, lambda smem, scratch: 2)
+    assert pool1.smem == PT.POOL1_SMEM
+    assert 1 <= pool1.grid <= min(264, -(-batch // PT.BWD_WARPS))
+    for kind in ('w1', 'w2'):
+        bwd = PT.plan(batch, kind, s, 132, lambda smem, scratch: 1)
+        assert 0 <= bwd.smem <= PT.MAX_SMEM
+        assert (bwd.scratch == 0) == (PT.layout(s).max_rows(kind) >= 1)
+    both = PT.plan_weight_grads(batch, s, 132, lambda smem, scratch: 2)
+    assert 0 <= both.smem <= PT.MAX_SMEM and 1 <= both.pairs <= 132
 
 
 def test_struct_mirror_matches_the_cuda_source():
@@ -316,8 +367,14 @@ def test_source_constants_match_the_wrapper():
     with open(PT.SOURCE) as fp:
         src = fp.read()
     assert re.search(rf'constexpr int kC = {PT.C};', src)
-    # the backward's last variant takes MAX_CIN input channels
-    assert re.search(rf'cin <= {PT.MAX_CIN} \? 3 : -1', src)
+    # the weight gradients' warps take MAX_CIN input channels at most, in
+    # groups of GROUP; the pool-1 gradient's shared memory
+    assert re.search(rf'constexpr int kMaxCin = {PT.MAX_CIN};', src)
+    assert re.search(rf'constexpr int kBwdThreads = {32 * PT.BWD_WARPS};',
+                     src)
+    assert re.search(rf'constexpr int kGroup = {PT.GROUP};', src)
+    assert re.search(rf'constexpr int kWin = {PT.WIN};', src)
+    assert PT.MAX_CIN <= PT.GROUP * PT.BWD_WARPS
 
 
 # --- the launch path, with a stand-in library --------------------------------
@@ -359,8 +416,7 @@ class _PlainTrunkLibrary:
         self.calls.append(('forward', a.B, a.S, grid, smem, bool(a.scratch),
                            bool(a.p1)))
         lay = PT.layout(shape)
-        assert smem == (4 * lay.fwd['f_samples'] if a.scratch
-                        else lay.fwd_bytes(a.S))
+        assert smem == lay.bytes('forward', 0 if a.scratch else a.S)
         feats, saved = PT.forward_plain(
             x, _at(a.w1, torch.float32, (32, a.Cin, 3, 3)),
             _at(a.b1, torch.float32, (32,)),
@@ -374,16 +430,20 @@ class _PlainTrunkLibrary:
                 _at(getattr(a, name), dtype, tuple(t.shape)).copy_(t)
         return 0
 
-    def marlsnake_trunk_backward(self, args_ref, is_float, grid, smem,
-                                 stream):
+    def marlsnake_trunk_backward(self, args_ref, is_float, grid_p, smem_p,
+                                 pairs, smem_w, stream):
         a = args_ref._obj
         shape, x, binary = self._args(a, is_float)
-        self.calls.append(('backward', a.B, a.S, grid, smem,
-                           bool(a.scratch)))
+        self.calls.append(('backward', a.B, a.S, pairs, smem_w,
+                           bool(a.scratch), bool(a.scratch2)))
         lay = PT.layout(shape)
-        assert smem == (4 * lay.bwd['b_samples'] if a.scratch
-                        else lay.bwd_bytes(a.S))
+        assert smem_w == max(lay.bytes('w1', 0 if a.scratch else a.S),
+                             lay.bytes('w2', 0 if a.scratch2 else a.S2))
+        assert smem_p == PT.POOL1_SMEM and 1 <= grid_p <= -(-a.B // 8)
+        assert 1 <= pairs <= min(-(-a.B // a.S), -(-a.B // a.S2))
         s = shape
+        # the pool-1 gradient's buffer, (B, UH1 * UW1, 32)
+        _at(a.dp1, torch.float32, (a.B, s.uh1 * s.uw1, 32)).zero_()
         saved = (_at(a.p1, torch.float32, (a.B, 32, s.uh1, s.uw1)),
                  _at(a.code1, torch.uint8, (a.B, 32, s.uh1, s.uw1)),
                  _at(a.code2, torch.uint8, (a.B, 32, s.uh2, s.uw2)))
@@ -411,7 +471,8 @@ def stand_in(monkeypatch):
 @pytest.mark.parametrize('dtype,binary', [(torch.uint8, True),
                                           (torch.float32, False)],
                          ids=['uint8-binary', 'float32-scaled'])
-@pytest.mark.parametrize('shape', list(SHAPES) + list(SCRATCH_SHAPES))
+@pytest.mark.parametrize('shape', list(SHAPES) + list(SCRATCH_SHAPES)
+                         + list(LANE_SHAPES))
 def test_launch_path_saves_what_the_gradients_need(stand_in, shape, dtype,
                                                    binary):
     """Through the stand-in, the wrapper's features equal the plain
@@ -432,7 +493,7 @@ def test_launch_path_saves_what_the_gradients_need(stand_in, shape, dtype,
     want, want_g = _features_and_grads(_features_before, net, x)
     assert torch.equal(got, want)
     for a, b in zip(got_g, want_g):
-        if shape in SCRATCH_SHAPES:
+        if shape in SCRATCH_SHAPES or shape in LANE_SHAPES:
             # sums over up to six times the cells: rounding relative to
             # the largest gradient, as the card's tests hold it
             _close(a, b.double())
@@ -448,8 +509,9 @@ def test_launch_path_saves_what_the_gradients_need(stand_in, shape, dtype,
         True, False]
     lay = PT.layout(PT.trunk_shape(h, w, c))
     assert [call[5] for call in stand_in.calls] == [
-        lay.max_rows(True) < 1, lay.max_rows(False) < 1,
-        lay.max_rows(True) < 1]
+        lay.max_rows('forward') < 1, lay.max_rows('w1') < 1,
+        lay.max_rows('forward') < 1]
+    assert stand_in.calls[1][6] == (lay.max_rows('w2') < 1)
 
 
 def test_choice_gaps_tell_a_near_tie_from_a_wrong_position():
@@ -658,29 +720,53 @@ def test_card_ties_exact(card, shape, batch):
 
 @pytest.mark.cuda
 def test_card_backward_is_deterministic(card):
+    """Two backwards of a minibatch, through the pool-1 gradient, the
+    weight gradients' block partials and their reduction, give the same
+    bits."""
     net, x = _card_case(card, '20x20', 32768, 3)
+    bwd = PT.ppo_trunk.backward_launches
     a = _features_and_grads(lambda n, o: n.features(o), net, x)[1]
     b = _features_and_grads(lambda n, o: n.features(o), net, x)[1]
+    assert PT.ppo_trunk.backward_launches - bwd == 2
     for u, v in zip(a, b):
         assert torch.equal(u, v)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('backward', [False, True],
+                         ids=['forward', 'backward'])
 @pytest.mark.parametrize('batch', [33, 1024])
-def test_card_graph_replay_equals_the_uncaptured_forward(card, batch):
+def test_card_graph_replay_equals_the_uncaptured_forward(card, batch,
+                                                         backward):
+    """A captured graph of the forward (or of the forward and the
+    backward), replayed on other obs, gives what the uncaptured calls give
+    on them, bit for bit."""
     net, x = _card_case(card, '20x20', batch, 5)
-    net.requires_grad_(False)
-    with torch.no_grad():
-        want = net.features(x)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            net.features(x)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = net.features(x)
-        x.copy_(torch.flip(x, (0,)))
-        graph.replay()
-        torch.cuda.synchronize()
-        assert torch.equal(out, torch.flip(want, (0,)))
+    proj = _projection((batch, 128), card)
+    net.requires_grad_(backward)
+
+    def call():
+        with torch.set_grad_enabled(backward):
+            feats = net.features(x)
+            if not backward:
+                return (feats,)
+            return torch.autograd.grad((feats * proj).sum(), _weights(net))
+
+    flipped = torch.flip(x, (0,))
+    x_saved = x.clone()
+    x.copy_(flipped)
+    want = [t.clone() for t in call()]
+    x.copy_(x_saved)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    x.copy_(flipped)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, want):
+        assert torch.equal(a, b)
