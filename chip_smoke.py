@@ -4388,7 +4388,7 @@ def distill_card_vs_cpu(teacher_params) -> dict:
     1e-5 + 1e-4 x max|g| (a TD update's tolerance), the loss and the
     parameters after the 4 steps within 1e-5, the agreement EQUAL."""
     from marlsnake_torch.algo import optim
-    from marlsnake_torch.algo.dqn_trainer import mean_of
+    from marlsnake_torch.algo.optim import mean_of
     from marlsnake_torch.envs.vector import VectorSnakeEnv
     from marlsnake_torch.rng import distill_draws
     from marlsnake_torch.tools import distill_acting as D

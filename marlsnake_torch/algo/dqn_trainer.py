@@ -201,17 +201,6 @@ def huber_loss(pred: torch.Tensor, target: torch.Tensor,
     return 0.5 * quadratic ** 2 + delta * (abs_err - quadratic)
 
 
-def mean_of(x: torch.Tensor, dim: Optional[int] = None) -> torch.Tensor:
-    """The mean (over ``dim``, or of every element) as the JAX trainers'
-    compiled ``jnp.mean`` gives it: XLA turns the division of the sum by
-    the count into a product with the count's float32 reciprocal.
-    ``Tensor.mean`` divides, and differs in the last bit where the count
-    is no power of two."""
-    if dim is None:
-        return x.sum() * (1.0 / x.numel())
-    return x.sum(dim) * (1.0 / x.shape[dim])
-
-
 @dataclasses.dataclass
 class _EpisodeBuffers:
     """What an episode's chunks carry, at fixed addresses: the envs, the
@@ -652,7 +641,7 @@ class DQNTrainer:
                 mean_loss = (b.loss_sum / updates if updates
                              else b.loss_sum.clone())
                 metrics = EpisodeMetrics(
-                    mean_reward=mean_of(b.ep_rew), mean_loss=mean_loss,
+                    mean_reward=optim.mean_of(b.ep_rew), mean_loss=mean_loss,
                     episode_length=float(steps), updates=updates)
                 ts = self._end_episode(ts, clone_tree(b.params),
                                        clone_tree(b.opt_state),
@@ -763,7 +752,7 @@ class DQNTrainer:
                 break
 
         mean_reward, mean_loss, episode_length, updates = \
-            self._mean_metrics(mean_of(ep_rew), loss_sum / updates
+            self._mean_metrics(optim.mean_of(ep_rew), loss_sum / updates
                                if updates else loss_sum, steps, updates)
         metrics = EpisodeMetrics(
             mean_reward=mean_reward, mean_loss=mean_loss,

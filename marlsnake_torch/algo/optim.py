@@ -9,7 +9,8 @@ elsewhere, with no 1e-6 added to the norm; Adam computes
 ``m_hat / (sqrt(v_hat) + eps)`` with both moments bias-corrected by
 ``1 - decay ** count`` first, ``count`` an int32 that starts at 1 on the
 first update. Nothing is updated in place: every function returns new
-tensors, and the state lives wherever the parameters live.
+tensors, and the state lives wherever the parameters live. ``mean_of`` is
+the JAX trainers' compiled mean, for the losses and metrics.
 """
 
 from __future__ import annotations
@@ -69,3 +70,14 @@ def adam_update(grads: Sequence[torch.Tensor], state: AdamState, lr: float,
 def apply_updates(params: Sequence[torch.Tensor],
                   updates: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return list(torch._foreach_add(params, updates))
+
+
+def mean_of(x: torch.Tensor, dim: Optional[int] = None) -> torch.Tensor:
+    """The mean (over ``dim``, or of every element) as the JAX trainers'
+    compiled ``jnp.mean`` gives it: XLA turns the division of the sum by
+    the count into a product with the count's float32 reciprocal.
+    ``Tensor.mean`` divides, and differs in the last bit where the count
+    is no power of two."""
+    if dim is None:
+        return x.sum() * (1.0 / x.numel())
+    return x.sum(dim) * (1.0 / x.shape[dim])

@@ -25,17 +25,21 @@ into buffers the trainer allocates once (``trainer.trajectory``: obs as
 which the next update overwrites. The minibatch epochs are plain torch:
 autograd on the forward, ``algo/optim.py`` for the clip and Adam.
 
-The shared net is the ActorCritic, or with ``net='moonlight_agent'`` an
-LLM agent (``models/moonlight.py``: Moonlight-16B-A3B's decoder over a
-prompt of the packed board, its action logits the ``lm_head`` rows of
-the three actions, a value head), on the same path: the rollout in the
-same graph, the same GAE, minibatches, clip and Adam. The agent's
-routers' correction biases ride in ``PPOTrainState.buffers`` and take
-the bias step of aux-loss-free balancing after each optimizer step
-(``models.moonlight.balance_bias``). With ``in_place`` (for either
-net) ``learn`` writes the new parameters and Adam's moments into the
-state it is given (``_apply_in_place``): at its published widths the
-agent's float32 parameters and moments fit one card once, not twice.
+The shared net is the one ``PPOConfig.net`` names in
+``models/policy.py``'s table, which says what a net gives the trainer:
+the ActorCritic, or an LLM agent (``models/moonlight.py``:
+Moonlight-16B-A3B's decoder over a prompt of the packed board, its
+action logits the ``lm_head`` rows of the three actions, a value head),
+on the same path: the rollout in the same graph, the same GAE,
+minibatches, clip and Adam. The net turns the rollout's obs into its
+input (``ingress``) and gives its initial state (``initial_state``). The
+state's buffers (the agent's routers' correction biases) ride in
+``PPOTrainState.buffers`` and take the net's step (``step_buffers``: for
+the agent, the bias step of aux-loss-free balancing) after each
+optimizer step. With ``in_place`` (for either net) ``learn`` writes the
+new parameters and Adam's moments into the state it is given
+(``_apply_in_place``): at its published widths the agent's float32
+parameters and moments fit one card once, not twice.
 
 Random numbers: the trainer owns one ``torch.Generator`` on its device;
 ``update`` draws an update's numbers from it up front (``rng.ppo_draws``)
@@ -63,16 +67,14 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
 import torch
 
 from marlsnake_torch.algo import optim
-from marlsnake_torch.algo.dqn_trainer import mean_of
+from marlsnake_torch.algo.optim import mean_of
 from marlsnake_torch.core.state import EnvState
 from marlsnake_torch.core.types import EnvConfig
 from marlsnake_torch.device import resolve_device
 from marlsnake_torch.envs.vector import build_vector_fns
-from marlsnake_torch.models.moonlight import (MoonlightConfig, balance_bias,
-                                              make_moonlight_agent)
-from marlsnake_torch.models.ppo import make_actor_critic
+from marlsnake_torch.models.moonlight import MoonlightConfig
+from marlsnake_torch.models.policy import make_policy
 from marlsnake_torch.ops import step_kernel
-from marlsnake_torch.ops.obs_pack import unpack_obs
 from marlsnake_torch.rng import (PPODraws, ResetDraws, StepDraws,
                                  ppo_draws, rank_seed, reset_draws)
 from marlsnake_torch.utils import checkpoint as ckpt
@@ -130,9 +132,10 @@ class PPOConfig:
     # buffer holds those bytes, and they are unpacked where they enter
     # the ActorCritic
     obs_format: str = 'uint8'
-    # the shared net: 'actor_critic' (models/ppo.py), or 'moonlight_agent'
-    # (models/moonlight.py: an LLM that reads the packed board as a
-    # prompt, with the decoder settings of ``moonlight``)
+    # the shared net, by its name in models/policy.NETS: the ActorCritic
+    # (models/ppo.py), or the LLM agent of models/moonlight.py, which
+    # reads the packed board as a prompt, with the decoder settings of
+    # ``moonlight``
     net: str = 'actor_critic'
     moonlight: MoonlightConfig = dataclasses.field(
         default_factory=MoonlightConfig)
@@ -164,8 +167,8 @@ class PPOTrainState:
     ep_return_acc: torch.Tensor    # (E, N) float32: running returns
     finished_return_sum: torch.Tensor  # () float32
     finished_count: torch.Tensor       # () int32
-    # the net's state that no gradient moves: the MoE routers' correction
-    # biases of the agent (empty for the ActorCritic)
+    # the net's state that no gradient moves (the agent's MoE routers'
+    # correction biases; empty for the ActorCritic)
     buffers: Params = dataclasses.field(default_factory=dict)
 
     def replace(self, **changes) -> 'PPOTrainState':
@@ -240,27 +243,17 @@ class PPOTrainer:
         self.device = resolve_device(device)
         self.env_cfg = config.env_config()
         # the net is applied to parameters handed in (PPOTrainState.params);
-        # the ActorCritic's own, made from config.seed, are what init_state
-        # starts from; the agent holds none, and init_state draws its
-        # weights from config.seed afresh
-        self._agent = config.net == 'moonlight_agent'
-        if self._agent:
-            if mesh is not None:
-                raise ValueError('the moonlight agent trains on one device: '
-                                 'its routers\' loads are not all-reduced')
-            if config.obs_format != 'packed':
-                raise ValueError("the moonlight agent reads packed obs: "
-                                 "obs_format='packed'")
-            self.net = make_moonlight_agent(
-                config.moonlight, self.env_cfg.obs_shape[1:], config.seed,
-                self.device, config.compute_dtype, weights=False)
-        elif config.net == 'actor_critic':
-            self.net = make_actor_critic(
-                self.env_cfg, config.seed, self.device,
-                config.assume_binary_obs, config.compute_dtype)
-        else:
-            raise ValueError(f'unknown net {config.net!r}')
+        # init_state starts from its initial_state()
+        self.net = make_policy(config, self.env_cfg, self.device)
         self.net.requires_grad_(False)
+        # the state's tensors that no gradient moves, and their step
+        self._held = (self.net.state_dict().keys()
+                      - dict(self.net.named_parameters()).keys())
+        if self._held and mesh is not None:
+            raise ValueError(f'the net {config.net!r} trains on one device: '
+                             'its buffers are not all-reduced')
+        self._step_buffers = self.net.step_buffers if self._held else None
+        self._ingress = self.net.ingress
         self._reset_env, self._step_env = build_vector_fns(
             self.env_cfg, autoreset=True, device=self.device)
         self.generator = torch.Generator(device=self.device)
@@ -289,15 +282,8 @@ class PPOTrainer:
         generator."""
         cfg, dev = self.config, self.device
         e, n = cfg.num_envs, cfg.num_snakes
-        held = {k for k, _ in self.net.named_buffers()}
-        if self._agent:
-            state = make_moonlight_agent(
-                cfg.moonlight, self.env_cfg.obs_shape[1:], cfg.seed, dev,
-                cfg.compute_dtype).state_dict()
-        else:
-            state = {k: v.detach().clone()
-                     for k, v in self.net.state_dict().items()}
-        params = {k: v for k, v in state.items() if k not in held}
+        state = self.net.initial_state()
+        params = {k: v for k, v in state.items() if k not in self._held}
         if reset is None:
             reset = reset_draws(self.env_cfg, e, self.generator, dev)
         env_states, obs = self._reset_env(reset)
@@ -313,33 +299,25 @@ class PPOTrainer:
             ep_return_acc=zeros((e, n), torch.float32),
             finished_return_sum=zeros((), torch.float32),
             finished_count=zeros((), torch.int32),
-            buffers={k: v for k, v in state.items() if k in held})
+            buffers={k: v for k, v in state.items() if k in self._held})
 
     # ------------------------------------------------------------------
-    def _prep(self, flat_obs: torch.Tensor) -> torch.Tensor:
-        """Net-ingress transform: unpack packed bytes to the uint8 planes
-        for the ActorCritic (``obs_format='packed'``); identity otherwise
-        (the agent reads the bytes)."""
-        if self.config.obs_format == 'packed' and not self._agent:
-            return unpack_obs(flat_obs)
-        return flat_obs
-
     def _forward(self, params: Params, flat_obs: torch.Tensor,
                  buffers: Optional[Params] = None, phases: bool = False):
-        """(logits (M, A), value (M,)) of per-agent obs rows (M, H, W, C);
-        ``phases``: the agent's marks and counts (``models/moonlight.py``)."""
+        """(logits (M, A), value (M,)) of per-agent obs rows (M, H, W, C)
+        through the net's ``ingress``; ``phases``: the net's marks and
+        counts (the agent's, ``models/moonlight.py``)."""
         return torch.func.functional_call(
-            self.net, (params, buffers or {}), (self._prep(flat_obs),),
-            {'phases': True} if phases else {})
+            self.net, (params, buffers or {}),
+            (self._ingress(flat_obs), phases))
 
     def _policy(self, params: Params, obs: torch.Tensor,
                 buffers: Optional[Params] = None):
         """(logits (E, N, A), value (E, N)) of obs (E, N, H, W, C), with
-        the agent's phases."""
+        the net's phases."""
         e, n = obs.shape[:2]
         logits, value = self._forward(
-            params, obs.reshape((e * n,) + obs.shape[2:]), buffers,
-            self._agent)
+            params, obs.reshape((e * n,) + obs.shape[2:]), buffers, True)
         return logits.reshape(e, n, -1), value.reshape(e, n)
 
     # ------------------------------------------------------------------
@@ -569,10 +547,10 @@ class PPOTrainer:
         ``ppo.learn``, bounded by marks, and in it each minibatch's marks:
         the ends of ``ppo.gather`` (its rows), ``ppo.fwd_bwd``
         (``loss_and_grads``) and ``ppo.optim`` (``apply_gradients``, and
-        for the agent the routers' bias step, ``balance_bias``, over the
-        minibatch's expert loads). ``on_grads``, where set, is called with
-        each minibatch's parameters and the gradient the step takes,
-        before the step."""
+        where the state has buffers the net's ``step_buffers``: for the
+        agent the routers' bias step over the minibatch's expert loads).
+        ``on_grads``, where set, is called with each minibatch's
+        parameters and the gradient the step takes, before the step."""
         with tracer.span('ppo.learn', device=True):
             return self._learn(ts, perm)
 
@@ -592,9 +570,7 @@ class PPOTrainer:
                 params, opt_state = self.apply_gradients(params, opt_state,
                                                          grads)
                 if buffers:
-                    rate = self.config.moonlight.bias_update_rate
-                    buffers = {k: balance_bias(b, load, rate) for (k, b), load
-                               in zip(buffers.items(), self.net.loads)}
+                    buffers = self._step_buffers(buffers)
                 auxs.append(aux)
                 tracer.mark('ppo.optim')
         aux = mean_of(torch.stack(auxs), 0)

@@ -21,7 +21,7 @@ import time
 
 import torch
 
-from marlsnake_torch.algo.dqn_trainer import mean_of
+from marlsnake_torch.algo.optim import mean_of
 from marlsnake_torch.core.types import EnvConfig
 from marlsnake_torch.device import resolve_device
 from marlsnake_torch.envs.vector import VectorSnakeEnv

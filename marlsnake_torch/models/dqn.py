@@ -17,26 +17,14 @@ as float32: the flax DQN's ``compute_dtype``.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from marlsnake_torch.core.types import FEATURE_CHANNEL, EnvConfig
 from marlsnake_torch.device import resolve_device
-
-
-def prepare_obs(x: torch.Tensor, compute_dtype: torch.dtype,
-                assume_binary_obs: bool) -> torch.Tensor:
-    """NHWC observations as a batch in ``compute_dtype``, divided by 255
-    where the batch's maximum exceeds 1 unless ``assume_binary_obs``."""
-    if x.dim() == 3:
-        x = x[None]
-    if assume_binary_obs:
-        return x.to(compute_dtype)
-    x = x.to(torch.float32)
-    return torch.where(x.max() > 1.0, x / 255.0, x).to(compute_dtype)
+from marlsnake_torch.models.weights import flax_init_
+from marlsnake_torch.ops.obs_pack import prepare_obs
 
 
 class DQN(nn.Module):
@@ -118,27 +106,6 @@ class DistilledDQN(nn.Module):
             x = F.relu(F.linear(x, fc.weight.to(dt), fc.bias.to(dt)))
         return F.linear(x, self.head.weight.to(dt),
                         self.head.bias.to(dt)).to(torch.float32)
-
-
-# the standard deviation of a standard normal truncated to [-2, 2]
-_TRUNC_STD = 0.87962566103423978
-
-
-def flax_init_(net: nn.Module) -> nn.Module:
-    """Give every convolution and linear layer of ``net`` flax's default
-    initialisation, as the JAX package's nets start: weights from
-    ``variance_scaling(1.0, 'fan_in', 'truncated_normal')`` (lecun normal:
-    a normal truncated to two standard deviations, scaled to variance
-    ``1 / fan_in``, ``fan_in = in_ch * kh * kw`` for a convolution and
-    ``in_features`` for a linear layer), and zero biases. Draws from
-    torch's default generator; returns ``net``."""
-    with torch.no_grad():
-        for m in net.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                std = math.sqrt(1.0 / m.weight[0].numel()) / _TRUNC_STD
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std)
-                nn.init.zeros_(m.bias)
-    return net
 
 
 def make_dqn(cfg: EnvConfig, seed: int = 0, device='cuda',

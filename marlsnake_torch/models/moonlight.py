@@ -53,7 +53,8 @@ In training (autograd on), each decoder layer is recomputed in the
 backward (``torch.utils.checkpoint``): a minibatch of 65,536 tokens does
 not fit on one H100 otherwise (``PERF.md``). ``loads`` keeps the last
 forward's expert loads, (MoE layers, n_routed_experts) int64 counts of
-the router's choices, which the trainer's bias update reads. With
+the router's choices, from which ``step_buffers`` takes the routers'
+bias step after each optimizer step. With
 ``phases=True`` the forward places the tracer's marks ``agent.embed``
 (the decoder starts), ``agent.attn`` (after each layer's attention),
 ``agent.dense`` (after layer 0's feed-forward) and ``agent.moe`` (after
@@ -65,7 +66,7 @@ each expert layer's), and counts on the device the router's choices:
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -311,13 +312,14 @@ class DecoderLayer(nn.Module):
 
 class MoonlightAgent(nn.Module):
     """(logits (B, 3), value (B,)), both float32, of packed obs bytes (B,
-    H, W, 1) uint8. With ``weights=False`` its parameters and routers'
-    biases lie on the meta device, holding no memory: a net that runs
-    only on tensors handed in (``torch.func.functional_call``)."""
+    H, W, 1) uint8. Its weights are drawn on the device from ``seed``
+    (``init_weights_``). With ``weights=False`` its parameters and
+    routers' biases lie on the meta device, holding no memory: a net that
+    runs only on tensors handed in (``torch.func.functional_call``)."""
 
     def __init__(self, cfg: MoonlightConfig, device='cuda',
                  compute_dtype: torch.dtype = torch.float32,
-                 weights: bool = True):
+                 weights: bool = True, seed: int = 0):
         super().__init__()
         if cfg.prompt is None:
             raise ValueError('the agent needs its prompt\'s token ids: '
@@ -325,6 +327,7 @@ class MoonlightAgent(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         self.compute_dtype = compute_dtype
+        self.seed = seed
         d = cfg.hidden_size
         w = dev if weights else torch.device('meta')
         self.embed_tokens = nn.Embedding(cfg.vocab_size, d, device=w)
@@ -342,6 +345,29 @@ class MoonlightAgent(nn.Module):
                                                         device=dev),
                              persistent=False)
         self.loads: Optional[torch.Tensor] = None
+        if weights:
+            init_weights_(self, torch.Generator(device=dev).manual_seed(seed))
+
+    @staticmethod
+    def ingress(obs: torch.Tensor) -> torch.Tensor:
+        """The packed obs bytes as they are: the prompt reads them."""
+        return obs
+
+    def initial_state(self) -> Dict[str, torch.Tensor]:
+        """The parameters and routers' biases that training starts from,
+        drawn afresh from ``seed`` on the agent's device: an agent without
+        weights holds none."""
+        return MoonlightAgent(self.cfg, self.prefix.device,
+                              self.compute_dtype, seed=self.seed).state_dict()
+
+    def step_buffers(self, buffers: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """The routers' correction biases (``state_dict`` names, in the
+        layers' order) after one bias step at ``bias_update_rate``
+        (``balance_bias``) over the last forward's loads."""
+        rate = self.cfg.bias_update_rate
+        return {k: balance_bias(b, load, rate)
+                for (k, b), load in zip(buffers.items(), self.loads)}
 
     def prompt_ids(self, obs: torch.Tensor) -> torch.Tensor:
         """(B, len(prefix) + H * (W + 1)) int64 token ids of packed obs
@@ -434,8 +460,4 @@ def make_moonlight_agent(cfg: MoonlightConfig, obs_shape, seed: int = 0,
     if prompt is not None and len(prompt.cells) != 1 + FEATURE_CHANNEL:
         raise ValueError('the prompt needs an id for the empty cell and one '
                          f'a plane: {1 + FEATURE_CHANNEL}')
-    dev = resolve_device(device)
-    net = MoonlightAgent(cfg, dev, compute_dtype, weights)
-    if not weights:
-        return net
-    return init_weights_(net, torch.Generator(device=dev).manual_seed(seed))
+    return MoonlightAgent(cfg, device, compute_dtype, weights, seed)

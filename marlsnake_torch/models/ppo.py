@@ -11,7 +11,8 @@ between. On the card, in float32, the trunk (both convolutions and
 pools) is one hand-written kernel each way (``ops/ppo_trunk.py``,
 ``csrc/ppo_trunk.cu``).
 
-The public call takes NHWC observations, the engine's layout; the
+The public call takes NHWC observations, the engine's layout, as uint8
+planes; a net built for packed obs unpacks them in its ``ingress``. The
 features are flattened in NHWC order, as flax flattens them, so that
 flax's dense kernels map by a plain transpose (``models/weights.py``).
 Without ``assume_binary_obs`` the input is divided by 255 where its
@@ -23,7 +24,7 @@ float32, as the flax net's ``compute_dtype``.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,8 +32,9 @@ from torch import nn
 
 from marlsnake_torch.core.types import FEATURE_CHANNEL, EnvConfig
 from marlsnake_torch.device import resolve_device
-from marlsnake_torch.models.dqn import flax_init_
+from marlsnake_torch.models.weights import flax_init_
 from marlsnake_torch.ops import ppo_trunk
+from marlsnake_torch.ops.obs_pack import unpack_obs
 
 CONV_CHANNELS = 32
 HIDDEN = 256
@@ -54,15 +56,22 @@ def feature_size(obs_hw) -> int:
     return CONV_CHANNELS * _pooled(h) * _pooled(w)
 
 
+def _as_emitted(obs: torch.Tensor) -> torch.Tensor:
+    return obs
+
+
 class ActorCritic(nn.Module):
     def __init__(self, obs_hw, in_channels: int = 8, num_actions: int = 3,
                  assume_binary_obs: bool = False, device='cuda',
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 packed: bool = False):
         super().__init__()
         dev = resolve_device(device)
         ppo_trunk.check_served(in_channels, dev, compute_dtype)
         self.assume_binary_obs = assume_binary_obs
         self.compute_dtype = compute_dtype
+        # the obs as the envs emit them -> the planes ``forward`` takes
+        self.ingress = unpack_obs if packed else _as_emitted
         feats = feature_size(obs_hw)
         self.conv1 = nn.Conv2d(in_channels, CONV_CHANNELS, 3, padding=1,
                                device=dev)
@@ -85,10 +94,11 @@ class ActorCritic(nn.Module):
                                self.conv2.weight, self.conv2.bias,
                                self.compute_dtype, self.assume_binary_obs)
 
-    def forward(self, x: torch.Tensor
+    def forward(self, x: torch.Tensor, phases: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits (B, A), value (B,)), both float32, of NHWC
-        observations (B, H, W, C)."""
+        observations (B, H, W, C); ``phases`` is taken and ignored: the
+        net places no tracer marks."""
         f = self.features(x)
         logits = self._linear(self.actor_fc2,
                               F.relu(self._linear(self.actor_fc1, f)))
@@ -96,15 +106,20 @@ class ActorCritic(nn.Module):
                              F.relu(self._linear(self.critic_fc1, f)))
         return logits.to(torch.float32), value[:, 0].to(torch.float32)
 
+    def initial_state(self) -> Dict[str, torch.Tensor]:
+        """A copy of the net's own ``state_dict``: the weights
+        ``make_actor_critic`` drew from its seed."""
+        return {k: v.detach().clone() for k, v in self.state_dict().items()}
+
 
 def make_actor_critic(cfg: EnvConfig, seed: int = 0, device='cuda',
                       assume_binary_obs: bool = True,
                       compute_dtype: torch.dtype = torch.float32
                       ) -> ActorCritic:
     """An ActorCritic for ``cfg``'s observations as uint8 planes, 8
-    channels a stacked frame (packed obs are unpacked before the net),
+    channels a stacked frame (packed obs are unpacked by its ``ingress``),
     initialised as flax initialises the JAX ActorCritic
-    (``models.dqn.flax_init_``), from ``seed`` on the CPU and then moved,
+    (``models.weights.flax_init_``), from ``seed`` on the CPU and then moved,
     so that the weights do not depend on the device."""
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
@@ -112,5 +127,6 @@ def make_actor_critic(cfg: EnvConfig, seed: int = 0, device='cuda',
         net = flax_init_(ActorCritic(
             (cfg.obs_height, cfg.obs_width),
             FEATURE_CHANNEL * cfg.frame_stack, cfg.num_actions,
-            assume_binary_obs, device='cpu', compute_dtype=compute_dtype))
+            assume_binary_obs, device='cpu', compute_dtype=compute_dtype,
+            packed=cfg.obs_format == 'packed'))
     return net.to(dev)

@@ -78,8 +78,19 @@ def build(*sources: str) -> List[Tuple[str, str]]:
 
 def on_current_stream(index: int, call: Callable[[int], int]) -> int:
     """``call(stream)`` on PyTorch's current stream of device ``index`` (its
-    raw handle, as the launchers take it), with that device current."""
+    raw handle, as the launchers take it; ``torch.cuda.current_stream()``
+    would build a Stream object on every call), with that device
+    current."""
     if torch.cuda.current_device() != index:
         with torch.cuda.device(index):
             return call(torch._C._cuda_getCurrentRawStream(index))
     return call(torch._C._cuda_getCurrentRawStream(index))
+
+
+def raise_on(rc: int, what: str, error_string: Callable[[int], bytes]
+             ) -> None:
+    """Raise where a launcher returned the error code ``rc``: ``what``
+    names the launch, ``error_string`` is its library's message entry."""
+    if rc != 0:
+        raise RuntimeError(f'{what} kernel launch failed: '
+                           f'{error_string(rc).decode()}')

@@ -142,7 +142,8 @@ def launch_reachable_count(boards: torch.Tensor, starts: torch.Tensor,
         boards.device.index, lambda stream: lib.marlsnake_reachable_count(
             boards.data_ptr(), starts.data_ptr(), m, h, w, _limit(limit),
             out.data_ptr(), stream))
-    _raise_on(lib, rc, 'reachable_count')
+    cuda_build.raise_on(rc, 'reachable_count',
+                        lib.marlsnake_mask_error_string)
     return out
 
 
@@ -251,11 +252,6 @@ def launch_masked_actions(inp: MaskInputs, limit: int) -> MaskOut:
     rc = cuda_build.on_current_stream(
         dev.index, lambda stream: lib.marlsnake_masked_actions(
             ctypes.byref(args), stream))
-    _raise_on(lib, rc, 'masked_actions')
+    cuda_build.raise_on(rc, 'masked_actions',
+                        lib.marlsnake_mask_error_string)
     return out
-
-
-def _raise_on(lib, rc: int, entry: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f'{entry} kernel launch failed: '
-                           f'{lib.marlsnake_mask_error_string(rc).decode()}')

@@ -1,4 +1,6 @@
-"""Bit-packed observations (``EnvConfig.obs_format == 'packed'``).
+"""Observations on their way into a net: bit-packed bytes
+(``EnvConfig.obs_format == 'packed'``) unpacked (``unpack_obs``), then
+cast and scaled (``prepare_obs``).
 
 The eight one-hot channels of a frame (wall, fruit, other head/body/tail,
 my head/body/tail) are {0, 1} planes; packed, they are the bits of one
@@ -29,3 +31,15 @@ def unpack_obs(packed: torch.Tensor) -> torch.Tensor:
     c = torch.arange(8, dtype=torch.uint8, device=packed.device)
     bits = (packed[..., None] >> c) & 1
     return bits.reshape(packed.shape[:-1] + (packed.shape[-1] * 8,))
+
+
+def prepare_obs(x: torch.Tensor, compute_dtype: torch.dtype,
+                assume_binary_obs: bool) -> torch.Tensor:
+    """NHWC observations as a batch in ``compute_dtype``, divided by 255
+    where the batch's maximum exceeds 1 unless ``assume_binary_obs``."""
+    if x.dim() == 3:
+        x = x[None]
+    if assume_binary_obs:
+        return x.to(compute_dtype)
+    x = x.to(torch.float32)
+    return torch.where(x.max() > 1.0, x / 255.0, x).to(compute_dtype)

@@ -42,8 +42,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from marlsnake_torch.models.dqn import prepare_obs
 from marlsnake_torch.ops import cuda_build
+from marlsnake_torch.ops.obs_pack import prepare_obs
 
 SOURCE = os.path.join(cuda_build.CSRC_DIR, 'ppo_trunk.cu')
 
@@ -540,12 +540,6 @@ def _scratch(p: Plan, dev: torch.device) -> Optional[torch.Tensor]:
     return torch.empty(p.scratch, dtype=torch.float32, device=dev)
 
 
-def _raise_on(lib, rc: int, entry: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f'{entry} kernel launch failed: '
-                           f'{lib.marlsnake_trunk_error_string(rc).decode()}')
-
-
 def launch_forward(x: torch.Tensor, divide: Optional[torch.Tensor],
                    w1, b1, w2, b2, s: TrunkShape, save: bool):
     """One launch of the forward on checked CUDA tensors (``x``
@@ -575,7 +569,8 @@ def launch_forward(x: torch.Tensor, divide: Optional[torch.Tensor],
                                       lib.marlsnake_trunk_forward(
                                           ctypes.byref(args), is_float,
                                           fwd.grid, fwd.smem, stream))
-    _raise_on(lib, rc, 'ppo_trunk forward')
+    cuda_build.raise_on(rc, 'ppo_trunk forward',
+                        lib.marlsnake_trunk_error_string)
     return feats, saved
 
 
@@ -609,7 +604,8 @@ def launch_backward(gfeats: torch.Tensor, x: torch.Tensor,
                                           ctypes.byref(args), is_float,
                                           pool1.grid, pool1.smem, wg.pairs,
                                           wg.smem, stream))
-    _raise_on(lib, rc, 'ppo_trunk backward')
+    cuda_build.raise_on(rc, 'ppo_trunk backward',
+                        lib.marlsnake_trunk_error_string)
     n1 = C * s.cin * 9
     return (grads[:n1].view(C, s.cin, 3, 3), grads[n1:n1 + C],
             grads[n1 + C:n1 + C + C * C * 9].view(C, C, 3, 3),

@@ -345,25 +345,13 @@ class _LaunchPlan:
         out = torch.empty(self.nbytes, dtype=torch.uint8, device=self.device)
         args.state = state_arena.data_ptr()
         args.out = out.data_ptr()
-        if torch.cuda.current_device() != index:
-            with torch.cuda.device(index):
-                rc = self._enqueue(entry)
-        else:
-            rc = self._enqueue(entry)
-        if rc != 0:
-            raise RuntimeError(
-                f'{wrapper.__name__} kernel launch failed: '
-                f'{self.lib.marlsnake_error_string(rc).decode()}')
+        rc = cuda_build.on_current_stream(
+            index, lambda stream: entry(ctypes.byref(args), stream))
+        cuda_build.raise_on(rc, wrapper.__name__,
+                            self.lib.marlsnake_error_string)
         wrapper.launches += 1
         return (_carved(_CarvedState, self, out),
                 _carved(_CarvedOutput, self, out))
-
-    def _enqueue(self, entry) -> int:
-        # the raw handle of PyTorch's current stream, as its own Triton
-        # launcher takes it: torch.cuda.current_stream() would build a
-        # Stream object on every call
-        stream = torch._C._cuda_getCurrentRawStream(self.index)
-        return entry(ctypes.byref(self.args), stream)
 
 
 @functools.lru_cache(maxsize=16)

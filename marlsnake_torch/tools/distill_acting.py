@@ -54,15 +54,15 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence
 import torch
 
 from marlsnake_torch.algo import optim
-from marlsnake_torch.algo.dqn_trainer import mean_of
+from marlsnake_torch.algo.optim import mean_of
 from marlsnake_torch.algo.neat_hybrid import load_hybrid_raw, msgpack_pack
 from marlsnake_torch.core.state import EnvState
 from marlsnake_torch.core.types import FEATURE_CHANNEL, EnvConfig
 from marlsnake_torch.device import resolve_device
 from marlsnake_torch.envs.vector import VectorSnakeEnv
-from marlsnake_torch.models.dqn import DQN, DistilledDQN, flax_init_
+from marlsnake_torch.models.dqn import DQN, DistilledDQN
 from marlsnake_torch.models.weights import (distilled_dqn_to_flax,
-                                            dqn_from_flax)
+                                            dqn_from_flax, flax_init_)
 from marlsnake_torch.rng import DistillDraws, derive_seed, distill_draws
 from marlsnake_torch.utils.profiling import card_label
 

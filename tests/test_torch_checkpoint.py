@@ -22,8 +22,8 @@ import pytest
 import torch
 
 from marlsnake_torch.algo.dqn_trainer import DQNConfig, DQNTrainer
+from marlsnake_torch.algo.flax_states import train_state_from_flax
 from marlsnake_torch.algo.ppo_trainer import PPOConfig, PPOTrainer
-from marlsnake_torch.models.weights import train_state_from_flax
 from marlsnake_torch.utils import checkpoint as ckpt
 from marlsnake_torch.utils.metrics import MetricWriter
 from test_torch_dqn_trainer import (SMALL, _t, assert_grads_close,

@@ -33,11 +33,11 @@ from marlsnake_torch import bench
 from marlsnake_torch.algo import replay
 from marlsnake_torch.algo.dqn_trainer import (DQNConfig, DQNTrainer,
                                               chunk_steps)
+from marlsnake_torch.algo.flax_states import (ppo_train_state_from_flax,
+                                              train_state_from_flax)
 from marlsnake_torch.core import engine
 from marlsnake_torch.core.types import EnvConfig
 from marlsnake_torch.envs.vector import VectorSnakeEnv
-from marlsnake_torch.models.weights import (ppo_train_state_from_flax,
-                                            train_state_from_flax)
 from marlsnake_torch.ops import step_kernel
 from marlsnake_torch.parallel import distributed
 from marlsnake_torch.parallel.mesh import make_mesh

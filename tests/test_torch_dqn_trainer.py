@@ -43,9 +43,10 @@ from marlsnake_tpu.models.dqn import DQN as FlaxDQN
 from marlsnake_torch.algo import optim
 from marlsnake_torch.algo.dqn_trainer import (DQNConfig, DQNTrainer,
                                               huber_loss)
-from marlsnake_torch.models.dqn import DQN, prepare_obs
-from marlsnake_torch.models.weights import (dqn_from_flax, dqn_to_flax,
-                                            train_state_from_flax)
+from marlsnake_torch.algo.flax_states import train_state_from_flax
+from marlsnake_torch.models.dqn import DQN
+from marlsnake_torch.models.weights import dqn_from_flax, dqn_to_flax
+from marlsnake_torch.ops.obs_pack import prepare_obs
 from marlsnake_torch.rng import TrainDraws
 from test_torch_engine import reset_draws_from_keys
 from test_torch_replay import assert_rings_equal

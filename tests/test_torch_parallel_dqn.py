@@ -4,7 +4,7 @@ two ranks.
 JAX's ``DistributedDQN`` runs in this process on a two-device mesh of the
 virtual CPU devices (``tests/conftest.py``); the port's runs in two gloo
 ranks on the CPU (``parallel.runner``, file rendezvous in ``tmp_path``),
-from the same per-rank states (``weights.dp_train_states_from_flax``)
+from the same per-rank states (``flax_states.dp_train_states_from_flax``)
 and with each rank's draws from JAX's own key schedule, the axis index
 folded in. Float32, TF32 off. Tolerances, as
 ``test_torch_dqn_trainer.test_episode_matches_jax``: each rank's ring,
@@ -33,8 +33,8 @@ from marlsnake_tpu.algo.dqn_trainer import DQNTrainer as JTrainer
 from marlsnake_tpu.parallel import dqn_dp as jax_dqn_dp_module
 from marlsnake_tpu.parallel.mesh import make_mesh as jax_mesh
 from marlsnake_torch.algo.dqn_trainer import DQNConfig, DQNTrainer
-from marlsnake_torch.models.weights import (dp_train_states_from_flax,
-                                            dqn_to_flax)
+from marlsnake_torch.algo.flax_states import dp_train_states_from_flax
+from marlsnake_torch.models.weights import dqn_to_flax
 from marlsnake_torch.parallel.runner import run_job
 from test_torch_dqn_trainer import (SMALL, assert_grads_close,
                                     assert_params_close, episode_draws,

@@ -6,7 +6,7 @@ virtual CPU devices, its update program built with ``shard_map``'s
 ``check_vma`` off (``jax_ppo_dp``; see ``test_torch_parallel_dqn.py``:
 with it on, the devices' gradients are summed, not averaged). The port's
 runs in two gloo ranks on the CPU (``parallel.runner``), from the same
-per-rank states (``weights.dp_ppo_train_states_from_flax``), each rank
+per-rank states (``flax_states.dp_ppo_train_states_from_flax``), each rank
 with its device's draws from JAX's key schedule (the rollout replayed per
 device, ``test_torch_ppo.replay_jax_rollout`` with the axis index folded
 in). Tolerances, as ``test_torch_ppo.test_two_updates_match_jax``: each
@@ -26,8 +26,8 @@ from jax.sharding import PartitionSpec as P
 from marlsnake_tpu.algo.ppo_trainer import PPOConfig as JConfig
 from marlsnake_tpu.parallel import ppo_dp as jax_ppo_dp_module
 from marlsnake_tpu.parallel.mesh import make_mesh as jax_mesh
+from marlsnake_torch.algo.flax_states import dp_ppo_train_states_from_flax
 from marlsnake_torch.algo.ppo_trainer import PPOConfig
-from marlsnake_torch.models.weights import dp_ppo_train_states_from_flax
 from marlsnake_torch.parallel.runner import run_job
 from test_torch_engine import assert_fields_equal
 from test_torch_ppo import (EPISODE, LOSSES, SMALL, assert_params_close,

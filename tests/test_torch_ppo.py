@@ -1,7 +1,7 @@
 """marlsnake_torch.algo.ppo_trainer against marlsnake_tpu.algo.ppo_trainer.
 
 Both trainers start from the same state (the JAX ``PPOTrainState``
-carried across by ``models/weights.ppo_train_state_from_flax``) and take
+carried across by ``algo/flax_states.ppo_train_state_from_flax``) and take
 the same random numbers: the JAX trainer's from its key schedule
 (ppo_trainer.py:191, 227, 321-324), the envs' from their own keys, and the
 port takes exactly those numbers as ``PPODraws``. The JAX rollout is
@@ -37,10 +37,11 @@ import torch
 
 from marlsnake_tpu.algo.ppo_trainer import PPOConfig as JConfig
 from marlsnake_tpu.algo.ppo_trainer import PPOTrainer as JTrainer
-from marlsnake_torch.algo.dqn_trainer import mean_of
+from marlsnake_torch.algo.flax_states import ppo_train_state_from_flax
+from marlsnake_torch.algo.optim import mean_of
 from marlsnake_torch.algo.ppo_trainer import PPOConfig, PPOTrainer
-from marlsnake_torch.models.weights import (actor_critic_to_flax,
-                                            ppo_train_state_from_flax)
+from marlsnake_torch.models import policy
+from marlsnake_torch.models.weights import actor_critic_to_flax
 from marlsnake_torch.rng import PPODraws, StepDraws, ppo_draws
 from test_torch_engine import _t, assert_fields_equal, step_draws_from_keys
 
@@ -211,7 +212,7 @@ def test_two_updates_match_jax(mode):
 def test_metric_means_are_xla_s_means_exactly(monkeypatch):
     """The update's means as the JAX trainer's compiled ``jnp.mean`` gives
     them, the sum times the count's float32 reciprocal
-    (``dqn_trainer.mean_of``), pinned with ``==``: at 3 snakes, where
+    (``optim.mean_of``), pinned with ``==``: at 3 snakes, where
     ``Tensor.mean``'s division differs in the last bit in about a third
     of the rows, and 3 epochs x 1 minibatch, 3 losses a metric. The
     episode return's per-env mean over the snakes (ppo_trainer.py:204)
@@ -380,6 +381,50 @@ def test_update_with_own_draws_is_reproducible():
     assert draws.perm.shape == (2, 64) and draws.perm.dtype == torch.int64
     assert torch.equal(draws.perm[0].sort().values, torch.arange(64))
     assert draws.step.fruit_u.shape == (8, 4, 2)
+
+
+class _LinearNet(torch.nn.Module):
+    """A stand-in net: one linear layer over the flattened obs, 3 logits
+    and a value."""
+
+    def __init__(self, obs_shape):
+        super().__init__()
+        self.fc = torch.nn.Linear(int(np.prod(obs_shape)), 4)
+
+    @staticmethod
+    def ingress(obs):
+        return obs
+
+    def initial_state(self):
+        return {k: v.detach().clone() for k, v in self.state_dict().items()}
+
+    def forward(self, obs, phases=False):
+        out = self.fc(obs.flatten(1).to(torch.float32))
+        return out[:, :3], out[:, 3]
+
+
+def _linear_net(config, env_cfg, device):
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(config.seed)
+        return _LinearNet(env_cfg.obs_shape[1:]).to(device)
+
+
+def test_a_net_added_to_the_table_trains_through_the_same_trainer(
+        monkeypatch):
+    """A net that is one entry of ``models.policy.NETS`` and its own
+    module, and nothing of the trainer: one update on the CPU."""
+    monkeypatch.setitem(policy.NETS, 'linear', _linear_net)
+    tr = PPOTrainer(PPOConfig(height=8, width=8, num_snakes=2,
+                              snake_length=3, num_envs=2, rollout_steps=4,
+                              num_minibatches=2, update_epochs=2,
+                              net='linear'), device='cpu')
+    ts0 = tr.init_state()
+    before = {k: v.clone() for k, v in ts0.params.items()}
+    ts, m = tr.update(ts0)
+    assert list(ts.params) == ['fc.weight', 'fc.bias'] and ts.buffers == {}
+    assert all(torch.isfinite(x) for x in (m.loss_actor, m.loss_value,
+                                           m.entropy, m.approx_kl))
+    assert all(not torch.equal(ts.params[k], before[k]) for k in before)
 
 
 def test_main_runs_on_the_cpu(tmp_path):

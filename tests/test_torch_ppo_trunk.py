@@ -37,10 +37,10 @@ import torch
 import torch.nn.functional as F
 
 from marlsnake_torch.models import ppo as ppo_model
-from marlsnake_torch.models.dqn import prepare_obs
 from marlsnake_torch.models.ppo import ActorCritic
 from marlsnake_torch.ops import cuda_build
 from marlsnake_torch.ops import ppo_trunk as PT
+from marlsnake_torch.ops.obs_pack import prepare_obs
 
 SHAPES = {'20x20': (20, 20, 8), '10x10': (10, 10, 8), '11x9': (11, 9, 8),
           'stack4': (20, 20, 32)}

@@ -33,10 +33,10 @@ import pytest
 import torch
 
 from marlsnake_torch.algo.dqn_trainer import DQNConfig, DQNTrainer
+from marlsnake_torch.algo.flax_states import (ppo_train_state_from_flax,
+                                              train_state_from_flax)
 from marlsnake_torch.algo.ppo_trainer import PPOConfig, PPOTrainer
 from marlsnake_torch.examples import train_showcase as S
-from marlsnake_torch.models.weights import (ppo_train_state_from_flax,
-                                            train_state_from_flax)
 from test_torch_dqn_trainer import SMALL
 from test_torch_dqn_trainer import assert_params_close as dqn_params_close
 from test_torch_dqn_trainer import episode_draws

@@ -20,12 +20,12 @@ from marlsnake_torch.algo import replay
 from marlsnake_torch.algo.acting import select_actions
 from marlsnake_torch.algo.dqn_trainer import DQNConfig, DQNTrainer
 from marlsnake_torch.algo.dqn_trainer import main as dqn_trainer_main
+from marlsnake_torch.algo.flax_states import train_state_from_flax
 from marlsnake_torch.core.types import EnvConfig
 from marlsnake_torch.envs.env import make_env
 from marlsnake_torch.envs.vector import VectorSnakeEnv, build_vector_fns
 from marlsnake_torch.models.dqn import DQN, make_dqn
-from marlsnake_torch.models.weights import (dqn_from_flax,
-                                            train_state_from_flax)
+from marlsnake_torch.models.weights import dqn_from_flax
 from test_torch_engine import (assert_fields_equal, configs, jax_reset,
                                jax_spawn, jax_step_autoreset,
                                reset_draws_from_keys, step_draws_from_keys)
