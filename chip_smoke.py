@@ -341,6 +341,7 @@ Exits non-zero without a result when CUDA is not available.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -955,6 +956,7 @@ def ppo_phase(smi: str, keep: dict = None) -> dict:
     from marlsnake_torch.algo.ppo_trainer import (Minibatch, PPOConfig,
                                                   PPOTrainer)
     from marlsnake_torch.core.state import EnvState
+    from marlsnake_torch.ops import clip_adam as CA
     from marlsnake_torch.ops import step_kernel
     from marlsnake_torch.ops.ppo_trunk import ppo_trunk
     from marlsnake_torch.rng import ppo_draws
@@ -985,6 +987,7 @@ def ppo_phase(smi: str, keep: dict = None) -> dict:
     step_kernel.step_autoreset.launches = 0
     step_kernel.step.launches = 0
     ppo_trunk.launches = ppo_trunk.backward_launches = 0
+    CA.clip_adam.launches = 0
     t0 = time.perf_counter()
     ts, m = trainer.update(ts, draws)
     traj = {k: to_cpu(getattr(trainer.trajectory, k))
@@ -999,6 +1002,7 @@ def ppo_phase(smi: str, keep: dict = None) -> dict:
     launches = step_kernel.step_autoreset.launches
     step_launches = step_kernel.step.launches
     trunk = (ppo_trunk.launches, ppo_trunk.backward_launches)
+    optim_launches = CA.clip_adam.launches
     losses = [[float(getattr(m, k)) for k in (
         'loss_actor', 'loss_value', 'entropy', 'approx_kl')] for m in metrics]
     log(f'PPO path: 3 updates at {cfg.num_envs} envs x {cfg.rollout_steps} '
@@ -1022,6 +1026,14 @@ def ppo_phase(smi: str, keep: dict = None) -> dict:
         f'minibatches)')
     if trunk != want:
         raise AssertionError(f'ppo_trunk launches {trunk}, want {want}')
+    # the optimizer's kernel pair: once a minibatch, each kernel once a
+    # chunk of the ActorCritic's leaves
+    want_optim = 2 * CA.chunks(len(ts.params)) * minibatches
+    log(f'PPO path: clip_adam launches={optim_launches} (want {want_optim}'
+        f': the pair once in each of {minibatches} minibatches)')
+    if optim_launches != want_optim:
+        raise AssertionError(f'clip_adam launches {optim_launches} on the '
+                             f'PPO path, want {want_optim}')
     if not all(math.isfinite(x) for row in losses for x in row):
         raise AssertionError('a PPO loss is not finite')
     if abs(losses[0][2] - math.log(3)) > 0.1:
@@ -1126,6 +1138,7 @@ def ppo_phase(smi: str, keep: dict = None) -> dict:
     log_window('profile of one PPO minibatch update (32,768 rows, forward, '
                'backward, clip, Adam)', mb_window, 1, smi)
     return {'ppo_launches': launches, 'ppo_trunk_launches': trunk,
+            'ppo_clip_adam_launches': optim_launches,
             'ppo_ms_per_update': {n: r['ms_per_update']
                                   for n, r in rows.items()},
             'ppo_rollout_ms': {n: r['rollout_ms'] for n, r in rows.items()},
@@ -1316,6 +1329,167 @@ def ppo_trunk_phase(smi: str) -> dict:
         log(f'ppo_trunk B={batch}: {json.dumps(row)} [{smi}]')
         results[batch] = row
         del x, gf
+        torch.cuda.empty_cache()
+    return results
+
+
+def clip_adam_leaves(which: str) -> list:
+    """The leaf shapes of a learner's parameters: the DQN's, the PPO
+    ActorCritic's, or the Moonlight agent's as the benchmark's cell holds
+    it (5 layers, 16 held experts; built on the meta device)."""
+    from marlsnake_torch.core.types import EnvConfig
+    if which == 'dqn':
+        from marlsnake_torch.models.dqn import make_dqn
+        net = make_dqn(EnvConfig(height=20, width=20, num_snakes=4), 0, 'cpu')
+        return [tuple(v.shape) for v in net.state_dict().values()]
+    if which == 'ppo':
+        from marlsnake_torch.models.ppo import ActorCritic
+        net = ActorCritic((20, 20), 8, 3, device='cpu')
+        return [tuple(v.shape) for v in net.state_dict().values()]
+    from marlsnake_torch.models.moonlight import (AgentPrompt,
+                                                  MoonlightAgent,
+                                                  MoonlightConfig)
+    cfg = MoonlightConfig(num_hidden_layers=5, held=(0, 16),
+                          prompt=AgentPrompt((1,), tuple(range(2, 11)), 11,
+                                             (12, 13, 14)))
+    net = MoonlightAgent(cfg, device='cpu', weights=False)
+    return [tuple(p.shape) for p in net.parameters()]
+
+
+def ulp_gap(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in ulps between two float32 tensors."""
+    def ordered(x):
+        i = x.view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def clip_adam_phase(smi: str, sizes=('dqn', 'ppo', 'agent')) -> dict:
+    """The learners' optimizer step (csrc/clip_adam.cu) at the leaves of
+    the DQN (6,644,899 parameters), the PPO ActorCritic (78,660) and the
+    Moonlight agent's cell (1,432,513,025), in place as the DQN chunk and
+    the agent take it: against the plain version handed the kernel's norm
+    (parameters, moments and count equal bit for bit), then, from the
+    state that step left, the call that is timed (the norm the kernel's
+    own, pass 1's partials summed in pass 2) against the plain version
+    with the plain norm (within rtol 1e-5, atol 1e-7; the largest gap in
+    ulps kept), then ``device_ms``
+    (both kernels' time a step, torch.profiler), ``host_us``, ``call_ms``
+    (CUDA events), the plain version's time (the PyTorch passes the port
+    ran before the kernel: over all leaves at once for the DQN and PPO,
+    a leaf at a time with the global norm for the agent, as its in-place
+    step did) and the bound: the bytes a step needs (each gradient read
+    once, the parameters and both moments read and written once, 28 B an
+    element) at 3.35 TB/s."""
+    from marlsnake_torch.ops import clip_adam as CA
+
+    def leaf_by_leaf(params, grads, mu, nu, count, norm):
+        """The plain step a leaf at a time, written into the state, as
+        the agent's in-place step took it before the kernel."""
+        for p, g, m, v in zip(params, grads, mu, nu):
+            (p2,), (m2,), (v2,), _ = CA.clip_adam_plain(
+                [p], [g], [m], [v], count, lr=5e-4, max_norm=10.0, norm=norm)
+            p.copy_(p2)
+            m.copy_(m2)
+            v.copy_(v2)
+        count.add_(1)
+
+    dev = torch.device('cuda')
+    results = {}
+    for which in sizes:
+        shapes = clip_adam_leaves(which)
+        n = sum(math.prod(s) for s in shapes)
+        gen = torch.Generator(device=dev).manual_seed(25)
+        params = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+        grads = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+        mu = [torch.zeros_like(p) for p in params]
+        nu = [torch.zeros_like(p) for p in params]
+        count = torch.zeros((), dtype=torch.int32, device=dev)
+        flag = torch.ones((), dtype=torch.bool, device=dev)
+        chunks = CA.chunks(len(shapes))
+        norm = CA.global_norm(grads)
+        ulps = {}
+        CA.clip_adam.launches = 0
+        # the norm and the flag handed in, then the timed call: the
+        # kernel's own norm and no flag
+        for given, can in ((norm, flag), (None, None)):
+            twin = ([p.clone() for p in params], [m.clone() for m in mu],
+                    [v.clone() for v in nu], count.clone())
+            got = CA.clip_adam(params, grads, mu, nu, count, lr=5e-4,
+                               max_norm=10.0, can_update=can, norm=given,
+                               in_place=True)
+            if which == 'agent':
+                leaf_by_leaf(twin[0], grads, twin[1], twin[2], twin[3], norm)
+                want = twin
+            else:
+                want = CA.clip_adam_plain(twin[0], grads, twin[1], twin[2],
+                                          twin[3], lr=5e-4, max_norm=10.0,
+                                          norm=norm)
+            torch.cuda.synchronize()
+            if int(got[3]) != int(want[3]):
+                raise AssertionError(f'clip_adam {which}: count '
+                                     f'{int(got[3])}, plain {int(want[3])}')
+            for a, b, name in zip(got, want, ('params', 'mu', 'nu')):
+                if given is not None:
+                    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                        raise AssertionError(f'clip_adam {which}: {name} '
+                                             'differs from the plain version')
+                    continue
+                for i, (x, y) in enumerate(zip(a, b)):
+                    gap = (x - y).abs()
+                    if bool((gap > 1e-7 + 1e-5 * y.abs()).any()):
+                        raise AssertionError(
+                            f'clip_adam {which}: {name} leaf {i} differs '
+                            f'from the plain version by up to '
+                            f'{float(gap.max())} with its own norm')
+                    del gap
+                ulps[name] = max(ulp_gap(x, y) for x, y in zip(a, b))
+            del twin, want, got
+            torch.cuda.empty_cache()
+        if CA.clip_adam.launches != 2 * 2 * chunks:
+            raise AssertionError(f'clip_adam {which}: {CA.clip_adam.launches}'
+                                 f' launches in two steps, expected '
+                                 f'{2 * 2 * chunks}')
+        log(f'clip_adam {which}: equal to the plain version handed the same '
+            f'norm; with its own norm within rtol 1e-5, largest gaps in ulps '
+            f'{ulps}')
+
+        def step():
+            CA.clip_adam(params, grads, mu, nu, count, lr=5e-4,
+                         max_norm=10.0, in_place=True)
+
+        def plain():
+            if which != 'agent':
+                CA.clip_adam_plain(params, grads, mu, nu, count, lr=5e-4,
+                                   max_norm=10.0, in_place=True)
+                return
+            leaf_by_leaf(params, grads, mu, nu, count,
+                         CA.global_norm(grads))
+
+        iters = 20 if which == 'agent' else 200
+        prof = profile_device(step, iters)
+        by_kernel = {k: v[0] / iters / 1e3 for k, v in prof['kernels'].items()
+                     if 'sum_squares_kernel' in k or 'adam_kernel' in k}
+        device_ms = sum(by_kernel.values())
+        bound_ms = 28 * n / HBM_BYTES_PER_S * 1e3
+        row = {'parameters': n, 'leaves': len(shapes),
+               'max_ulps_own_norm': ulps,
+               'device_ms': device_ms,
+               'device_kernels_ms': {
+                   ('pass1' if 'sum_squares' in k else 'pass2'): v
+                   for k, v in by_kernel.items()},
+               'other_device_events': {k: v[1] for k, v in
+                                       prof['kernels'].items()
+                                       if k not in by_kernel},
+               'host_us': sorted(host_us(step, blocks=5, iters=10
+                                         if which == 'agent' else 50))[2],
+               'call_ms': event_ms(step, iters),
+               'plain_ms': event_ms(plain, max(iters // 10, 2)),
+               'bound_ms': bound_ms, 'bound_by': 'bytes',
+               'pct_of_bound': 100 * bound_ms / device_ms}
+        log(f'clip_adam {which}: {json.dumps(row)} [{smi}]')
+        results[which] = row
+        del params, grads, mu, nu
         torch.cuda.empty_cache()
     return results
 
@@ -4788,8 +4962,8 @@ def main() -> int:
     from marlsnake_torch.core.types import EnvConfig
     from marlsnake_torch.envs.vector import VectorSnakeEnv
     from marlsnake_torch.models.dqn import make_dqn
-    from marlsnake_torch.ops import (cuda_build, mask_kernel, ppo_trunk,
-                                     step_kernel)
+    from marlsnake_torch.ops import (clip_adam, cuda_build, mask_kernel,
+                                     ppo_trunk, step_kernel)
     from marlsnake_torch.ops.obs_pack import unpack_obs
     from marlsnake_torch.rng import reset_draws, step_draws, train_draws
     from marlsnake_torch.utils.profiling import card_label
@@ -4804,10 +4978,11 @@ def main() -> int:
     # --- 2. build: one nvcc a source, started together ---
     t0 = time.perf_counter()
     built = cuda_build.build(step_kernel.SOURCE, mask_kernel.SOURCE,
-                             ppo_trunk.SOURCE)
+                             ppo_trunk.SOURCE, clip_adam.SOURCE)
     step_kernel.load_library()
     mask_kernel.load_library()
     ppo_trunk.load_library()
+    clip_adam.load_library()
     log(f'build: {time.perf_counter() - t0:.2f} s -> '
         f'{", ".join(os.path.relpath(p) for p, _ in built)}')
     for line in built[0][1].splitlines():
@@ -4835,6 +5010,11 @@ def main() -> int:
             name.startswith('trunk_weight_grads_kernel') and ', 1,' in name)
         if (info['spill_stores'] or info['spill_loads']) and not rare:
             raise AssertionError(f'{name} spills: {info}')
+    # the optimizer's two kernels stream every leaf: neither may spill
+    for line in built[3][1].splitlines():
+        log(f'  nvcc clip_adam: {line}')
+        if re.search(r'[1-9]\d* bytes spill', line):
+            raise AssertionError(f'a clip_adam kernel spills: {line}')
     log('  dynamic shared memory of a masked_actions block: ' + ', '.join(
         f'{n} snakes of {h}x{w} {mask_kernel.smem_per_env(n, h, w)} B + '
         f'{mask_kernel.extra_planes_bytes(n, h, w)} B of other planes'
@@ -4976,6 +5156,7 @@ def main() -> int:
     ts = trainer.init_state()
     first = {k: v.clone() for k, v in ts.params.items()}
     step_kernel.step.launches = 0
+    clip_adam.clip_adam.launches = 0
     env_steps, episodes = 0, []
     for _ in range(2):
         ts, m = trainer.train_episode(ts)
@@ -4983,6 +5164,7 @@ def main() -> int:
         episodes.append(m)
     torch.cuda.synchronize()
     train_launches = step_kernel.step.launches
+    train_optim_launches = clip_adam.clip_adam.launches
     last_m = episodes[-1]
     train_graph, = trainer.captured_loops()
     log(f'training path: 2 episodes at {tcfg.num_envs} envs, '
@@ -4998,6 +5180,17 @@ def main() -> int:
         raise AssertionError(f'{env_steps} env steps on the training path '
                              f'but {train_launches} kernel launches, '
                              f'{train_graph.replays} graph replays')
+    # the optimizer's kernel pair on every step that may update (it runs
+    # whether or not the update is kept), each kernel once a chunk of
+    # leaves; graph replays counted
+    learn_steps = (env_steps if tcfg.fused_act_update
+                   else env_steps // tcfg.update_every)
+    want_optim = 2 * clip_adam.chunks(len(ts.params)) * learn_steps
+    log(f'training path: clip_adam launches={train_optim_launches} (want '
+        f'{want_optim}: the pair on each of {learn_steps} learner steps)')
+    if train_optim_launches != want_optim:
+        raise AssertionError(f'clip_adam launches {train_optim_launches} on '
+                             f'the training path, want {want_optim}')
     if last_m.updates <= 0 or ts.global_step != sum(m.updates
                                                     for m in episodes):
         raise AssertionError('no optimizer update in the second episode')
@@ -5344,6 +5537,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     trunk = ppo_trunk_phase(smi)
     torch.cuda.empty_cache()
+    optimizer = clip_adam_phase(smi)
+    torch.cuda.empty_cache()
     evaluation = evaluator_phase(smi)
     torch.cuda.empty_cache()
 
@@ -5605,6 +5800,20 @@ def main() -> int:
             'run_ppo20 (B=256, 2 updates)': showcase['ppo20'][
                 'ppo_trunk_launches']},
         at_shapes=trunk,
+    ), dict(
+        name='clip_adam',
+        route='cuda',
+        source='marlsnake_torch/csrc/clip_adam.cu',
+        replaces='marlsnake_tpu/algo/dqn_trainer.py:218-219 and '
+                 'marlsnake_tpu/algo/ppo_trainer.py:132-133 (optax.chain('
+                 'clip_by_global_norm, adam): XLA code, not a Pallas kernel)',
+        launches=ppo['ppo_clip_adam_launches'],
+        launches_by_path={
+            'PPO path (3 updates, 48 minibatches)': ppo[
+                'ppo_clip_adam_launches'],
+            'DQN training path (2 episodes at 256 envs)':
+                train_optim_launches},
+        at_shapes=optimizer,
     )]}))
     log(f'total {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'ok': True, 'device': {

@@ -352,15 +352,22 @@ class DQNTrainer:
                 q_act, q = q_all[:rows].detach(), q_all[rows:]
             loss = self._td_loss(q, target_params, batch)
             grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), list(grads), q_act
+        # in the parameters' layout (the convolutions' weight gradients
+        # come channels-last), as the optimizer's kernel takes them
+        return loss.detach(), [g.contiguous() for g in grads], q_act
 
     def apply_gradients(self, params: Params, opt_state: optim.AdamState,
-                        grads) -> Tuple[Params, optim.AdamState]:
-        """Clip to a global norm of 10, then one Adam step at ``lr``."""
-        grads = optim.clip_by_global_norm(grads, 10.0)
-        updates, opt_state = optim.adam_update(grads, opt_state,
-                                               self.config.lr)
-        new = optim.apply_updates(list(params.values()), updates)
+                        grads, can_update: Optional[torch.Tensor] = None,
+                        in_place: bool = False
+                        ) -> Tuple[Params, optim.AdamState]:
+        """Clip to a global norm of 10, then one Adam step at ``lr``, kept
+        where ``can_update`` (a device bool) is set: the branch-free
+        counterpart of JAX's ``lax.cond``, the Adam count held too. With
+        ``in_place`` the step is written into ``params`` and
+        ``opt_state``."""
+        new, opt_state = optim.clip_adam(
+            list(params.values()), grads, opt_state, self.config.lr, 10.0,
+            can_update=can_update, in_place=in_place)
         return dict(zip(params, new)), opt_state
 
     def _grads(self, params: Params, target_params: Params, batch,
@@ -492,21 +499,6 @@ class DQNTrainer:
                                for x in draws)),
             flags=zeros((3,), torch.int32))
 
-    def _select_update(self, can_update: torch.Tensor, new, old):
-        """``new`` (params, opt_state) where ``can_update``, else ``old``:
-        the branch-free counterpart of JAX's ``lax.cond``. The Adam count
-        is selected too, or its bias correction would drift."""
-        def sel(a, b):
-            return torch.where(can_update, a, b)
-
-        (p_new, o_new), (p_old, o_old) = new, old
-        params = {k: sel(p_new[k], p_old[k]) for k in p_old}
-        opt = optim.AdamState(
-            sel(o_new.count, o_old.count),
-            [sel(a, b) for a, b in zip(o_new.mu, o_old.mu)],
-            [sel(a, b) for a, b in zip(o_new.nu, o_old.nu)])
-        return params, opt
-
     def _chunk(self, b: _EpisodeBuffers) -> None:
         """``chunk_steps`` steps of the episode over the buffers ``b``,
         with no read-back and no branch on a device value: the body of
@@ -518,7 +510,8 @@ class DQNTrainer:
         (the step with its hold, the shaping, the push, the accumulators),
         ``dqn.td_grad`` (the sample, the online and target forwards, the
         loss, the backward; with ``fused_act_update`` the acting rows'
-        forward too) and ``dqn.optim`` (clip, Adam, ``_select_update``,
+        forward too) and ``dqn.optim`` (clip and Adam, kept where the
+        step can update, written into the chunk's parameters and moments;
         the loss and update counters), the last two on the steps that
         update."""
         cfg = self.config
@@ -533,14 +526,13 @@ class DQNTrainer:
             return x.reshape((e * n,) + x.shape[2:])
 
         def learn(can_update, d, acting=None):
-            nonlocal params, opt_state, loss_sum, updates
+            nonlocal loss_sum, updates
             batch = replay.sample(buffer, self.update_batch, d.sample_u,
                                   idx=d.sample_idx)
             loss, grads, q_act = self._grads(params, target, batch, acting)
             tracer.mark('dqn.td_grad')
-            p2, o2 = self.apply_gradients(params, opt_state, grads)
-            params, opt_state = self._select_update(
-                can_update, (p2, o2), (params, opt_state))
+            self.apply_gradients(params, opt_state, grads, can_update,
+                                 in_place=True)
             loss_sum = loss_sum + torch.where(can_update, loss, 0.0)
             updates = updates + can_update.to(torch.int32)
             tracer.mark('dqn.optim')
@@ -595,8 +587,6 @@ class DQNTrainer:
                          (b.steps, steps), (b.t, t), (b.loss_sum, loss_sum),
                          (b.updates, updates)):
             dst.copy_(src)
-        copy_into(b.params, params)
-        copy_into(b.opt_state, opt_state)
         b.flags.copy_(torch.stack([(~frozen.all()).to(torch.int32), steps,
                                    updates]))
         tracer.mark('dqn.chunk.end')

@@ -23,7 +23,8 @@ into the graph's buffers and hands back copies of what it carries;
 into buffers the trainer allocates once (``trainer.trajectory``: obs as
 (T, E * N, H * W * C) bytes, packed bytes under ``obs_format='packed'``),
 which the next update overwrites. The minibatch epochs are plain torch:
-autograd on the forward, ``algo/optim.py`` for the clip and Adam.
+autograd on the forward, ``algo/optim.py`` for the clip and Adam (on
+the card one kernel pair over every leaf, ``ops/clip_adam.py``).
 
 The shared net is the one ``PPOConfig.net`` names in
 ``models/policy.py``'s table, which says what a net gives the trainer:
@@ -38,7 +39,7 @@ state's buffers (the agent's routers' correction biases) ride in
 the agent, the bias step of aux-loss-free balancing) after each
 optimizer step. With ``in_place`` (for either net) ``learn`` writes the
 new parameters and Adam's moments into the state it is given
-(``_apply_in_place``): at its published widths the agent's float32
+(``apply_gradients``): at its published widths the agent's float32
 parameters and moments fit one card once, not twice.
 
 Random numbers: the trainer owns one ``torch.Generator`` on its device;
@@ -484,45 +485,24 @@ class PPOTrainer:
         with torch.enable_grad():
             total, aux = self._loss(leaves, mb, buffers)
             grads = torch.autograd.grad(total, list(leaves.values()))
-        return total.detach(), aux.detach(), list(grads)
+        # in the parameters' layout, as the optimizer's kernel takes them
+        return total.detach(), aux.detach(), [g.contiguous() for g in grads]
 
     def apply_gradients(self, params: Params, opt_state: optim.AdamState,
                         grads) -> Tuple[Params, optim.AdamState]:
         """Clip to the global norm ``max_grad_norm``, then one Adam step
-        (eps 1e-5) at ``lr``; with ``in_place``, made into the state given
-        (``_apply_in_place``)."""
-        cfg = self.config
-        if cfg.in_place:
-            return self._apply_in_place(params, opt_state, grads)
-        grads = optim.clip_by_global_norm(grads, cfg.max_grad_norm)
-        updates, opt_state = optim.adam_update(grads, opt_state, cfg.lr,
-                                               eps=1e-5)
-        new = optim.apply_updates(list(params.values()), updates)
-        return dict(zip(params, new)), opt_state
-
-    def _apply_in_place(self, params: Params, opt_state: optim.AdamState,
-                        grads: List[torch.Tensor]
-                        ) -> Tuple[Params, optim.AdamState]:
-        """``apply_gradients``'s arithmetic, written into the parameters
-        and moments handed in, one parameter at a time, each gradient
-        let go of (``grads`` emptied) once used: a 1.4 B-parameter learner
+        (eps 1e-5) at ``lr``; with ``in_place``, written into the state
+        given, with ``grads`` emptied once used: a 1.4 B-parameter learner
         has room on one card for one copy of its float32 state and its
         gradients, not for the two or three that a functional step makes
-        (``PERF.md``). So ``learn`` changes the state it is given."""
+        (``PERF.md``). So ``learn`` then changes the state it is given."""
         cfg = self.config
-        norm = optim.global_norm(grads)
-        for i, p in enumerate(params.values()):
-            g = optim.clip_by_global_norm([grads[i]], cfg.max_grad_norm, norm)
-            grads[i] = None
-            (update,), st = optim.adam_update(
-                g, optim.AdamState(opt_state.count, [opt_state.mu[i]],
-                                   [opt_state.nu[i]]), cfg.lr, eps=1e-5)
-            p.add_(update)
-            opt_state.mu[i].copy_(st.mu[0])
-            opt_state.nu[i].copy_(st.nu[0])
-        grads.clear()
-        opt_state.count.add_(1)
-        return params, opt_state
+        new, opt_state = optim.clip_adam(
+            list(params.values()), grads, opt_state, cfg.lr,
+            cfg.max_grad_norm, eps=1e-5, in_place=cfg.in_place)
+        if cfg.in_place:
+            grads.clear()
+        return dict(zip(params, new)), opt_state
 
     def minibatches(self, perm: torch.Tensor):
         """The minibatches of one epoch of ``self.trajectory``, in order:

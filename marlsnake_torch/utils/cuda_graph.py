@@ -141,11 +141,12 @@ def track(counter: Counter) -> Counter:
 def launch_counters() -> tuple:
     """The wrappers whose ``launches`` attribute counts their kernel's
     launches, and the tracked counters."""
-    from marlsnake_torch.ops import (floodfill, ppo_trunk, safety_mask, stamp,
-                                     step_kernel)
+    from marlsnake_torch.ops import (clip_adam, floodfill, ppo_trunk,
+                                     safety_mask, stamp, step_kernel)
     return (step_kernel.step_autoreset, step_kernel.step,
             safety_mask.safety_mask, floodfill.reachable_count,
-            stamp.stamp, ppo_trunk.ppo_trunk, *_TRACKED)
+            stamp.stamp, ppo_trunk.ppo_trunk, clip_adam.clip_adam,
+            *_TRACKED)
 
 
 class LaunchTally:

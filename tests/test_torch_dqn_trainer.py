@@ -361,7 +361,7 @@ def record_updates(tr, monkeypatch) -> list:
     parameters and minibatch (cloned) and whether the update was kept
     (the chunk body computes every update and selects)."""
     records = []
-    loss_and_grads, select = tr.loss_and_grads, tr._select_update
+    loss_and_grads, apply = tr.loss_and_grads, tr.apply_gradients
 
     def recorded(params, target, batch, acting=None):
         records.append([{k: v.clone() for k, v in d.items()}
@@ -369,12 +369,12 @@ def record_updates(tr, monkeypatch) -> list:
                        + [tuple(x.clone() for x in batch)])
         return loss_and_grads(params, target, batch, acting)
 
-    def selected(can_update, new, old):
-        records[-1].append(bool(can_update))
-        return select(can_update, new, old)
+    def applied(params, opt_state, grads, can_update=None, **kw):
+        records[-1].append(can_update is None or bool(can_update))
+        return apply(params, opt_state, grads, can_update, **kw)
 
     monkeypatch.setattr(tr, 'loss_and_grads', recorded)
-    monkeypatch.setattr(tr, '_select_update', selected)
+    monkeypatch.setattr(tr, 'apply_gradients', applied)
     return records
 
 
